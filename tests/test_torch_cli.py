@@ -1,0 +1,149 @@
+"""`python -m nanohevc_tpu_torch` vs `python -m nanohevc_tpu`.
+
+For the same arguments (the port with --device cpu, the JAX CLI with
+--platform cpu) stdout and the files written must be identical.  Flags
+the port does not cover yet exit with rc 2; a missing card fails
+instead of running on the CPU.
+"""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+import torch
+
+from nanohevc_tpu.cli import main as jax_main
+from nanohevc_tpu_torch.cli import main as torch_main
+from nanohevc_tpu_torch.models.all_intra import create_test_frame
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run_both(capsys, args, outputs=()):
+    """Run both CLIs with the same argv; return (stdout, files) of each."""
+    results = []
+    for run, flag in ((jax_main, ["--platform", "cpu"]),
+                      (torch_main, ["--device", "cpu"])):
+        for path in outputs:
+            if os.path.exists(path):
+                os.remove(path)
+        run(flag + args)
+        files = {}
+        for path in outputs:
+            with open(path, "rb") as f:
+                files[path] = f.read()
+        results.append((capsys.readouterr().out, files))
+    return results
+
+
+@pytest.mark.parametrize("w,h,bs", [(64, 64, 8), (48, 32, 4), (64, 96, 16)])
+def test_demo_output_identical(capsys, w, h, bs):
+    (jout, _), (tout, _) = _run_both(
+        capsys, ["demo", "--width", str(w), "--height", str(h),
+                 "--block-size", str(bs)])
+    assert tout == jout
+    if (w, h, bs) == (64, 64, 8):
+        assert "DC wins:      32 (50.0%)" in tout
+        assert "Planar wins:  32 (50.0%)" in tout
+        assert "19.09 dB" in tout
+
+
+@pytest.fixture
+def yuv_input(tmp_path):
+    frame = create_test_frame(48, 64)
+    src = tmp_path / "in.yuv"
+    src.write_bytes(frame.to_yuv420p())
+    return tmp_path, str(src)
+
+
+@pytest.mark.parametrize("bs", [4, 8])
+def test_encode_predict_identical(capsys, yuv_input, bs):
+    tmp, src = yuv_input
+    out = str(tmp / "out.yuv")
+    (jout, jf), (tout, tf) = _run_both(
+        capsys, ["encode", src, "--width", "64", "--height", "48",
+                 "--block-size", str(bs), "-o", out], outputs=[out])
+    assert tout == jout
+    assert tf == jf
+    assert "Y-PSNR" in tout
+
+
+@pytest.mark.parametrize("extra", [
+    [],
+    ["--block-size", "16", "--qp", "37"],
+    ["--block-size", "4", "--scan", "mode", "--dequant-rescale"],
+    ["--decision", "sad", "--entropy", "cabac"],
+])
+def test_encode_full_bitstream_identical(capsys, yuv_input, extra):
+    tmp, src = yuv_input
+    out, bits = str(tmp / "out.yuv"), str(tmp / "out.bin")
+    (jout, jf), (tout, tf) = _run_both(
+        capsys, ["encode", src, "--width", "64", "--height", "48",
+                 "--pipeline", "full", "-o", out, "--bitstream", bits] + extra,
+        outputs=[out, bits])
+    assert tout == jout
+    assert tf == jf
+    assert "Bitstream:" in tout
+
+
+@pytest.mark.parametrize("argv", [
+    ["--mode-search"], ["--rdo"], ["--rdoq"], ["--intra-smoothing"],
+    ["--deblock"], ["--sao"], ["--sao-ctb"], ["--sao-tile", "32"],
+    ["--hevc-export", "x.hevc"], ["--hevc-mono"], ["--chroma-mode", "dc"],
+    ["--target-bytes", "1000"], ["--pipeline", "closed-loop"],
+    ["--decision", "rd"],
+])
+def test_unported_encode_flags_exit_2(capsys, yuv_input, argv):
+    _, src = yuv_input
+    with pytest.raises(SystemExit) as exc:
+        torch_main(["--device", "cpu", "encode", src, "--width", "64",
+                    "--height", "48", "--pipeline", "full"] + argv)
+    assert exc.value.code == 2
+    assert "not yet ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["encode-seq", "in.yuv", "--width", "64", "--height", "48",
+     "--frames", "2", "--bitstream", "o.bin"],
+    ["decode", "o.bin", "-o", "d.yuv"],
+    ["--platform", "cpu", "demo"],
+])
+def test_unported_commands_exit_2(capsys, argv):
+    with pytest.raises(SystemExit) as exc:
+        torch_main(argv)
+    assert exc.value.code == 2
+    assert "not yet ported" in capsys.readouterr().err
+
+
+def test_short_file_errors(capsys, tmp_path):
+    src = tmp_path / "short.yuv"
+    src.write_bytes(b"\x00" * 10)
+    with pytest.raises(SystemExit) as exc:
+        torch_main(["--device", "cpu", "encode", str(src), "--width", "64",
+                    "--height", "64"])
+    assert exc.value.code == 1
+    assert "too small" in capsys.readouterr().out
+
+
+def test_cuda_without_card_fails(capsys, monkeypatch, yuv_input):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tmp, src = yuv_input
+    out = tmp / "never.yuv"
+    with pytest.raises(SystemExit) as exc:
+        torch_main(["encode", src, "--width", "64", "--height", "48",
+                    "--pipeline", "full", "-o", str(out)])
+    assert exc.value.code == 1
+    assert "torch.cuda.is_available() is False" in capsys.readouterr().err
+    assert not out.exists()
+
+
+def test_module_entry_point():
+    proc = subprocess.run(
+        [sys.executable, "-m", "nanohevc_tpu_torch", "--device", "cpu",
+         "demo", "--width", "16", "--height", "16", "--block-size", "8"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "PSNR" in proc.stdout

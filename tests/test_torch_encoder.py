@@ -1,0 +1,186 @@
+"""The port's frame encoders vs the JAX package's, bit-exact.
+
+Small seeded 4:2:0 frames go through `nanohevc_tpu.models.all_intra`
+and `nanohevc_tpu_torch.models.all_intra` (device="cpu").  Recon,
+scan-packed levels, modes, nnz and dtypes must be equal, and so must
+the bytes the shared runtime writes from either side's output.
+"""
+
+from functools import lru_cache
+
+import numpy as np
+import pytest
+
+import torch
+
+from nanohevc_tpu.config import EncoderConfig
+from nanohevc_tpu.frame import Frame, Plane
+from nanohevc_tpu.models import all_intra as jax_ai
+from nanohevc_tpu.runtime import parse_bitstream
+from nanohevc_tpu_torch import resolve_device
+from nanohevc_tpu_torch.cli import assemble_frame_bitstream
+from nanohevc_tpu_torch.models import all_intra as torch_ai
+
+
+def make_frame(h, w, seed, bit_depth=8):
+    """Textured seeded 4:2:0 frame: smooth ramps plus noise, so both DC
+    and planar win some blocks."""
+    rng = np.random.default_rng(seed)
+    peak = (1 << bit_depth) - 1
+
+    def plane(ph, pw):
+        yy, xx = np.mgrid[0:ph, 0:pw]
+        ramp = (yy * 3 + xx * 2) % (peak + 1)
+        noise = rng.integers(-12, 13, (ph, pw))
+        return Plane(np.clip(ramp + noise, 0, peak).astype(np.int16))
+
+    return Frame(plane(h, w), plane(h // 2, w // 2), plane(h // 2, w // 2))
+
+
+@lru_cache(maxsize=None)
+def _encoded(h, w, seed, cfg):
+    frame = make_frame(h, w, seed, cfg.bit_depth)
+    return (frame, jax_ai.encode_frame_full(frame, cfg),
+            torch_ai.encode_frame_full(frame, cfg, device="cpu"))
+
+
+def _assert_same(jax_res, torch_res):
+    (jr, ji), (tr, ti) = jax_res, torch_res
+    for p in ("y", "u", "v"):
+        assert np.array_equal(getattr(jr, p).data, getattr(tr, p).data), p
+        assert getattr(jr, p).data.dtype == getattr(tr, p).data.dtype
+    assert ji["blocks"] == ti["blocks"]
+    for name in ("Y", "U", "V"):
+        jp, tp = ji["planes"][name], ti["planes"][name]
+        assert jp["block_size"] == tp["block_size"]
+        assert jp["nnz"] == tp["nnz"]
+        assert isinstance(tp["nnz"], int)
+        for k in ("levels", "modes"):
+            assert jp[k].dtype == tp[k].dtype, (name, k)
+            assert jp[k].shape == tp[k].shape, (name, k)
+            assert np.array_equal(jp[k], tp[k]), (name, k)
+    assert ji["psnr_y"] == ti["psnr_y"]
+    assert ji["ssim_y"] == ti["ssim_y"]
+
+
+@pytest.mark.parametrize("shape", [(40, 64), (48, 96)])
+@pytest.mark.parametrize("bs", [4, 8, 16, 32])
+def test_default_decision_matches_jax(shape, bs):
+    cfg = EncoderConfig(block_size=bs, qp=22)
+    _, j, t = _encoded(*shape, bs, cfg)
+    _assert_same(j, t)
+
+
+@pytest.mark.parametrize("decision", ["sad", "satd"])
+@pytest.mark.parametrize("bs", [4, 8])
+def test_other_decisions_match_jax(decision, bs):
+    cfg = EncoderConfig(block_size=bs, qp=37, decision=decision)
+    _, j, t = _encoded(40, 64, 7, cfg)
+    _assert_same(j, t)
+
+
+@pytest.mark.parametrize("bs", [8, 16])
+def test_dequant_rescale_matches_jax(bs):
+    cfg = EncoderConfig(block_size=bs, qp=37, dequant_rescale=True)
+    _, j, t = _encoded(48, 96, 11, cfg)
+    _assert_same(j, t)
+
+
+@pytest.mark.parametrize("chroma", ["dc", "planar"])
+def test_fixed_chroma_mode_matches_jax(chroma):
+    """Fixed chroma modes take the plain path (no search) in both."""
+    cfg = EncoderConfig(block_size=8, qp=30, chroma_mode_set=chroma)
+    _, j, t = _encoded(40, 64, 19, cfg)
+    _assert_same(j, t)
+
+
+def test_mode_scan_and_10bit_match_jax():
+    cfg = EncoderConfig(block_size=4, qp=30, scan="mode", bit_depth=10)
+    _, j, t = _encoded(40, 64, 13, cfg)
+    _assert_same(j, t)
+
+
+def test_unaligned_width_takes_plain_path(monkeypatch):
+    """W % N != 0 goes to the plain formulation, as in JAX."""
+    calls = []
+    real = torch_ai.slab_encode_plane
+
+    def spy(plane, qp, n, **kw):
+        calls.append((tuple(plane.shape), n))
+        return real(plane, qp, n, **kw)
+
+    monkeypatch.setattr(torch_ai, "slab_encode_plane", spy)
+    cfg = EncoderConfig(block_size=16, qp=22)
+    frame = make_frame(40, 72, 17)
+    _assert_same(jax_ai.encode_frame_full(frame, cfg),
+                 torch_ai.encode_frame_full(frame, cfg, device="cpu"))
+    assert calls == []                       # 72 % 16 and 36 % 8 != 0
+
+    frame = make_frame(40, 64, 17)
+    torch_ai.encode_frame_full(frame, cfg, device="cpu")
+    assert calls == [((40, 64), 16), ((20, 32), 8), ((20, 32), 8)]
+
+
+@pytest.mark.parametrize("bs", [8, 16])
+def test_bitstream_bytes_match_jax(bs):
+    cfg = EncoderConfig(block_size=bs, qp=22)
+    frame, (_, ji), (_, ti) = _encoded(48, 96, bs, cfg)
+    want = assemble_frame_bitstream(96, 48, cfg, ji)
+    got = assemble_frame_bitstream(96, 48, cfg, ti)
+    assert got == want
+    parsed = parse_bitstream(got)
+    for name in ("Y", "U", "V"):
+        assert np.array_equal(parsed[name]["levels"], ti["planes"][name]["levels"])
+        assert np.array_equal(parsed[name]["modes"], ti["planes"][name]["modes"])
+
+
+@pytest.mark.parametrize("bs", [4, 8, 16])
+def test_encode_frame_intra_matches_jax(bs, tmp_path):
+    frame = make_frame(40, 64, 23)
+    jr, js = jax_ai.encode_frame_intra(frame, bs, str(tmp_path / "j.yuv"))
+    tr, ts = torch_ai.encode_frame_intra(frame, bs, str(tmp_path / "t.yuv"),
+                                         device="cpu")
+    assert js == ts
+    for p in ("y", "u", "v"):
+        assert np.array_equal(getattr(jr, p).data, getattr(tr, p).data)
+    assert (tmp_path / "j.yuv").read_bytes() == (tmp_path / "t.yuv").read_bytes()
+
+
+def test_create_test_frame_matches_jax():
+    j = jax_ai.create_test_frame(36, 50)
+    t = torch_ai.create_test_frame(36, 50)
+    assert j.to_yuv420p() == t.to_yuv420p()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mode_set="all", decision="satd"),
+    dict(decision="rd"),
+    dict(rdo_cbf=True),
+    dict(rdoq=True),
+    dict(intra_smoothing=True),
+])
+def test_unported_configs_raise(kw):
+    cfg = EncoderConfig(block_size=8, qp=22, **kw)
+    with pytest.raises(NotImplementedError):
+        torch_ai.encode_frame_full(make_frame(16, 16, 1), cfg, device="cpu")
+
+
+def test_cuda_request_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        torch_ai.encode_frame_full(make_frame(16, 16, 1), EncoderConfig(),
+                                   device="cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_frame_matches_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; on the GPU machine run "
+                    "python -m pytest -m cuda tests/test_torch_*.py")
+    cfg = EncoderConfig(block_size=8, qp=22)
+    frame = make_frame(136, 240, 5)
+    rc, ic = torch_ai.encode_frame_full(frame, cfg, device="cpu")
+    rg, ig = torch_ai.encode_frame_full(frame, cfg, device="cuda")
+    _assert_same((rc, ic), (rg, ig))
