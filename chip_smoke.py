@@ -2,22 +2,30 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Drives the port's main path, the open-loop all-intra encode of a seeded
-1080p 4:2:0 frame with the default EncoderConfig (8x8 luma, 4x4 chroma,
-QP 22, DC/planar by energy), and checks it end to end:
+Drives the port's two main paths on a seeded 1080p 4:2:0 frame, the
+open-loop all-intra encode with the default EncoderConfig (8x8 luma,
+4x4 chroma, QP 22, DC/planar by energy) and with the 35-mode SATD
+search (mode_set="all", decision="satd", what the CLI's --mode-search
+selects), and checks them end to end:
 
 1. the card, its power limit, and the PyTorch and CUDA versions;
-2. builds the CUDA kernels from the sources in this checkout;
-3. holds the slab kernel against its plain PyTorch version on the card,
-   exactly, over N 4/8/16/32, DST at 4, 8/10-bit, both dequant modes
-   and QP 0/22/37/51, on a 1080x1920 luma and a 540x960 chroma plane;
-4. encodes the frame on the card: the kernel must launch once per plane
-   (3 times), the result must equal the port's plain path on the CPU,
-   256 sampled luma blocks must match the numpy oracle, and the
-   bitstream written by the shared runtime must parse back to the same
-   levels and modes;
-5. runs the CLI on the same frame and compares its bitstream;
-6. times kernel and plain version per 1080p luma plane, and the frame.
+2. builds the CUDA kernels from the sources in this checkout, one nvcc
+   per source, all at once;
+3. holds the slab kernel (3) and the mode-search kernel (3b) against
+   their plain PyTorch versions on the card, exactly, over N 4/8/16/32,
+   DST at 4, 8/10-bit, both dequant modes and QP 0/22/37/51, on a
+   1080x1920 luma and a 540x960 chroma plane, and at N 4/8 on a 45x200
+   plane that leaves thread blocks part empty;
+4. encodes the frame on the card under each config (4: default, 4b:
+   mode search): the path's kernel must launch once per plane (3
+   times) and the other kernel not at all, the result must equal the
+   port's plain path on the CPU, 256 sampled luma blocks must match the
+   numpy oracle, and the bitstream written by the shared runtime must
+   parse back to the same levels and modes;
+5. runs the CLI on the same frame under each config and compares its
+   bitstream;
+6. times kernels and plain versions per 1080p luma plane, and the frame
+   under each config.
 
 Prints one JSON line of kernel results before the last line, and as the
 last line {"ok": true, "device": {...}}.  Exits non-zero, without that
@@ -44,7 +52,12 @@ try:
     from nanohevc_tpu.ref.metrics import ssim as ssim_host
     from nanohevc_tpu.runtime import parse_bitstream
     from nanohevc_tpu_torch.cli import assemble_frame_bitstream
+    from nanohevc_tpu.ref.metrics import hadamard_matrix
     from nanohevc_tpu_torch.kernels import build
+    from nanohevc_tpu_torch.kernels.mode_search import (
+        mode_search_encode_plane,
+        mode_search_encode_plane_reference,
+    )
     from nanohevc_tpu_torch.kernels.slab_pipeline import (
         slab_encode_plane,
         slab_encode_plane_reference,
@@ -61,8 +74,21 @@ except ImportError as exc:
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H, W = 1080, 1920
 SEED = 0
-KERNEL_SOURCE = "nanohevc_tpu_torch/csrc/slab_pipeline.cu"
-TPU_KERNEL = "nanohevc_tpu/kernels/slab_pipeline.py:275"
+MODE_SEARCH = EncoderConfig(mode_set="all", decision="satd")
+# (kernel wrapper, plain version, source, TPU kernel(s) it replaces)
+KERNELS = {
+    "slab_encode_plane": (
+        slab_encode_plane, slab_encode_plane_reference,
+        "nanohevc_tpu_torch/csrc/slab_pipeline.cu",
+        "nanohevc_tpu/kernels/slab_pipeline.py:275",
+    ),
+    "mode_search_encode_plane": (
+        mode_search_encode_plane, mode_search_encode_plane_reference,
+        "nanohevc_tpu_torch/csrc/mode_search.cu",
+        "nanohevc_tpu/kernels/mode_search_slab.py:457, "
+        "nanohevc_tpu/kernels/mode_search_grouped.py:426",
+    ),
+}
 
 
 def log(*args):
@@ -92,7 +118,7 @@ def gpu_line() -> str:
     return out[0].strip()
 
 
-def cuda_ms(fn, iters: int = 20) -> float:
+def cuda_ms(fn, iters: int = 50) -> float:
     """Mean device time of fn() over iters launches, after warm-up."""
     for _ in range(3):
         fn()
@@ -132,31 +158,37 @@ def max_abs_err(got: dict, want: dict) -> int:
     )
 
 
-def phase_kernel_vs_plain(dev) -> int:
+def phase_kernel_vs_plain(dev, name: str, tag: str) -> int:
+    kernel, plain = KERNELS[name][:2]
     rng = np.random.default_rng(SEED)
     worst = 0
     cases = 0
-    for shape in ((H, W), (H // 2, W // 2)):
+    # The 45x200 plane leaves the last thread block of N=4 and N=8 part
+    # empty (its block count is no multiple of 16 or 4).
+    for shape in ((H, W), (H // 2, W // 2), (45, 200)):
         for bit_depth in (8, 10):
             plane = torch.from_numpy(textured(*shape, bit_depth, rng)).to(dev)
             for n, use_dst in ((4, False), (4, True), (8, False),
                                (16, False), (32, False)):
+                if shape[1] % n:
+                    continue
                 for rescale in (False, True):
                     for qp in (0, 22, 37, 51):
                         kw = dict(bit_depth=bit_depth, use_dst=use_dst,
                                   dequant_rescale=rescale)
-                        got = slab_encode_plane(plane, qp, n, **kw)
-                        want = slab_encode_plane_reference(plane, qp, n, **kw)
+                        got = kernel(plane, qp, n, **kw)
+                        want = plain(plane, qp, n, **kw)
                         torch.cuda.synchronize()
                         err = max_abs_err(got, want)
                         if err:
                             raise SystemExit(
-                                f"kernel != plain at {shape} N={n} dst={use_dst} "
-                                f"bd={bit_depth} rescale={rescale} qp={qp}: "
-                                f"max abs err {err}")
+                                f"{name} != plain at {shape} N={n} "
+                                f"dst={use_dst} bd={bit_depth} "
+                                f"rescale={rescale} qp={qp}: max abs err {err}")
                         worst = max(worst, err)
                         cases += 1
-    log(f"[3] kernel == plain on CUDA in {cases} cases (max abs err {worst})")
+    log(f"[{tag}] {name} == plain on CUDA in {cases} cases "
+        f"(max abs err {worst})")
     return worst
 
 
@@ -166,10 +198,49 @@ def make_frame(rng) -> Frame:
                  Plane(textured(H // 2, W // 2, 8, rng).astype(np.int16)))
 
 
+def oracle_refs(plane: np.ndarray, y0: int, x0: int, n: int):
+    """Top and left arms (2N+1, corner at 0) with extract_refs' rules:
+    columns clamped to W-1, rows clamped to H-1, 128 outside the plane."""
+    h, w = plane.shape
+    cols = np.minimum(x0 + np.arange(2 * n), w - 1)
+    rows = np.minimum(y0 + np.arange(2 * n), h - 1)
+    corner = 128 if y0 == 0 or x0 == 0 else int(plane[y0 - 1, x0 - 1])
+    top = np.full(2 * n + 1, 128, np.int32)
+    left = np.full(2 * n + 1, 128, np.int32)
+    top[0] = left[0] = corner
+    if y0 > 0:
+        top[1:] = plane[y0 - 1, cols]
+    if x0 > 0:
+        left[1:] = plane[rows, x0 - 1]
+    return top, left
+
+
+def oracle_search(blk: np.ndarray, top: np.ndarray, left: np.ndarray,
+                  n: int) -> np.ndarray:
+    """The 35-mode SATD decision with the numpy oracle's predictors:
+    costs over [planar, DC, 2..34], ties to the lowest index."""
+    had = hadamard_matrix(n).astype(np.int64)
+    t, lf = top[1:n + 1], left[1:n + 1]
+    best, best_pred = None, None
+    for mode in range(35):
+        if mode == 0:
+            pred = oracle.intra_planar_predict(t, lf, int(top[n]), int(left[n]), n)
+        elif mode == 1:
+            pred = oracle.intra_dc_predict(t, lf, n)
+        else:
+            pred = oracle.intra_angular_predict(top, left, int(top[0]), mode, n)
+        d = blk.astype(np.int64) - pred.astype(np.int64)
+        cost = int(np.abs(had @ d @ had.T).sum())
+        if best is None or cost < best:
+            best, best_pred = cost, pred
+    return best_pred
+
+
 def oracle_gate(plane: np.ndarray, levels: np.ndarray, recon: np.ndarray,
-                n: int, qp: int) -> int:
+                n: int, qp: int, search: bool = False) -> int:
     """Count of 256 sampled blocks that differ from the numpy oracle
-    (levels (nb, N, N) raster blocks, recon (H, W))."""
+    (levels (nb, N, N) raster blocks, recon (H, W)); `search` picks the
+    35-mode SATD decision instead of DC/planar by energy."""
     rng = np.random.default_rng(SEED)
     nbx = plane.shape[1] // n
     nb = (plane.shape[0] // n) * nbx
@@ -177,16 +248,16 @@ def oracle_gate(plane: np.ndarray, levels: np.ndarray, recon: np.ndarray,
     for b in rng.choice(nb, size=min(256, nb), replace=False):
         y0, x0 = (b // nbx) * n, (b % nbx) * n
         blk = plane[y0:y0 + n, x0:x0 + n]
-        top = (np.full(n, 128, np.int16) if y0 == 0
-               else plane[y0 - 1, x0:x0 + n].astype(np.int16))
-        left = (np.full(n, 128, np.int16) if x0 == 0
-                else plane[y0:y0 + n, x0 - 1].astype(np.int16))
-        dc = oracle.intra_dc_predict(top, left, n)
-        pln = oracle.intra_planar_predict(top, left, int(top[-1]),
-                                          int(left[-1]), n)
-        e_dc = oracle.residual_energy(oracle.residual_block(blk, dc))
-        e_pl = oracle.residual_energy(oracle.residual_block(blk, pln))
-        pred = dc if e_dc <= e_pl else pln
+        top, left = oracle_refs(plane, y0, x0, n)
+        if search:
+            pred = oracle_search(blk, top, left, n)
+        else:
+            t, lf = top[1:n + 1], left[1:n + 1]
+            dc = oracle.intra_dc_predict(t, lf, n)
+            pln = oracle.intra_planar_predict(t, lf, int(top[n]), int(left[n]), n)
+            e_dc = oracle.residual_energy(oracle.residual_block(blk, dc))
+            e_pl = oracle.residual_energy(oracle.residual_block(blk, pln))
+            pred = dc if e_dc <= e_pl else pln
         res = blk.astype(np.int32) - pred.astype(np.int32)
         lvl = oracle.quantize(oracle.forward_transform(res), qp, n)
         inv = oracle.inverse_transform(oracle.dequantize(lvl, qp, n))
@@ -212,31 +283,40 @@ def same_encode(a, b) -> bool:
     return ia["blocks"] == ib["blocks"]
 
 
-def phase_main_path(dev, frame: Frame, config: EncoderConfig):
-    slab_encode_plane.launches = 0
+def phase_main_path(dev, frame: Frame, config: EncoderConfig, path: str,
+                    tag: str):
+    """Encode the frame on the card through `path` (a KERNELS name):
+    that kernel must launch 3 times and every other kernel 0 times."""
+    for name in KERNELS:
+        KERNELS[name][0].launches = 0
     t0 = time.perf_counter()
     recon, info = encode_frame_full(frame, config, device=dev)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = slab_encode_plane.launches
-    log(f"[4] encode_frame_full on {dev}: {first_s:.3f} s (first call), "
-        f"slab kernel launches {launches}")
-    if launches != 3:
-        raise SystemExit(f"main path launched the slab kernel {launches} "
-                         "times, expected 3 (Y, U, V)")
+    launches = {name: KERNELS[name][0].launches for name in KERNELS}
+    log(f"[{tag}] encode_frame_full on {dev}: {first_s:.3f} s (first call), "
+        f"kernel launches {launches}")
+    want = {name: 3 if name == path else 0 for name in KERNELS}
+    if launches != want:
+        raise SystemExit(f"main path launched {launches}, expected {want} "
+                         "(Y, U, V through one kernel)")
 
+    t0 = time.perf_counter()
     cpu = encode_frame_full(frame, config, device="cpu")
+    cpu_s = time.perf_counter() - t0
     if not same_encode((recon, info), cpu):
         raise SystemExit("CUDA encode differs from the plain path on the CPU")
-    log("[4] CUDA encode == plain path on the CPU (recon, levels, modes, nnz)")
+    log(f"[{tag}] CUDA encode == plain path on the CPU (recon, levels, modes, "
+        f"nnz; plain path {cpu_s:.2f} s)")
 
     y = torch.from_numpy(frame.y.data.astype(np.int32)).to(dev)
-    out = slab_encode_plane(y, config.qp, config.block_size)
+    out = KERNELS[path][0](y, config.qp, config.block_size)
     bad = oracle_gate(frame.y.data, out["levels"].cpu().numpy(),
-                      out["recon"].cpu().numpy(), config.block_size, config.qp)
+                      out["recon"].cpu().numpy(), config.block_size, config.qp,
+                      search=config.mode_set == "all")
     if bad:
         raise SystemExit(f"{bad} of 256 sampled blocks differ from the oracle")
-    log("[4] 256 sampled luma blocks == numpy oracle")
+    log(f"[{tag}] 256 sampled luma blocks == numpy oracle")
 
     for name in "YUV":
         p = info["planes"][name]
@@ -252,12 +332,15 @@ def phase_main_path(dev, frame: Frame, config: EncoderConfig):
         if not (np.array_equal(parsed[name]["levels"], p["levels"])
                 and np.array_equal(parsed[name]["modes"], p["modes"])):
             raise SystemExit(f"bitstream does not parse back for plane {name}")
-    log(f"[4] bitstream {len(bits)} bytes parses back to the same levels and "
-        f"modes; Y-PSNR {info['psnr_y']:.2f} dB, SSIM {info['ssim_y']:.4f}")
-    return launches, bits
+    modes_y = np.bincount(info["planes"]["Y"]["modes"], minlength=35)
+    log(f"[{tag}] bitstream {len(bits)} bytes parses back to the same levels "
+        f"and modes; Y-PSNR {info['psnr_y']:.2f} dB, SSIM "
+        f"{info['ssim_y']:.4f}; luma modes used {int((modes_y > 0).sum())} "
+        f"of 35")
+    return launches[path], bits
 
 
-def phase_cli(frame: Frame, bits: bytes) -> None:
+def phase_cli(frame: Frame, bits: bytes, extra: list, tag: str) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "frame.yuv")
         out = os.path.join(tmp, "out.bin")
@@ -266,7 +349,7 @@ def phase_cli(frame: Frame, bits: bytes) -> None:
         proc = subprocess.run(
             [sys.executable, "-m", "nanohevc_tpu_torch", "encode", src,
              "--width", str(W), "--height", str(H), "--pipeline", "full",
-             "--bitstream", out],
+             "--bitstream", out, *extra],
             cwd=ROOT, capture_output=True, text=True, timeout=600,
         )
         if proc.returncode != 0:
@@ -275,36 +358,45 @@ def phase_cli(frame: Frame, bits: bytes) -> None:
             cli_bits = f.read()
     if cli_bits != bits:
         raise SystemExit("CLI bitstream differs from the library encode")
-    log(f"[5] CLI encode on the GPU: rc 0, bitstream identical ({len(bits)} bytes)")
+    log(f"[{tag}] CLI encode {' '.join(extra)} on the GPU: rc 0, bitstream "
+        f"identical ({len(bits)} bytes)")
 
 
-def phase_times(dev, frame: Frame, config: EncoderConfig, gpu: str) -> dict:
+def kernel_times(dev, name: str, tag: str, gpu: str) -> dict:
+    """Kernel and plain version per seeded 1080p luma plane, N 4 (DST)
+    to 32, QP 22, CUDA events."""
+    kernel, plain = KERNELS[name][:2]
     rng = np.random.default_rng(SEED + 1)
     y = torch.from_numpy(textured(H, W, 8, rng)).to(dev)
     mpix = H * W / 1e6
     times = {}
     for n in (4, 8, 16, 32):
         use_dst = n == 4
-        k_ms = cuda_ms(lambda: slab_encode_plane(y, 22, n, use_dst=use_dst))
-        p_ms = cuda_ms(lambda: slab_encode_plane_reference(
-            y, 22, n, use_dst=use_dst), iters=5)
+        k_ms = cuda_ms(lambda: kernel(y, 22, n, use_dst=use_dst))
+        p_ms = cuda_ms(lambda: plain(y, 22, n, use_dst=use_dst), iters=5)
         times[n] = (k_ms, p_ms)
-        log(f"[6] 1080p luma N={n}{' DST' if use_dst else ''}: kernel "
-            f"{k_ms:.4f} ms ({mpix / k_ms * 1e3:.1f} Mpix/s), plain "
+        log(f"[{tag}] {name} 1080p luma N={n}{' DST' if use_dst else ''}: "
+            f"kernel {k_ms:.4f} ms ({mpix / k_ms * 1e3:.1f} Mpix/s), plain "
             f"{p_ms:.4f} ms ({mpix / p_ms * 1e3:.1f} Mpix/s) [{gpu}]")
+    if name == "slab_encode_plane":
+        cold = cold_l2_ms(lambda: kernel(y, 22, 8), dev)
+        log(f"[{tag}] {name} 1080p luma N=8 with L2 flushed before each "
+            f"launch: {cold:.4f} ms ({mpix / cold * 1e3:.1f} Mpix/s, "
+            f"{12 * H * W / cold / 1e6:.1f} GB/s at 12 B/pixel) [{gpu}]")
+    return times
 
-    cold = cold_l2_ms(lambda: slab_encode_plane(y, 22, 8), dev)
-    log(f"[6] 1080p luma N=8 kernel with L2 flushed before each launch: "
-        f"{cold:.4f} ms ({mpix / cold * 1e3:.1f} Mpix/s, "
-        f"{12 * H * W / cold / 1e6:.1f} GB/s at 12 B/pixel) [{gpu}]")
 
+def frame_times(dev, frame: Frame, config: EncoderConfig, label: str,
+                gpu: str) -> None:
+    """Device part, frame call, its breakdown and the device busy share."""
+    mpix = H * W / 1e6
     planes = [torch.from_numpy(p.data.astype(np.int32)).to(dev)
               for p in (frame.y, frame.u, frame.v)]
     dev_ms = cuda_ms(lambda: [encode_plane_config(p, config, i == 0)
                               for i, p in enumerate(planes)])
-    log(f"[6] 1080p 4:2:0 frame, device part (3 planes resident, kernel + "
-        f"scan-pack): {dev_ms:.4f} ms ({mpix / dev_ms * 1e3:.1f} Mpix/s luma) "
-        f"[{gpu}]")
+    log(f"[6] {label} 1080p 4:2:0 frame, device part (3 planes resident, "
+        f"kernel + scan-pack): {dev_ms:.4f} ms ({mpix / dev_ms * 1e3:.1f} "
+        f"Mpix/s luma) [{gpu}]")
     walls = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -312,23 +404,22 @@ def phase_times(dev, frame: Frame, config: EncoderConfig, gpu: str) -> dict:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     wall_ms = 1e3 * sorted(walls)[len(walls) // 2]
-    log(f"[6] 1080p 4:2:0 encode_frame_full (host in, host out, PSNR/SSIM "
-        f"included), median of 5: {wall_ms:.2f} ms "
+    log(f"[6] {label} 1080p 4:2:0 encode_frame_full (host in, host out, "
+        f"PSNR/SSIM included), median of 5: {wall_ms:.2f} ms "
         f"({mpix / wall_ms * 1e3:.2f} Mpix/s luma) [{gpu}]")
     stages = [frame_breakdown(dev, frame, config) for _ in range(5)]
     parts = ", ".join(
         f"{k} {1e3 * sorted(s[k] for s in stages)[2]:.2f}" for k in stages[0]
     )
-    log(f"[6] where the frame's time goes, ms (host clock, median of 5): "
-        f"{parts} [{gpu}]")
+    log(f"[6] {label} where the frame's time goes, ms (host clock, median "
+        f"of 5): {parts} [{gpu}]")
     busy_us, wall_us = device_busy(dev, frame, config)
     share = (f"{100 * busy_us / wall_us:.3f} % busy, "
              f"{100 - 100 * busy_us / wall_us:.3f} % idle" if busy_us
              else "not measured (the profiler recorded no device activity)")
-    log(f"[6] device over 3 encode_frame_full calls (torch.profiler): "
+    log(f"[6] {label} device over 3 encode_frame_full calls (torch.profiler): "
         f"{busy_us:.1f} us of kernels and copies in {wall_us:.1f} us: "
         f"{share} [{gpu}]")
-    return times
 
 
 def device_busy(dev, frame: Frame, config: EncoderConfig):
@@ -391,6 +482,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -399,32 +491,50 @@ def main() -> int:
     log(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
-    info = build.build_library()
-    log(f"[2] built {os.path.relpath(info.path, ROOT)} in {info.seconds:.2f} s"
-        f"{' (cached)' if info.cached else ''}")
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[2]   {line.strip()}")
+    for stem, info in build.build_libraries().items():
+        log(f"[2] built {os.path.relpath(info.path, ROOT)} in "
+            f"{info.seconds:.2f} s{' (cached)' if info.cached else ''}")
+        for line in info.log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[2]   {line.strip()}")
 
-    worst = phase_kernel_vs_plain(dev)
-    rng = np.random.default_rng(SEED)
-    frame = make_frame(rng)
+    worst = {
+        "slab_encode_plane": phase_kernel_vs_plain(dev, "slab_encode_plane", "3"),
+        "mode_search_encode_plane": phase_kernel_vs_plain(
+            dev, "mode_search_encode_plane", "3b"),
+    }
+    frame = make_frame(np.random.default_rng(SEED))
     config = EncoderConfig()
-    launches, bits = phase_main_path(dev, frame, config)
-    phase_cli(frame, bits)
-    times = phase_times(dev, frame, config, gpu)
+    launches = {}
+    launches["slab_encode_plane"], bits = phase_main_path(
+        dev, frame, config, "slab_encode_plane", "4")
+    launches["mode_search_encode_plane"], ms_bits = phase_main_path(
+        dev, frame, MODE_SEARCH, "mode_search_encode_plane", "4b")
+    phase_cli(frame, bits, [], "5")
+    phase_cli(frame, ms_bits, ["--mode-search"], "5b")
+    times = {
+        "slab_encode_plane": kernel_times(dev, "slab_encode_plane", "6", gpu),
+        "mode_search_encode_plane": kernel_times(
+            dev, "mode_search_encode_plane", "6b", gpu),
+    }
+    frame_times(dev, frame, config, "default config:", gpu)
+    frame_times(dev, frame, MODE_SEARCH, "mode search:", gpu)
 
-    k_ms, p_ms = times[config.block_size]
-    print(json.dumps({"kernels": [{
-        "name": "slab_encode_plane",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": TPU_KERNEL,
-        "launches": launches,
-        "max_abs_err": worst,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}), flush=True)
+    entries = []
+    for name, (_, _, source, replaces) in KERNELS.items():
+        k_ms, p_ms = times[name][config.block_size]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": worst[name],
+            "ms": k_ms,
+            "plain_ms": p_ms,
+        })
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 demo|encode`.
 
 Output text and files equal those of `python -m nanohevc_tpu` for the
-same arguments.  Only the open-loop DC/planar slice is ported: the
-flags and commands of the JAX CLI that need anything else exit with
-rc 2 and a "not yet ported" message; nothing runs in their place.
+same arguments.  Only the open-loop slice is ported (DC/planar, the
+35-mode search, reference smoothing): the flags and commands of the
+JAX CLI that need anything else exit with rc 2 and a "not yet ported"
+message; nothing runs in their place.
 """
 
 from __future__ import annotations
@@ -16,8 +17,7 @@ import numpy as np
 
 # JAX-CLI flags of `encode` that need code not ported yet, by dest.
 _REFUSED_ENCODE_SWITCHES = (
-    "mode_search", "rdo", "rdoq", "intra_smoothing", "deblock", "sao",
-    "sao_ctb", "hevc_mono",
+    "rdo", "rdoq", "deblock", "sao", "sao_ctb", "hevc_mono",
 )
 _REFUSED_ENCODE_VALUES = (
     "target_bytes", "sao_tile", "hevc_export", "chroma_mode",
@@ -116,10 +116,12 @@ def cmd_encode(args: argparse.Namespace) -> None:
     config = EncoderConfig(
         block_size=args.block_size,
         qp=args.qp,
-        decision=args.decision or "energy",
+        mode_set="all" if args.mode_search else "dc_planar",
+        decision=args.decision or ("satd" if args.mode_search else "energy"),
         scan=args.scan,
         entropy_coder=args.entropy,
         dequant_rescale=args.dequant_rescale,
+        intra_smoothing=args.intra_smoothing,
     )
     recon, info = encode_frame_full(frame, config, device=args.device)
     if args.output:
@@ -205,7 +207,8 @@ def main(argv: list[str] | None = None) -> None:
     )
     enc.add_argument(
         "--decision", choices=("energy", "satd", "sad", "rd"), default=None,
-        help="DC/planar decision cost (rd is not ported yet)",
+        help="mode-decision cost override; default follows --mode-search "
+        "(rd is not ported yet)",
     )
     enc.add_argument(
         "--entropy", choices=("range", "cabac", "hevc-slice"),
@@ -224,6 +227,16 @@ def main(argv: list[str] | None = None) -> None:
     enc.add_argument(
         "--dequant-rescale", action="store_true",
         help="spec-correct dequant size rescale at N>4 (PPS-carried)",
+    )
+    enc.add_argument(
+        "--mode-search", action="store_true",
+        help="search all 35 intra modes (SATD) instead of DC/planar energy "
+        "(full pipeline)",
+    )
+    enc.add_argument(
+        "--intra-smoothing", action="store_true",
+        help="[1 2 1] reference-sample smoothing per spec 8.4.4.2.3 "
+        "(luma, N>=8); carried in the PPS",
     )
     for dest in _REFUSED_ENCODE_SWITCHES:
         enc.add_argument("--" + dest.replace("_", "-"), action="store_true",

@@ -20,6 +20,8 @@
 // against T (and T^T) copied from __constant__ memory into shared
 // memory.  Outputs go straight to their final layouts: recon (H, W),
 // levels (nb, N, N) raster blocks, one mode per block (1 DC, 0 planar).
+// The transform-quantize tail lives in encode_tail.cuh, shared with
+// mode_search.cu.
 //
 // What bounds it on the card: it reads the plane once (4 bytes a pixel,
 // plus one row and one column of neighbours per block) and writes recon
@@ -28,25 +30,11 @@
 // blocks in flight: a 1080p luma plane at N = 8 gives 32,400 blocks,
 // 8,100 thread blocks of 256 threads.
 
-#include <cuda_runtime.h>
+#include "encode_tail.cuh"
 
-// DCT4 @ 0, DCT8 @ 16, DCT16 @ 80, DCT32 @ 336, DST4 @ 1360.
-constexpr int kTableInts = 16 + 64 + 256 + 1024 + 16;
+// The transform matrices only (layout in encode_tail.cuh).
+constexpr int kTableInts = kTransformInts;
 __constant__ int c_tables[kTableInts];
-
-struct QpScalars {
-  int mf, qshift, qoffset, dscale, dq_shift, max_pix, boundary;
-};
-
-__device__ __forceinline__ int floor_div(int a, int b) {
-  const int q = a / b;
-  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
-}
-
-template <int N>
-struct Log2 {
-  static constexpr int value = N == 4 ? 2 : N == 8 ? 3 : N == 16 ? 4 : 5;
-};
 
 template <int N, int BPB>
 __global__ void __launch_bounds__(N * N * BPB)
@@ -55,8 +43,6 @@ slab_encode_kernel(const int* __restrict__ plane, int width, int nbx, int nb,
                    int* __restrict__ levels, int* __restrict__ modes) {
   constexpr int NN = N * N;
   constexpr int LOG2N = Log2<N>::value;
-  constexpr int TSHIFT = LOG2N + 5;
-  constexpr int RND = 1 << (TSHIFT - 1);
 
   __shared__ int s_t[NN];    // T[i][k] at i*N + k
   __shared__ int s_tt[NN];   // T[j][k] at k*N + j (transposed copy)
@@ -120,42 +106,11 @@ slab_encode_kernel(const int* __restrict__ plane, int width, int nbx, int nb,
   }
   const bool use_dc = s_a[lb][0] <= s_b[lb][0];
   const int pred = use_dc ? dc : pl;
-  s_x[lb][p] = x - pred;            // residual
-  __syncthreads();                  // sums read before s_a is reused
 
-  // --- forward transform: temp = T.R, coeff = temp.T^T ---------------
-  int acc = 0;
-#pragma unroll
-  for (int k = 0; k < N; ++k) acc += s_t[i * N + k] * s_x[lb][k * N + j];
-  s_a[lb][p] = (acc + RND) >> TSHIFT;
-  __syncthreads();
-  acc = 0;
-#pragma unroll
-  for (int k = 0; k < N; ++k) acc += s_a[lb][i * N + k] * s_tt[k * N + j];
-  const int coeff = (acc + RND) >> TSHIFT;
-
-  // --- deadzone quantizer and dequantizer ----------------------------
-  const int mag = ((coeff < 0 ? -coeff : coeff) * q.mf + q.qoffset) >> q.qshift;
-  const int level = coeff > 0 ? mag : (coeff < 0 ? -mag : 0);
-  const int base = level * q.dscale;
-  const int deq =
-      q.dq_shift >= 1
-          ? (base + (1 << (q.dq_shift - 1))) >> q.dq_shift
-          : (int)((unsigned)base << (-q.dq_shift));
-  s_b[lb][p] = deq;
-  __syncthreads();
-
-  // --- inverse transform: temp = T^T.D, res = temp.T -----------------
-  acc = 0;
-#pragma unroll
-  for (int k = 0; k < N; ++k) acc += s_t[k * N + i] * s_b[lb][k * N + j];
-  s_a[lb][p] = (acc + RND) >> TSHIFT;
-  __syncthreads();
-  acc = 0;
-#pragma unroll
-  for (int k = 0; k < N; ++k) acc += s_a[lb][i * N + k] * s_t[k * N + j];
-  const int res = (acc + RND) >> TSHIFT;
-  const int rec = min(max(pred + res, 0), q.max_pix);
+  // --- transform, quantize, reconstruct (shared tail) ----------------
+  int level, rec;
+  transform_quant_recon<N>(s_t, s_tt, s_x[lb], s_a[lb], s_b[lb], i, j,
+                           x - pred, pred, q, level, rec);
 
   if (active) {
     recon[(size_t)(y0 + i) * width + x0 + j] = rec;
@@ -175,7 +130,7 @@ static void launch(const int* plane, int width, int nbx, int nb, int t_offset,
 
 extern "C" int nhv_table_ints() { return kTableInts; }
 
-// Copy the transform tables (layout above) into constant memory of
+// Copy the transform tables (layout in encode_tail.cuh) into constant memory of
 // `device`.  Returns a cudaError_t.
 extern "C" int nhv_upload_tables(const int* host, int count, int device) {
   if (count != kTableInts) return (int)cudaErrorInvalidValue;
@@ -203,17 +158,20 @@ extern "C" int nhv_slab_encode(const int* plane, int height, int width, int n,
   cudaStream_t s = (cudaStream_t)stream;
   switch (n) {
     case 4:
-      launch<4, 16>(plane, width, nbx, nb, use_dst ? 1360 : 0, q, recon,
-                    levels, modes, s);
+      launch<4, 16>(plane, width, nbx, nb, transform_offset(4, use_dst), q,
+                    recon, levels, modes, s);
       break;
     case 8:
-      launch<8, 4>(plane, width, nbx, nb, 16, q, recon, levels, modes, s);
+      launch<8, 4>(plane, width, nbx, nb, transform_offset(8, false), q,
+                   recon, levels, modes, s);
       break;
     case 16:
-      launch<16, 1>(plane, width, nbx, nb, 80, q, recon, levels, modes, s);
+      launch<16, 1>(plane, width, nbx, nb, transform_offset(16, false), q,
+                    recon, levels, modes, s);
       break;
     case 32:
-      launch<32, 1>(plane, width, nbx, nb, 336, q, recon, levels, modes, s);
+      launch<32, 1>(plane, width, nbx, nb, transform_offset(32, false), q,
+                    recon, levels, modes, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -1,20 +1,24 @@
 """All-intra encoder pipelines over the block tensor, port of
-`nanohevc_tpu/models/all_intra.py` for the open-loop DC/planar slice.
+`nanohevc_tpu/models/all_intra.py` for the open-loop slice.
 
 - `encode_plane_parity`: the reference CLI's predict-only encode (DC
   vs planar by residual energy, best prediction as the recon).
-- `encode_plane_full`: the plain PyTorch front half: mode decision,
-  residual, forward transform, quantize, scan-pack, dequantize,
-  inverse transform, reconstruct, clip.
-- `encode_plane_fast`: the same outputs through the hand-written CUDA
-  kernel `kernels.slab_pipeline.slab_encode_plane`.
+- `encode_plane_full`: the plain PyTorch front half: mode decision
+  (DC/planar or all 35 modes, optional reference smoothing), residual,
+  forward transform, quantize, scan-pack, dequantize, inverse
+  transform, reconstruct, clip.
+- `encode_plane_fast`: DC/planar by energy through the hand-written
+  CUDA kernel `kernels.slab_pipeline.slab_encode_plane`.
+- `encode_plane_fast_modes`: the 35-mode SATD search through the
+  hand-written CUDA kernel `kernels.mode_search.mode_search_encode_plane`.
 
 `encode_frame_full` routes each plane exactly as the JAX package does:
-to the kernel where `supports_fast_path` holds, to the plain path
-otherwise.  The 35-mode search, RD decisions, RD cbf, RDOQ and
-reference smoothing are not ported yet and raise NotImplementedError.
+to the slab kernel where `supports_fast_path` holds, to the mode-search
+kernel where `supports_mode_search_fast_path` holds, to the plain path
+otherwise.  RD decisions, RD cbf and RDOQ are not ported yet and raise
+NotImplementedError.
 
-Mode numbering: 0 planar, 1 DC.
+Mode numbering: 0 planar, 1 DC, 2..34 angular.
 """
 
 from __future__ import annotations
@@ -29,6 +33,10 @@ from nanohevc_tpu.frame import Frame, Plane
 from nanohevc_tpu.ref.metrics import psnr as psnr_host
 from nanohevc_tpu.ref.metrics import ssim as ssim_host
 from nanohevc_tpu_torch import ops, resolve_device
+from nanohevc_tpu_torch.kernels.mode_search import (
+    mode_search_encode_plane,
+    mode_search_supported,
+)
 from nanohevc_tpu_torch.kernels.slab_pipeline import (
     slab_encode_plane,
     slab_supported,
@@ -48,21 +56,37 @@ def _cost(blocks: torch.Tensor, pred: torch.Tensor, decision: str) -> torch.Tens
     return ops.sad_blocks(blocks, pred)
 
 
+# Elements (block x mode x pixel) the 35-mode search holds per chunk of
+# angular modes: bounds its temporaries at about 2^23 int32/float64
+# values whatever the plane size.
+_SEARCH_CHUNK_ELEMS = 1 << 23
+
+
 def decide_modes(blocks: torch.Tensor, refs: torch.Tensor, n: int,
-                 mode_set: str, decision: str) -> Tuple[torch.Tensor, torch.Tensor]:
+                 mode_set: str, decision: str, smoothing: bool = False,
+                 bit_depth: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pick the intra mode per block: (pred (nb, N, N), mode (nb,) int32).
 
     mode_set "dc_planar" decides by `decision` (energy, sad or satd)
-    with ties to DC; "dc" and "planar" fix one mode without a search.
+    with ties to DC; "all" searches planar, DC and angular 2..34 with
+    ties to the lowest mode index; "dc" and "planar" fix one mode.
+
+    smoothing applies the [1 2 1] reference filter (spec 8.4.4.2.3) to
+    the modes its filter-flag rule selects (DC never, nothing at 4x4).
+
+    The angular modes are evaluated in chunks with a running minimum,
+    so a full-size plane never holds all 33 predictions at once.
     """
-    if mode_set not in ("dc_planar", "dc", "planar"):
-        raise NotImplementedError(
-            f"mode_set={mode_set!r} (35-mode search) is not ported yet"
-        )
     if decision not in ("energy", "sad", "satd"):
         raise NotImplementedError(f"decision={decision!r} is not ported yet")
-    dc = ops.dc_predict(refs, n)
-    pl = ops.planar_predict(refs, n)
+    if mode_set not in ("dc_planar", "all", "dc", "planar"):
+        raise ValueError(f"unknown mode_set: {mode_set}")
+    flags = ops.mode_filter_flags(n) if smoothing else None
+    refs_f = ops.smooth_refs(refs, n, bit_depth) if smoothing and n > 4 else refs
+    dc = ops.dc_predict(refs, n)                     # DC always unfiltered
+    pl = ops.planar_predict(
+        refs_f if (flags is not None and flags[PLANAR_MODE]) else refs, n
+    )
     nb = blocks.shape[0]
     if mode_set == "dc":
         return dc, torch.full((nb,), DC_MODE, dtype=torch.int32,
@@ -70,10 +94,36 @@ def decide_modes(blocks: torch.Tensor, refs: torch.Tensor, n: int,
     if mode_set == "planar":
         return pl, torch.full((nb,), PLANAR_MODE, dtype=torch.int32,
                               device=blocks.device)
-    dc_wins = _cost(blocks, dc, decision) <= _cost(blocks, pl, decision)
-    pred = torch.where(dc_wins[:, None, None], dc, pl)
-    mode = torch.where(dc_wins, DC_MODE, PLANAR_MODE).to(torch.int32)
-    return pred, mode
+    cost_dc = _cost(blocks, dc, decision)
+    cost_pl = _cost(blocks, pl, decision)
+    if mode_set == "dc_planar":
+        dc_wins = cost_dc <= cost_pl
+        pred = torch.where(dc_wins[:, None, None], dc, pl)
+        mode = torch.where(dc_wins, DC_MODE, PLANAR_MODE).to(torch.int32)
+        return pred, mode
+
+    # 35-mode search: costs over [planar, DC, 2..34], strict < in mode
+    # order, so ties go to the lowest index as JAX's argmin does.
+    dc_wins = cost_dc < cost_pl
+    best_cost = torch.where(dc_wins, cost_dc, cost_pl)
+    best_mode = torch.where(dc_wins, DC_MODE, PLANAR_MODE).to(torch.int32)
+    best_pred = torch.where(dc_wins[:, None, None], dc, pl)
+    routed = smoothing and n > 4
+    refs_in = torch.cat([refs, refs_f], dim=1) if routed else refs
+    chunk = max(1, _SEARCH_CHUNK_ELEMS // max(1, nb * n * n))
+    for start in range(0, len(ops.ALL_ANGULAR), chunk):
+        modes = ops.ALL_ANGULAR[start:start + chunk]
+        preds = ops.angular_predict_modes(refs_in, n, modes, routed)
+        costs = _cost(blocks[:, None], preds, decision)      # (nb, c)
+        arg = costs.argmin(dim=1)                            # first minimum
+        low = costs.gather(1, arg[:, None])[:, 0]
+        better = low < best_cost
+        best_cost = torch.where(better, low, best_cost)
+        best_mode = torch.where(better, (arg + modes[0]).to(torch.int32),
+                                best_mode)
+        pick = preds[torch.arange(nb, device=preds.device), arg]
+        best_pred = torch.where(better[:, None, None], pick, best_pred)
+    return best_pred, best_mode
 
 
 # ---------------------------------------------------------------------------
@@ -134,15 +184,15 @@ def encode_plane_full(
       modes  (nb,)     chosen intra mode per block
       nnz    (nb,)     non-zero level count per block
     """
-    for flag, on in (("rdo_cbf", rdo_cbf), ("rdoq", rdoq),
-                     ("intra_smoothing", intra_smoothing)):
+    for flag, on in (("rdo_cbf", rdo_cbf), ("rdoq", rdoq)):
         if on:
             raise NotImplementedError(f"{flag} is not ported yet")
     h, w = plane.shape
     src = plane.to(torch.int32)
     blocks = ops.tile_plane(src, n)
     refs = ops.extract_refs(src, n, boundary=1 << (bit_depth - 1))
-    pred, modes = decide_modes(blocks, refs, n, mode_set, decision)
+    pred, modes = decide_modes(blocks, refs, n, mode_set, decision,
+                               smoothing=intra_smoothing, bit_depth=bit_depth)
     levels = ops.quantize(ops.forward_transform(blocks - pred, use_dst),
                           qp, n, is_intra)
     rec_res = ops.inverse_transform(
@@ -173,6 +223,36 @@ def encode_plane_fast(plane: torch.Tensor, qp: int, *, n: int,
         dequant_rescale=dequant_rescale,
     )
     return _finish(out["recon"], out["levels"], out["modes"], scan)
+
+
+def encode_plane_fast_modes(plane: torch.Tensor, qp: int, *, n: int,
+                            bit_depth: int = 8, scan: str = "diag",
+                            use_dst: bool = False,
+                            dequant_rescale: bool = False) -> dict:
+    """The 35-mode SATD search through the mode-search kernel wrapper.
+
+    Same outputs as `encode_plane_full(mode_set="all",
+    decision="satd")` for N in {4, 8, 16, 32} and W % N == 0; the CUDA
+    kernel runs on a CUDA plane, its plain version on a CPU plane.
+    """
+    src = plane.to(torch.int32).contiguous()
+    out = mode_search_encode_plane(
+        src, qp, n, bit_depth=bit_depth, use_dst=use_dst,
+        dequant_rescale=dequant_rescale,
+    )
+    return _finish(out["recon"], out["levels"], out["modes"], scan)
+
+
+def supports_mode_search_fast_path(config: EncoderConfig, n: int, width: int,
+                                   is_luma: bool = True) -> bool:
+    """True when encode_plane_fast_modes covers this (config, plane) combo."""
+    return (
+        (config.mode_set if is_luma else config.chroma_modes()) == "all"
+        and config.decision == "satd"
+        and config.is_intra
+        and not (config.intra_smoothing and is_luma)
+        and mode_search_supported(n, width)
+    )
 
 
 def supports_fast_path(config: EncoderConfig, n: int, width: int,
@@ -231,16 +311,21 @@ def encode_frame_intra(frame: Frame, block_size: int,
 def encode_plane_config(plane: torch.Tensor, config: EncoderConfig,
                         is_luma: bool) -> dict:
     """One plane under an EncoderConfig, routed like the JAX package:
-    the slab kernel where it applies, the plain path otherwise."""
+    the slab kernel, else the mode-search kernel, where it applies; the
+    plain path otherwise."""
     bs = config.block_size if is_luma else config.chroma_block_size()
     if config.rdo_cbf or config.rdoq:
         raise NotImplementedError("rdo_cbf / rdoq are not ported yet")
-    if supports_fast_path(config, bs, plane.shape[1], is_luma):
-        return encode_plane_fast(
-            plane, config.qp, n=bs, bit_depth=config.bit_depth,
-            scan=config.scan, use_dst=config.use_dst(bs, is_luma),
-            dequant_rescale=config.dequant_rescale,
-        )
+    width = plane.shape[1]
+    for applies, fast in ((supports_fast_path, encode_plane_fast),
+                          (supports_mode_search_fast_path,
+                           encode_plane_fast_modes)):
+        if applies(config, bs, width, is_luma):
+            return fast(
+                plane, config.qp, n=bs, bit_depth=config.bit_depth,
+                scan=config.scan, use_dst=config.use_dst(bs, is_luma),
+                dequant_rescale=config.dequant_rescale,
+            )
     return encode_plane_full(
         plane, config.qp, n=bs,
         mode_set=config.mode_set if is_luma else config.chroma_modes(),

@@ -1,5 +1,5 @@
 """Plain PyTorch block ops: the port of `nanohevc_tpu.ops` for the
-open-loop DC/planar slice.
+open-loop slice (DC/planar and the 35-mode search).
 
 Everything operates on a `(num_blocks, N, N)` int32 block tensor on
 whatever device the input lies on (CPU or CUDA), integer-exact and
@@ -12,7 +12,18 @@ from nanohevc_tpu_torch.ops.tiling import (
     tile_plane,
     untile_plane,
 )
-from nanohevc_tpu_torch.ops.intra import dc_predict, planar_predict
+from nanohevc_tpu_torch.ops.intra import (
+    ALL_ANGULAR,
+    angular_predict_all,
+    angular_predict_modes,
+    cat_refs,
+    dc_predict,
+    mode_filter_flags,
+    planar_predict,
+    predict_by_mode,
+    predict_by_mode_mm,
+    smooth_refs,
+)
 from nanohevc_tpu_torch.ops.transform import forward_transform, inverse_transform
 from nanohevc_tpu_torch.ops.quant import dequantize, quantize
 from nanohevc_tpu_torch.ops.scan import mode_scan_idx, scan_pack, scan_unpack
@@ -31,6 +42,14 @@ __all__ = [
     "num_blocks",
     "dc_predict",
     "planar_predict",
+    "ALL_ANGULAR",
+    "angular_predict_all",
+    "angular_predict_modes",
+    "predict_by_mode",
+    "predict_by_mode_mm",
+    "mode_filter_flags",
+    "smooth_refs",
+    "cat_refs",
     "forward_transform",
     "inverse_transform",
     "quantize",

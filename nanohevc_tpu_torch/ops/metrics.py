@@ -29,13 +29,15 @@ def psnr(original: torch.Tensor, reconstructed: torch.Tensor,
 
 
 def sad_blocks(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Sum of absolute differences per block over the last two axes."""
+    """Sum of absolute differences per block over the last two axes
+    (broadcasts, e.g. (nb, 1, N, N) vs (nb, M, N, N) -> (nb, M))."""
     d = a.to(torch.int32) - b.to(torch.int32)
     return d.abs().sum(dim=(-2, -1)).to(torch.int32)
 
 
 def satd_blocks(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Hadamard-transformed SAD per block (Sylvester basis), as int32.
+    """Hadamard-transformed SAD per block (Sylvester basis), as int32,
+    with the same broadcasting as `sad_blocks`.
 
     The two passes run as float64 matmuls, exact for these integers.
     """
@@ -48,6 +50,6 @@ def satd_blocks(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def residual_energy_blocks(residual: torch.Tensor) -> torch.Tensor:
-    """Sum of squared residuals per block: (nb, N, N) -> (nb,) int32."""
+    """Sum of squared residuals per block over the last two axes, int32."""
     r = residual.to(torch.int32)
     return (r * r).sum(dim=(-2, -1)).to(torch.int32)

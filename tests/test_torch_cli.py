@@ -88,8 +88,93 @@ def test_encode_full_bitstream_identical(capsys, yuv_input, extra):
     assert "Bitstream:" in tout
 
 
+@pytest.mark.parametrize("extra", [
+    ["--mode-search", "--decision", "sad"],
+    ["--mode-search", "--decision", "energy", "--intra-smoothing",
+     "--block-size", "16"],
+    ["--intra-smoothing"],
+    ["--intra-smoothing", "--block-size", "32", "--qp", "30"],
+    ["--mode-search", "--decision", "sad", "--block-size", "4", "--scan",
+     "mode", "--entropy", "cabac"],
+])
+def test_encode_mode_search_flags_identical(capsys, yuv_input, extra):
+    """Configurations whose JAX side stays on the XLA path."""
+    tmp, src = yuv_input
+    out, bits = str(tmp / "out.yuv"), str(tmp / "out.bin")
+    (jout, jf), (tout, tf) = _run_both(
+        capsys, ["encode", src, "--width", "64", "--height", "48",
+                 "--pipeline", "full", "-o", out, "--bitstream", bits] + extra,
+        outputs=[out, bits])
+    assert tout == jout
+    assert tf == jf
+
+
+@pytest.mark.parametrize("bs,qp,rescale", [
+    (8, 22, False), (4, 22, False), (16, 22, True), (32, 37, False),
+])
+def test_encode_mode_search_satd_bytes(capsys, yuv_input, bs, qp, rescale):
+    """--mode-search (SATD) bytes == the shared runtime's bitstream of the
+    JAX XLA outputs; the recon file == the JAX XLA recon."""
+    from nanohevc_tpu.config import EncoderConfig
+    from nanohevc_tpu.frame import Frame
+    from nanohevc_tpu.runtime import assemble_bitstream
+    from test_torch_encoder import _jax_frame_xla
+
+    tmp, src = yuv_input
+    out, bits = str(tmp / "out.yuv"), str(tmp / "out.bin")
+    torch_main(["--device", "cpu", "encode", src, "--width", "64", "--height",
+                "48", "--pipeline", "full", "--mode-search", "-o", out,
+                "--bitstream", bits, "--block-size", str(bs), "--qp", str(qp)]
+               + (["--dequant-rescale"] if rescale else []))
+    assert "Bitstream:" in capsys.readouterr().out
+    cfg = EncoderConfig(block_size=bs, qp=qp, mode_set="all", decision="satd",
+                        dequant_rescale=rescale)
+    with open(src, "rb") as f:
+        frame = Frame.from_yuv420p(f.read(), 48, 64)
+    recon, info = _jax_frame_xla(frame, cfg)
+    want = assemble_bitstream(
+        64, 48, cfg.qp,
+        {k: (p["levels"], p["block_size"]) for k, p in info["planes"].items()},
+        {k: p["modes"] for k, p in info["planes"].items()},
+        bit_depth=cfg.bit_depth, scan=cfg.scan,
+        dequant_rescale=cfg.dequant_rescale, intra_smoothing=False,
+        entropy_coder=cfg.entropy_coder,
+    )
+    with open(bits, "rb") as f:
+        assert f.read() == want
+    with open(out, "rb") as f:
+        assert f.read() == recon.to_yuv420p()
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("bs", [4, 8])
+def test_encode_mode_search_identical_to_jax_cli(capsys, yuv_input, bs):
+    """Against the JAX CLI itself, whose SATD search runs the Pallas
+    kernels (interpreted on the CPU)."""
+    tmp, src = yuv_input
+    out, bits = str(tmp / "out.yuv"), str(tmp / "out.bin")
+    (jout, jf), (tout, tf) = _run_both(
+        capsys, ["encode", src, "--width", "64", "--height", "48",
+                 "--pipeline", "full", "--mode-search", "--block-size",
+                 str(bs), "-o", out, "--bitstream", bits], outputs=[out, bits])
+    assert tout == jout
+    assert tf == jf
+
+
+@pytest.mark.parametrize("flag", ["--mode-search", "--intra-smoothing"])
+def test_predict_pipeline_ignores_search_flags(capsys, yuv_input, flag):
+    """The JAX CLI ignores both flags under --pipeline predict."""
+    tmp, src = yuv_input
+    out = str(tmp / "out.yuv")
+    (jout, jf), (tout, tf) = _run_both(
+        capsys, ["encode", src, "--width", "64", "--height", "48",
+                 "-o", out, flag], outputs=[out])
+    assert tout == jout
+    assert tf == jf
+
+
 @pytest.mark.parametrize("argv", [
-    ["--mode-search"], ["--rdo"], ["--rdoq"], ["--intra-smoothing"],
+    ["--rdo"], ["--rdoq"],
     ["--deblock"], ["--sao"], ["--sao-ctb"], ["--sao-tile", "32"],
     ["--hevc-export", "x.hevc"], ["--hevc-mono"], ["--chroma-mode", "dc"],
     ["--target-bytes", "1000"], ["--pipeline", "closed-loop"],

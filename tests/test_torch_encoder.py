@@ -11,6 +11,7 @@ from functools import lru_cache
 import numpy as np
 import pytest
 
+import jax.numpy as jnp
 import torch
 
 from nanohevc_tpu.config import EncoderConfig
@@ -41,6 +42,51 @@ def make_frame(h, w, seed, bit_depth=8):
 def _encoded(h, w, seed, cfg):
     frame = make_frame(h, w, seed, cfg.bit_depth)
     return (frame, jax_ai.encode_frame_full(frame, cfg),
+            torch_ai.encode_frame_full(frame, cfg, device="cpu"))
+
+
+def _jax_frame_xla(frame, cfg):
+    """JAX `encode_frame_full` with every plane on its XLA path.
+
+    JAX routes mode_set="all"/decision="satd" planes to the Pallas
+    mode-search kernels, which run through the slow CPU interpreter
+    here; this assembles the same frame from the XLA formulation the
+    kernels are held to (jax_ai._jit_full), as encode_frame_full does.
+    """
+    from nanohevc_tpu.ref.metrics import psnr, ssim
+
+    recon = Frame.zeros(frame.height, frame.width, dtype=np.int16)
+    info = {"planes": {}, "blocks": 0}
+    for name, src, dst in (("Y", frame.y, recon.y), ("U", frame.u, recon.u),
+                           ("V", frame.v, recon.v)):
+        is_luma = name == "Y"
+        bs = cfg.block_size if is_luma else cfg.chroma_block_size()
+        fn = jax_ai._jit_full(
+            bs, cfg.mode_set if is_luma else cfg.chroma_modes(), cfg.decision,
+            cfg.use_dst(bs, is_luma), cfg.is_intra, cfg.bit_depth, cfg.scan,
+            cfg.rdo_cbf, cfg.dequant_rescale, cfg.intra_smoothing and is_luma,
+            cfg.rdoq,
+        )
+        out = fn(jnp.asarray(src.data), jnp.int32(cfg.qp))
+        dst.data[...] = np.asarray(out["recon"]).astype(np.int16)
+        info["planes"][name] = {
+            "levels": np.asarray(out["levels"]),
+            "modes": np.asarray(out["modes"]),
+            "nnz": int(np.asarray(out["nnz"]).sum()),
+            "block_size": bs,
+        }
+        info["blocks"] += int(out["modes"].shape[0])
+    orig_y = frame.y.data.astype(np.uint8)
+    rec_y = recon.y.data.astype(np.uint8)
+    info["psnr_y"] = psnr(orig_y, rec_y)
+    info["ssim_y"] = ssim(orig_y, rec_y)
+    return recon, info
+
+
+@lru_cache(maxsize=None)
+def _encoded_xla(h, w, seed, cfg):
+    frame = make_frame(h, w, seed, cfg.bit_depth)
+    return (frame, _jax_frame_xla(frame, cfg),
             torch_ai.encode_frame_full(frame, cfg, device="cpu"))
 
 
@@ -153,16 +199,109 @@ def test_create_test_frame_matches_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mode_set="all", decision="satd"),
+    dict(mode_set="all", decision="rd"),
     dict(decision="rd"),
     dict(rdo_cbf=True),
     dict(rdoq=True),
-    dict(intra_smoothing=True),
+    dict(mode_set="all", decision="satd", intra_smoothing=True, rdoq=True),
 ])
 def test_unported_configs_raise(kw):
     cfg = EncoderConfig(block_size=8, qp=22, **kw)
     with pytest.raises(NotImplementedError):
         torch_ai.encode_frame_full(make_frame(16, 16, 1), cfg, device="cpu")
+
+
+MODE_SEARCH = dict(mode_set="all", decision="satd")
+
+
+@pytest.mark.parametrize("shape", [(40, 64), (48, 96)])
+@pytest.mark.parametrize("bs", [4, 8, 16, 32])
+def test_mode_search_matches_jax(shape, bs):
+    cfg = EncoderConfig(block_size=bs, qp=22, **MODE_SEARCH)
+    _, j, t = _encoded_xla(*shape, 50 + bs, cfg)
+    _assert_same(j, t)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(block_size=4, bit_depth=10),
+    dict(block_size=16, dequant_rescale=True, qp=32),
+    dict(block_size=8, scan="mode", qp=30),
+    dict(block_size=8, qp=0),
+    dict(block_size=16, qp=51),
+], ids=["10bit", "rescale", "mode_scan", "qp0", "qp51"])
+def test_mode_search_variants_match_jax(kw):
+    cfg = EncoderConfig(**kw, **MODE_SEARCH)
+    _, j, t = _encoded_xla(40, 64, 61, cfg)
+    _assert_same(j, t)
+
+
+@pytest.mark.parametrize("shape", [(40, 72), (37, 64)])
+def test_mode_search_plain_route_matches_jax(shape):
+    """W % N != 0 (plain path) and a partial height (kernel path)."""
+    cfg = EncoderConfig(block_size=16, qp=27, **MODE_SEARCH)
+    _, j, t = _encoded_xla(*shape, 62, cfg)
+    _assert_same(j, t)
+
+
+@pytest.mark.parametrize("decision", ["energy", "sad"])
+@pytest.mark.parametrize("smoothing", [False, True])
+@pytest.mark.parametrize("bs", [8, 16])
+def test_mode_search_other_decisions_match_jax(decision, smoothing, bs):
+    """These configs take the XLA path in JAX and the plain path here."""
+    cfg = EncoderConfig(block_size=bs, qp=30, mode_set="all",
+                        decision=decision, intra_smoothing=smoothing)
+    _, j, t = _encoded(40, 64, 63, cfg)
+    _assert_same(j, t)
+
+
+@pytest.mark.parametrize("bs", [8, 16, 32])
+def test_intra_smoothing_matches_jax(bs):
+    cfg = EncoderConfig(block_size=bs, qp=30, intra_smoothing=True)
+    _, j, t = _encoded(48, 96, 64, cfg)
+    _assert_same(j, t)
+
+
+def test_mode_search_satd_smoothing_matches_jax():
+    """Luma smoothing leaves the kernel for the plain path, chroma stays."""
+    cfg = EncoderConfig(block_size=16, qp=30, intra_smoothing=True, **MODE_SEARCH)
+    _, j, t = _encoded_xla(48, 96, 65, cfg)
+    _assert_same(j, t)
+
+
+@pytest.mark.parametrize("kw,width,want", [
+    (MODE_SEARCH, 64, [((40, 64), 8), ((20, 32), 4), ((20, 32), 4)]),
+    (dict(MODE_SEARCH, intra_smoothing=True), 64, [((20, 32), 4), ((20, 32), 4)]),
+    (MODE_SEARCH | {"block_size": 16}, 72, []),
+    (dict(mode_set="all", decision="sad"), 64, []),
+])
+def test_mode_search_routing(monkeypatch, kw, width, want):
+    """Planes go to the mode-search kernel exactly where JAX sends them
+    to its own, and never to the slab kernel."""
+    calls = {"mode_search": [], "slab": []}
+    for name, key in (("mode_search_encode_plane", "mode_search"),
+                      ("slab_encode_plane", "slab")):
+        real = getattr(torch_ai, name)
+
+        def spy(plane, qp, n, _real=real, _key=key, **kw_):
+            calls[_key].append((tuple(plane.shape), n))
+            return _real(plane, qp, n, **kw_)
+
+        monkeypatch.setattr(torch_ai, name, spy)
+    cfg = EncoderConfig(qp=22, **kw)
+    torch_ai.encode_frame_full(make_frame(40, width, 66), cfg, device="cpu")
+    assert calls == {"mode_search": want, "slab": []}
+
+
+@pytest.mark.parametrize("bs", [4, 8])
+def test_mode_search_bitstream_bytes_match_jax(bs):
+    cfg = EncoderConfig(block_size=bs, qp=22, **MODE_SEARCH)
+    frame, (_, ji), (_, ti) = _encoded_xla(48, 96, 67, cfg)
+    want = assemble_frame_bitstream(96, 48, cfg, ji)
+    got = assemble_frame_bitstream(96, 48, cfg, ti)
+    assert got == want
+    parsed = parse_bitstream(got)
+    for name in ("Y", "U", "V"):
+        assert np.array_equal(parsed[name]["modes"], ti["planes"][name]["modes"])
 
 
 def test_cuda_request_without_card_raises(monkeypatch):
@@ -175,11 +314,12 @@ def test_cuda_request_without_card_raises(monkeypatch):
 
 
 @pytest.mark.cuda
-def test_cuda_frame_matches_cpu():
+@pytest.mark.parametrize("kw", [{}, MODE_SEARCH], ids=["dc_planar", "mode_search"])
+def test_cuda_frame_matches_cpu(kw):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; on the GPU machine run "
                     "python -m pytest -m cuda tests/test_torch_*.py")
-    cfg = EncoderConfig(block_size=8, qp=22)
+    cfg = EncoderConfig(block_size=8, qp=22, **kw)
     frame = make_frame(136, 240, 5)
     rc, ic = torch_ai.encode_frame_full(frame, cfg, device="cpu")
     rg, ig = torch_ai.encode_frame_full(frame, cfg, device="cuda")

@@ -85,6 +85,9 @@ JAX_BLOCKED = textwrap.dedent("""
                                     EncoderConfig(), device="cpu")
     assert recon.y.data.shape == (32, 32)
     assert info["planes"]["Y"]["levels"].shape == (16, 64)
+    cfg = EncoderConfig(mode_set="all", decision="satd", intra_smoothing=True)
+    recon, info = encode_frame_full(create_test_frame(32, 32), cfg, device="cpu")
+    assert info["planes"]["U"]["modes"].shape == (16,)
     main(["--device", "cpu", "demo", "--width", "16", "--height", "16"])
     assert not [m for m in sys.modules if m.split(".")[0] == "jax"]
     print("JAX-FREE OK")
