@@ -1,9 +1,10 @@
 """nanohevc_tpu_torch: the PyTorch/CUDA port of nanohevc_tpu.
 
 The JAX package `nanohevc_tpu` stays the reference.  This package
-imports `torch` and numpy and never `jax`; from `nanohevc_tpu` it
-shares only the jax-free host modules (`config`, `frame`, `tables`,
-`ref` and `runtime`).
+imports `torch` and numpy, never `jax` and nothing of `nanohevc_tpu`:
+it keeps its own copies of the host modules it needs (`tables`,
+`config`, `frame`, `ref` and `runtime`, each headed by the file it
+copies).
 
 Layout mirrors the JAX package so each counterpart is easy to find:
 
@@ -11,7 +12,11 @@ Layout mirrors the JAX package so each counterpart is easy to find:
 - `ops`: plain PyTorch formulations of the block ops (CPU and CUDA);
 - `kernels`: hand-written CUDA kernels and their wrappers;
 - `models.all_intra`: the open-loop all-intra frame encoder;
-- `cli`: `python -m nanohevc_tpu_torch [--device cuda|cpu] demo|encode`.
+- `models.wavefront`: the closed-loop (wavefront) encoder and decoder;
+- `cli`: `python -m nanohevc_tpu_torch [--device cuda|cpu]
+  demo|encode|decode`.
+
+Entry points run on the CUDA card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -43,10 +48,24 @@ from nanohevc_tpu_torch.models.all_intra import (  # noqa: E402
     encode_frame_full,
     encode_frame_intra,
 )
+from nanohevc_tpu_torch.models.wavefront import (  # noqa: E402
+    decode_frame,
+    decode_plane,
+    decode_planes,
+    encode_frame_closed_loop,
+    encode_plane_closed_loop,
+    encode_planes_closed_loop,
+)
 
 __all__ = [
     "resolve_device",
     "encode_frame_full",
     "encode_frame_intra",
     "create_test_frame",
+    "encode_planes_closed_loop",
+    "encode_plane_closed_loop",
+    "encode_frame_closed_loop",
+    "decode_planes",
+    "decode_plane",
+    "decode_frame",
 ]

@@ -1,11 +1,12 @@
 """Command-line interface: `python -m nanohevc_tpu_torch [--device cuda|cpu]
-demo|encode`.
+demo|encode|decode`.
 
 Output text and files equal those of `python -m nanohevc_tpu` for the
-same arguments.  Only the open-loop slice is ported (DC/planar, the
-35-mode search, reference smoothing): the flags and commands of the
-JAX CLI that need anything else exit with rc 2 and a "not yet ported"
-message; nothing runs in their place.
+same arguments.  Ported: the open-loop slice (DC/planar, the 35-mode
+search, reference smoothing), the closed loop (`encode --pipeline
+closed-loop`) and `decode` of single-frame streams.  The flags and
+commands of the JAX CLI that need anything else exit with rc 2 and a
+"not yet ported" message; nothing runs in their place.
 """
 
 from __future__ import annotations
@@ -22,13 +23,16 @@ _REFUSED_ENCODE_SWITCHES = (
 _REFUSED_ENCODE_VALUES = (
     "target_bytes", "sao_tile", "hevc_export", "chroma_mode",
 )
+# NAL type of the access-unit delimiters that mark a multi-frame
+# sequence stream (nanohevc_tpu/models/sequence.py, not ported yet).
+NAL_AUD = 35
 
 
 def demo_predictions(height: int, width: int, block_size: int, device) -> None:
     """DC vs planar demo on the synthetic test frame."""
     import torch
 
-    from nanohevc_tpu.ref.metrics import psnr
+    from nanohevc_tpu_torch.ref.metrics import psnr
     from nanohevc_tpu_torch import ops
     from nanohevc_tpu_torch.models.all_intra import create_test_frame
 
@@ -78,9 +82,9 @@ def cmd_demo(args: argparse.Namespace) -> None:
 
 
 def cmd_encode(args: argparse.Namespace) -> None:
-    from nanohevc_tpu.config import EncoderConfig
-    from nanohevc_tpu.frame import Frame
-    from nanohevc_tpu.ref.metrics import psnr
+    from nanohevc_tpu_torch.config import EncoderConfig
+    from nanohevc_tpu_torch.frame import Frame
+    from nanohevc_tpu_torch.ref.metrics import psnr
     from nanohevc_tpu_torch.models.all_intra import (
         encode_frame_full,
         encode_frame_intra,
@@ -123,6 +127,9 @@ def cmd_encode(args: argparse.Namespace) -> None:
         dequant_rescale=args.dequant_rescale,
         intra_smoothing=args.intra_smoothing,
     )
+    if args.pipeline == "closed-loop":
+        encode_closed_loop(frame, config, args)
+        return
     recon, info = encode_frame_full(frame, config, device=args.device)
     if args.output:
         with open(args.output, "wb") as f:
@@ -145,10 +152,62 @@ def cmd_encode(args: argparse.Namespace) -> None:
         )
 
 
+def encode_closed_loop(frame, config, args: argparse.Namespace) -> None:
+    """`encode --pipeline closed-loop`: the decodable wavefront encode."""
+    from nanohevc_tpu_torch.models.wavefront import encode_frame_closed_loop
+    from nanohevc_tpu_torch.ref.metrics import psnr
+
+    recon, bitstream = encode_frame_closed_loop(frame, config,
+                                                device=args.device)
+    if args.output:
+        with open(args.output, "wb") as f:
+            f.write(recon.to_yuv420p())
+        print(f"Wrote: {args.output}")
+    y_psnr = psnr(frame.y.data.astype(np.uint8), recon.y.data.astype(np.uint8))
+    print("\nResults:")
+    print(f"  QP: {args.qp}  Y-PSNR: {y_psnr:.2f} dB (reconstruction-fed)")
+    if args.bitstream:
+        with open(args.bitstream, "wb") as f:
+            f.write(bitstream)
+        raw = args.width * args.height * 3 // 2
+        print(
+            f"  Bitstream: {args.bitstream} ({len(bitstream)} bytes, "
+            f"{raw / len(bitstream):.1f}x vs raw, decodable)"
+        )
+
+
+def _decode_command(parser: argparse.ArgumentParser):
+    def cmd_decode(args: argparse.Namespace) -> None:
+        """Decode a single-frame closed-loop bitstream to YUV420p."""
+        from nanohevc_tpu_torch.models.wavefront import decode_frame
+        from nanohevc_tpu_torch.runtime.bitstream import (
+            _split_nals,
+            parse_bitstream,
+        )
+
+        with open(args.input, "rb") as f:
+            bitstream = f.read()
+        if any(t == NAL_AUD for t, _ in _split_nals(bitstream)):
+            _not_ported(parser, "decoding a multi-frame sequence stream")
+        try:
+            frame = decode_frame(bitstream, device=args.device)
+            params = parse_bitstream(bitstream).get("params", {})
+            depth = 8 + params.get("bit_depth_luma_minus8", 0)
+            with open(args.output, "wb") as f:
+                f.write(frame.to_yuv420p(bit_depth=depth))
+            suffix = "" if depth == 8 else f", {depth}-bit 16le samples"
+            print(f"Decoded: {args.input} -> {args.output} "
+                  f"({frame.width}x{frame.height}{suffix})")
+        except ValueError as e:
+            print(f"Error: {e}", file=sys.stderr)
+            sys.exit(1)
+    return cmd_decode
+
+
 def assemble_frame_bitstream(width: int, height: int, config, info: dict) -> bytes:
     """The NAL-framed container bitstream of an encode_frame_full result,
-    written by the shared host runtime."""
-    from nanohevc_tpu.runtime import assemble_bitstream
+    written by the host runtime (`runtime.assemble_bitstream`)."""
+    from nanohevc_tpu_torch.runtime import assemble_bitstream
 
     planes = {
         name: (p["levels"], p["block_size"])
@@ -212,17 +271,19 @@ def main(argv: list[str] | None = None) -> None:
     )
     enc.add_argument(
         "--entropy", choices=("range", "cabac", "hevc-slice"),
-        default="range", help="slice entropy engine of the shared runtime",
+        default="range", help="slice entropy engine of the host runtime",
     )
     enc.add_argument(
         "--pipeline", choices=("predict", "full", "closed-loop"),
         default="predict",
         help="predict = prediction-only; full = predict+transform+quant+"
-        "recon (open loop); closed-loop is not ported yet",
+        "recon (open loop); closed-loop = reconstruction-fed wavefront "
+        "(decodable)",
     )
     enc.add_argument(
         "--bitstream",
-        help="write the NAL-framed bitstream to this path (full pipeline)",
+        help="write the NAL-framed bitstream to this path (full or "
+        "closed-loop pipeline)",
     )
     enc.add_argument(
         "--dequant-rescale", action="store_true",
@@ -231,7 +292,7 @@ def main(argv: list[str] | None = None) -> None:
     enc.add_argument(
         "--mode-search", action="store_true",
         help="search all 35 intra modes (SATD) instead of DC/planar energy "
-        "(full pipeline)",
+        "(full or closed-loop pipeline)",
     )
     enc.add_argument(
         "--intra-smoothing", action="store_true",
@@ -246,10 +307,16 @@ def main(argv: list[str] | None = None) -> None:
                          help=argparse.SUPPRESS)
     enc.set_defaults(func=cmd_encode)
 
-    for name in ("encode-seq", "decode"):
-        cmd = sub.add_parser(name, help=f"({name} is not ported yet)")
-        cmd.add_argument("rest", nargs=argparse.REMAINDER)
-        cmd.set_defaults(func=_refuse_command(parser))
+    seq = sub.add_parser("encode-seq", help="(encode-seq is not ported yet)")
+    seq.add_argument("rest", nargs=argparse.REMAINDER)
+    seq.set_defaults(func=_refuse_command(parser))
+
+    dec = sub.add_parser(
+        "decode", help="Decode a closed-loop bitstream to YUV420p"
+    )
+    dec.add_argument("input", help="Input bitstream file")
+    dec.add_argument("-o", "--output", required=True, help="Output YUV path")
+    dec.set_defaults(func=_decode_command(parser))
 
     args = parser.parse_args(argv)
     if args.platform is not None:
@@ -258,11 +325,9 @@ def main(argv: list[str] | None = None) -> None:
         for dest in _REFUSED_ENCODE_SWITCHES + _REFUSED_ENCODE_VALUES:
             if getattr(args, dest) not in (None, False):
                 _not_ported(parser, "--" + dest.replace("_", "-"))
-        if args.pipeline == "closed-loop":
-            _not_ported(parser, "--pipeline closed-loop")
         if args.decision == "rd":
             _not_ported(parser, "--decision rd")
-    if args.func is cmd_demo or args.func is cmd_encode:
+    if args.command in ("demo", "encode", "decode"):
         from nanohevc_tpu_torch import resolve_device
 
         try:

@@ -16,18 +16,10 @@
 //   H-1 (true source rows below the block, also below the last full
 //   block-row); 1 << (bd-1) on the plane's top row and left column, and
 //   at the corner when y0 == 0 or x0 == 0;
-//   planar with top[N] / left[N] (corner-at-0) as top-right / bottom-left;
-//   DC = floor((sum + N) / 2N);
-//   angular 2..34 from a per-mode reference array of 3N+1 samples with
-//   the negative-angle extension ref[N+i] = side[((i+1)*inv + 128) >> 8],
-//   then ((32-f)*a + f*b + 16) >> 5 with the idx+1 read clamped at 3N;
-//   SATD = sum |H.D.H^T| with the Sylvester Walsh-Hadamard matrix H;
-//   strict < in mode order 0..34, so ties go to the lowest index;
+//   the 35-mode SATD search of mode_sweep.cuh (shared with
+//   wavefront.cu);
 //   then transform, deadzone quantizer, dequant, inverse, clip
-//   (encode_tail.cuh, shared with slab_pipeline.cu).
-// The projections shift negative ints right (proj >> 5 with a negative
-// angle); this relies on nvcc's >> on signed int being arithmetic, as
-// it is on every NVIDIA target.
+//   (encode_tail.cuh, shared with slab_pipeline.cu and wavefront.cu).
 //
 // Design.  The TPU kernels keep row slabs in lanes and turn the search
 // into lane rolls, phase masks, g-row interleaving, 128-lane padding
@@ -36,7 +28,7 @@
 // blocks (BPB = 256 / N^2 for N <= 8, else 1), one thread per pixel.
 // Each block's pixels, its 4N+2 references and all 33 per-mode
 // reference arrays are built in shared memory once; then the 35 modes
-// are swept in order.  Each thread computes its pixel's prediction,
+// are swept in order (mode_sweep.cuh).  Each thread computes its pixel's prediction,
 // the residual goes through the WHT as two N-term signed sums (columns,
 // then rows) in shared memory, and |.| is summed per block with warp
 // shuffles (plus one shared-memory step across the block's warps at
@@ -51,15 +43,7 @@
 // (mode_search_slab.py:23-27), a WHT as butterflies in warp shuffles,
 // and a Hadamard on the tensor cores.
 
-#include "encode_tail.cuh"
-
-// Transform matrices, then intraPredAngle of modes 2..34, then
-// invAngle of modes 2..34 (0 where the angle is not negative).
-constexpr int kNumAngular = 33;
-constexpr int kAngleOffset = kTransformInts;
-constexpr int kInvAngleOffset = kTransformInts + kNumAngular;
-constexpr int kTableInts = kTransformInts + 2 * kNumAngular;
-__constant__ int c_tables[kTableInts];
+#include "mode_sweep.cuh"   // also defines c_tables, the constant table
 
 template <int N, int BPB>
 __global__ void __launch_bounds__(N * N * BPB)
@@ -68,11 +52,9 @@ mode_search_kernel(const int* __restrict__ plane, int height, int width,
                    int* __restrict__ recon, int* __restrict__ levels,
                    int* __restrict__ modes) {
   constexpr int NN = N * N;
-  constexpr int LOG2N = Log2<N>::value;
   constexpr int R = 2 * N + 1;          // one reference arm, corner at 0
   constexpr int L = 3 * N + 1;          // a mode's projection array
   constexpr int WARPS = NN > 32 ? NN / 32 : 1;   // warps per N x N block
-  constexpr int LANES = NN < 32 ? NN : 32;       // lanes per block per warp
 
   __shared__ int s_t[NN];               // T[i][k] at i*N + k
   __shared__ int s_tt[NN];              // T[j][k] at k*N + j
@@ -120,97 +102,10 @@ mode_search_kernel(const int* __restrict__ plane, int height, int width,
   }
   __syncthreads();
 
-  // --- the 33 projection arrays (angular_tables.py src) ---------------
-  // ref[N + i] for i in -N..2N: the primary arm at i >= 0 (i = 0 is the
-  // corner); below 0, the extension from the other arm where the angle
-  // is negative and i >= (N * angle) >> 5, else the corner.
-  for (int e = p; e < kNumAngular * L; e += NN) {
-    const int m = e / L;
-    const int pos = e % L - N;
-    const int angle = c_tables[kAngleOffset + m];
-    const bool vertical = m + 2 >= 18;
-    const int prim = vertical ? 0 : R, sec = vertical ? R : 0;
-    int v;
-    if (pos >= 0) {
-      v = s_ref[lb][prim + pos];
-    } else if (angle < 0 && pos >= ((N * angle) >> 5)) {
-      const int inv = c_tables[kInvAngleOffset + m];
-      v = s_ref[lb][sec + (((pos + 1) * inv + 128) >> 8)];
-    } else {
-      v = s_ref[lb][0];
-    }
-    s_mref[lb][m][e % L] = v;
-  }
-
-  // --- DC and planar, per pixel ---------------------------------------
-  const int* top = s_ref[lb];
-  const int* left = s_ref[lb] + R;
-  int sum = 0;
-#pragma unroll
-  for (int k = 1; k <= N; ++k) sum += top[k] + left[k];
-  const int dc = floor_div(sum + N, 2 * N);
-  const int pl = ((N - 1 - j) * left[1 + i] + (j + 1) * top[N] +
-                  (N - 1 - i) * top[1 + j] + (i + 1) * left[N] + N) >>
-                 (LOG2N + 1);
-  __syncthreads();                      // projection arrays complete
-
-  // --- the sweep over modes 0..34 -------------------------------------
-  int best_cost = 0x7fffffff, best_mode = 0, best_pred = 0;
-#pragma unroll 1
-  for (int mode = 0; mode < 35; ++mode) {
-    int pred;
-    if (mode == 0) {
-      pred = pl;
-    } else if (mode == 1) {
-      pred = dc;
-    } else {
-      const int m = mode - 2;
-      const int angle = c_tables[kAngleOffset + m];
-      const bool vertical = mode >= 18;
-      const int scan = vertical ? i : j, base = vertical ? j : i;
-      const int proj = (scan + 1) * angle;
-      const int frac = proj & 31;
-      const int idx = N + base + 1 + (proj >> 5);
-      const int a = s_mref[lb][m][idx];
-      const int b = s_mref[lb][m][min(idx + 1, 3 * N)];
-      pred = ((32 - frac) * a + frac * b + 16) >> 5;
-    }
-
-    // SATD: column pass H.D, then row pass (H.D).H^T; H[r][c] is
-    // (-1)^popcount(r & c) in Sylvester order.
-    s_a[lb][p] = x - pred;
-    __syncthreads();
-    int acc = 0;
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const int v = s_a[lb][k * N + j];
-      acc += (__popc(i & k) & 1) ? -v : v;
-    }
-    s_b[lb][p] = acc;
-    __syncthreads();
-    acc = 0;
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const int v = s_b[lb][i * N + k];
-      acc += (__popc(j & k) & 1) ? -v : v;
-    }
-    int cost = acc < 0 ? -acc : acc;
-#pragma unroll
-    for (int off = LANES / 2; off > 0; off >>= 1)
-      cost += __shfl_xor_sync(0xffffffffu, cost, off);
-    if constexpr (WARPS > 1) {
-      if ((p & 31) == 0) s_part[lb][p >> 5] = cost;
-      __syncthreads();
-      cost = 0;
-#pragma unroll
-      for (int w = 0; w < WARPS; ++w) cost += s_part[lb][w];
-    }
-    if (cost < best_cost) {             // uniform across the block
-      best_cost = cost;
-      best_mode = mode;
-      best_pred = pred;
-    }
-  }
+  // --- the 35-mode search (mode_sweep.cuh) --------------------------
+  int best_mode, best_pred;
+  mode_sweep<N, N * N * BPB>(s_ref[lb], s_mref[lb], s_a[lb], s_b[lb],
+                             s_part[lb], x, i, j, best_mode, best_pred);
 
   // --- transform, quantize, reconstruct (shared tail) ------------------
   int level, rec;
@@ -235,7 +130,7 @@ static void launch(const int* plane, int height, int width, int nbx, int nb,
 
 extern "C" int nhv_table_ints() { return kTableInts; }
 
-// Copy the constant table (layout above) into constant memory of
+// Copy the constant table (layout in mode_sweep.cuh) into constant memory of
 // `device`.  Returns a cudaError_t.
 extern "C" int nhv_upload_tables(const int* host, int count, int device) {
   if (count != kTableInts) return (int)cudaErrorInvalidValue;

@@ -20,8 +20,9 @@
 // against T (and T^T) copied from __constant__ memory into shared
 // memory.  Outputs go straight to their final layouts: recon (H, W),
 // levels (nb, N, N) raster blocks, one mode per block (1 DC, 0 planar).
-// The transform-quantize tail lives in encode_tail.cuh, shared with
-// mode_search.cu.
+// The DC/planar decision lives in dc_planar.cuh, shared with
+// wavefront.cu; the transform-quantize tail in encode_tail.cuh, shared
+// with mode_search.cu and wavefront.cu.
 //
 // What bounds it on the card: it reads the plane once (4 bytes a pixel,
 // plus one row and one column of neighbours per block) and writes recon
@@ -30,7 +31,7 @@
 // blocks in flight: a 1080p luma plane at N = 8 gives 32,400 blocks,
 // 8,100 thread blocks of 256 threads.
 
-#include "encode_tail.cuh"
+#include "dc_planar.cuh"
 
 // The transform matrices only (layout in encode_tail.cuh).
 constexpr int kTableInts = kTransformInts;
@@ -42,15 +43,14 @@ slab_encode_kernel(const int* __restrict__ plane, int width, int nbx, int nb,
                    int t_offset, QpScalars q, int* __restrict__ recon,
                    int* __restrict__ levels, int* __restrict__ modes) {
   constexpr int NN = N * N;
-  constexpr int LOG2N = Log2<N>::value;
+  constexpr int R = 2 * N + 1;  // one reference arm, corner at 0
 
   __shared__ int s_t[NN];    // T[i][k] at i*N + k
   __shared__ int s_tt[NN];   // T[j][k] at k*N + j (transposed copy)
   __shared__ int s_x[BPB][NN];
   __shared__ int s_a[BPB][NN];
   __shared__ int s_b[BPB][NN];
-  __shared__ int s_top[BPB][N];
-  __shared__ int s_left[BPB][N];
+  __shared__ int s_ref[BPB][2 * R];  // T[1..N] at 1.., L[1..N] at R+1..
 
   const int tid = threadIdx.x;
   const int lb = tid / NN;          // block slot in this thread block
@@ -69,43 +69,21 @@ slab_encode_kernel(const int* __restrict__ plane, int width, int nbx, int nb,
   if (active) {
     x = plane[(size_t)(y0 + i) * width + x0 + j];
     if (i == 0)
-      s_top[lb][j] = y0 == 0 ? q.boundary
-                             : plane[(size_t)(y0 - 1) * width + x0 + j];
+      s_ref[lb][1 + j] = y0 == 0 ? q.boundary
+                                 : plane[(size_t)(y0 - 1) * width + x0 + j];
     if (j == 0)
-      s_left[lb][i] = x0 == 0 ? q.boundary
-                              : plane[(size_t)(y0 + i) * width + x0 - 1];
+      s_ref[lb][R + 1 + i] = x0 == 0 ? q.boundary
+                                     : plane[(size_t)(y0 + i) * width + x0 - 1];
   } else {
-    if (i == 0) s_top[lb][j] = 0;
-    if (j == 0) s_left[lb][i] = 0;
+    if (i == 0) s_ref[lb][1 + j] = 0;
+    if (j == 0) s_ref[lb][R + 1 + i] = 0;
   }
   __syncthreads();
 
-  // --- DC and planar, per pixel -------------------------------------
-  int sum = 0;
-#pragma unroll
-  for (int k = 0; k < N; ++k) sum += s_top[lb][k] + s_left[lb][k];
-  const int dc = floor_div(sum + N, 2 * N);
-  const int tr = s_top[lb][N - 1];
-  const int bl = s_left[lb][N - 1];
-  const int pl = ((N - 1 - j) * s_left[lb][i] + (j + 1) * tr +
-                  (N - 1 - i) * s_top[lb][j] + (i + 1) * bl + N) >>
-                 (LOG2N + 1);
-
-  // --- energy decision, ties to DC -----------------------------------
-  const int rd = x - dc, rp = x - pl;
-  s_a[lb][p] = rd * rd;
-  s_b[lb][p] = rp * rp;
-  __syncthreads();
-#pragma unroll
-  for (int s = NN / 2; s > 0; s >>= 1) {
-    if (p < s) {
-      s_a[lb][p] += s_a[lb][p + s];
-      s_b[lb][p] += s_b[lb][p + s];
-    }
-    __syncthreads();
-  }
-  const bool use_dc = s_a[lb][0] <= s_b[lb][0];
-  const int pred = use_dc ? dc : pl;
+  // --- DC/planar by energy, ties to DC (dc_planar.cuh) -------------
+  bool use_dc;
+  const int pred = dc_planar_energy<N>(s_ref[lb], x, i, j, s_a[lb], s_b[lb],
+                                       use_dc);
 
   // --- transform, quantize, reconstruct (shared tail) ----------------
   int level, rec;

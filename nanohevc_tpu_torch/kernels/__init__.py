@@ -15,6 +15,11 @@ from nanohevc_tpu_torch.kernels.mode_search import (
     mode_search_encode_plane_reference,
     mode_search_supported,
 )
+from nanohevc_tpu_torch.kernels.wavefront import (
+    wavefront_encode_planes,
+    wavefront_encode_planes_reference,
+    wavefront_supported,
+)
 
 __all__ = [
     "mode_search_encode_plane",
@@ -23,4 +28,7 @@ __all__ = [
     "slab_encode_plane",
     "slab_encode_plane_reference",
     "slab_supported",
+    "wavefront_encode_planes",
+    "wavefront_encode_planes_reference",
+    "wavefront_supported",
 ]

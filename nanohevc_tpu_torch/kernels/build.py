@@ -43,6 +43,10 @@ _ENCODE_ARGS = [_P, _I, _I, _I, _I] + [_I] * 7 + [_P, _P, _P, _P, _I]
 SIGNATURES = {
     "slab_pipeline": {"nhv_slab_encode": _ENCODE_ARGS},
     "mode_search": {"nhv_mode_search_encode": _ENCODE_ARGS},
+    # planes, batch, height, width, n, body, use_dst, 7 QpScalars,
+    # recon, levels, modes, stream, device
+    "wavefront": {"nhv_wavefront_encode":
+                  [_P] + [_I] * 6 + [_I] * 7 + [_P, _P, _P, _P, _I]},
 }
 
 

@@ -28,7 +28,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from nanohevc_tpu.tables import INTRA_PRED_ANGLE, INV_ANGLE
+from nanohevc_tpu_torch.tables import INTRA_PRED_ANGLE, INV_ANGLE
 from nanohevc_tpu_torch import ops
 from nanohevc_tpu_torch.kernels.slab_pipeline import (
     BLOCK_SIZES,

@@ -22,7 +22,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from nanohevc_tpu.tables import transform_matrix
+from nanohevc_tpu_torch.tables import transform_matrix
 from nanohevc_tpu_torch import ops
 from nanohevc_tpu_torch.ops.intra import DC_MODE, PLANAR_MODE
 from nanohevc_tpu_torch.params import qp_scalars

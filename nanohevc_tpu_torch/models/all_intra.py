@@ -28,10 +28,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from nanohevc_tpu.config import EncoderConfig
-from nanohevc_tpu.frame import Frame, Plane
-from nanohevc_tpu.ref.metrics import psnr as psnr_host
-from nanohevc_tpu.ref.metrics import ssim as ssim_host
+from nanohevc_tpu_torch.config import EncoderConfig
+from nanohevc_tpu_torch.frame import Frame, Plane
+from nanohevc_tpu_torch.ref.metrics import psnr as psnr_host
+from nanohevc_tpu_torch.ref.metrics import ssim as ssim_host
 from nanohevc_tpu_torch import ops, resolve_device
 from nanohevc_tpu_torch.kernels.mode_search import (
     mode_search_encode_plane,
@@ -345,7 +345,7 @@ def encode_frame_full(frame: Frame, config: EncoderConfig, *,
 
     Returns (recon Frame, info) with the JAX package's keys: per-plane
     levels (nb, N*N) int32, modes (nb,) int32, nnz and block_size; the
-    block count; psnr_y and ssim_y from the shared host oracle.
+    block count; psnr_y and ssim_y from the host oracle (`ref.metrics`).
     """
     dev = resolve_device(device)
     recon = Frame.zeros(frame.height, frame.width, dtype=np.int16)

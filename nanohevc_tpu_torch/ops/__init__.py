@@ -1,5 +1,5 @@
 """Plain PyTorch block ops: the port of `nanohevc_tpu.ops` for the
-open-loop slice (DC/planar and the 35-mode search).
+open-loop slice (DC/planar and the 35-mode search) and the closed loop.
 
 Everything operates on a `(num_blocks, N, N)` int32 block tensor on
 whatever device the input lies on (CPU or CUDA), integer-exact and
@@ -8,6 +8,7 @@ held bit-exact against the JAX ops in tests/test_torch_ops.py.
 
 from nanohevc_tpu_torch.ops.tiling import (
     extract_refs,
+    extract_refs_at,
     num_blocks,
     tile_plane,
     untile_plane,
@@ -39,6 +40,7 @@ __all__ = [
     "tile_plane",
     "untile_plane",
     "extract_refs",
+    "extract_refs_at",
     "num_blocks",
     "dc_predict",
     "planar_predict",

@@ -26,7 +26,7 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 
-from nanohevc_tpu.tables import INTRA_PRED_ANGLE, INV_ANGLE
+from nanohevc_tpu_torch.tables import INTRA_PRED_ANGLE, INV_ANGLE
 
 
 class AngularTables(NamedTuple):

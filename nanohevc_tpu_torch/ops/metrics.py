@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from nanohevc_tpu.ref.metrics import hadamard_matrix
+from nanohevc_tpu_torch.ref.metrics import hadamard_matrix
 
 
 def mse(original: torch.Tensor, reconstructed: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from nanohevc_tpu.tables import DEQUANT_SCALE, QUANT_SCALE
+from nanohevc_tpu_torch.tables import DEQUANT_SCALE, QUANT_SCALE
 
 
 def _qp_params(qp: int) -> tuple[int, int]:

@@ -8,7 +8,9 @@ Port of `nanohevc_tpu/ops/tiling.py`.  The block tensor is
 
 with the corner at index 0 and 2N+1, the boundary fill outside the
 frame and the last in-frame sample replicated past the frame edge.
-Neighbours come from the source plane (open loop).
+`extract_refs` reads the source plane (open loop); `extract_refs_at`
+reads any plane at a chosen set of blocks, which the closed loop uses
+on its partly written reconstruction.
 """
 
 from __future__ import annotations
@@ -46,6 +48,40 @@ def untile_plane(blocks: torch.Tensor, height: int, width: int,
                      device=blocks.device)
     out[: nby * n, : nbx * n] = body
     return out
+
+
+def extract_refs_at(plane: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+                    n: int, boundary: int = BOUNDARY_FILL) -> torch.Tensor:
+    """Neighbour extraction for an arbitrary set of block origins.
+
+    (..., H, W) plane, (m,) block-row and (m,) block-column indices ->
+    (..., m, 4N+2) in the layout of `extract_refs`, leading (batch)
+    dimensions kept.  The clamps are those of `extract_refs`: top
+    columns to W-1, left rows to H-1.  On a zero-filled reconstruction
+    written one anti-diagonal at a time they give the closed loop's
+    availability rule: the top-right and below-left extensions lie on
+    the block's own diagonal and read 0, except at the last block-column
+    (last block-row), where the clamp replicates T[N] (L[N]).
+    """
+    h, w = plane.shape[-2:]
+    p = plane.to(torch.int32)
+    dev = p.device
+    y0 = (ys.to(torch.int64) * n)[:, None]                       # (m, 1)
+    x0 = (xs.to(torch.int64) * n)[:, None]
+    i = torch.arange(2 * n + 1, dtype=torch.int64, device=dev)[None, :]
+    fill = torch.tensor(boundary, dtype=torch.int32, device=dev)
+    edge = (y0[:, 0] == 0) | (x0[:, 0] == 0)                    # (m,)
+
+    tcol = (x0 + (i - 1)).clamp(0, w - 1)
+    trow = (y0 - 1).clamp(0, h - 1).expand_as(tcol)
+    top = torch.where(y0 == 0, fill, p[..., trow, tcol])         # (..., m, 2N+1)
+    top[..., 0] = torch.where(edge, fill, top[..., 0])
+
+    lrow = (y0 + (i - 1)).clamp(0, h - 1)
+    lcol = (x0 - 1).clamp(0, w - 1).expand_as(lrow)
+    left = torch.where(x0 == 0, fill, p[..., lrow, lcol])
+    left[..., 0] = torch.where(edge, fill, left[..., 0])
+    return torch.cat([top, left], dim=-1)
 
 
 def extract_refs(plane: torch.Tensor, n: int,

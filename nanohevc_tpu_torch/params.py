@@ -1,8 +1,8 @@
 """The codec's fixed state: spec tables and per-QP scalars.
 
 The codec has no learned weights.  What it carries across calls is
-the spec tables of `nanohevc_tpu.tables` (shared, not copied) and the
-`EncoderConfig`.  `encoder_tables` puts the same numpy arrays the JAX
+the spec tables of `tables` (the port's copy of `nanohevc_tpu.tables`)
+and the `EncoderConfig`.  `encoder_tables` puts the same numpy arrays the JAX
 package hands to its device into int32 tensors; `qp_scalars` is the
 port of `nanohevc_tpu.kernels.slab_pipeline._qp_scalars`.
 """
@@ -15,7 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from nanohevc_tpu.tables import (
+from nanohevc_tpu_torch.tables import (
     DEQUANT_SCALE,
     QUANT_SCALE,
     diag_scan_order,

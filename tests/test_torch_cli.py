@@ -1,9 +1,10 @@
 """`python -m nanohevc_tpu_torch` vs `python -m nanohevc_tpu`.
 
 For the same arguments (the port with --device cpu, the JAX CLI with
---platform cpu) stdout and the files written must be identical.  Flags
-the port does not cover yet exit with rc 2; a missing card fails
-instead of running on the CPU.
+--platform cpu) stdout and the files written must be identical, for
+`demo`, `encode` (predict, full and closed-loop pipelines) and
+`decode`.  Flags the port does not cover yet exit with rc 2; a missing
+card fails instead of running on the CPU.
 """
 
 import os
@@ -113,7 +114,7 @@ def test_encode_mode_search_flags_identical(capsys, yuv_input, extra):
     (8, 22, False), (4, 22, False), (16, 22, True), (32, 37, False),
 ])
 def test_encode_mode_search_satd_bytes(capsys, yuv_input, bs, qp, rescale):
-    """--mode-search (SATD) bytes == the shared runtime's bitstream of the
+    """--mode-search (SATD) bytes == the JAX runtime's bitstream of the
     JAX XLA outputs; the recon file == the JAX XLA recon."""
     from nanohevc_tpu.config import EncoderConfig
     from nanohevc_tpu.frame import Frame
@@ -177,7 +178,7 @@ def test_predict_pipeline_ignores_search_flags(capsys, yuv_input, flag):
     ["--rdo"], ["--rdoq"],
     ["--deblock"], ["--sao"], ["--sao-ctb"], ["--sao-tile", "32"],
     ["--hevc-export", "x.hevc"], ["--hevc-mono"], ["--chroma-mode", "dc"],
-    ["--target-bytes", "1000"], ["--pipeline", "closed-loop"],
+    ["--target-bytes", "1000"], ["--pipeline", "closed-loop", "--deblock"],
     ["--decision", "rd"],
 ])
 def test_unported_encode_flags_exit_2(capsys, yuv_input, argv):
@@ -189,17 +190,104 @@ def test_unported_encode_flags_exit_2(capsys, yuv_input, argv):
     assert "not yet ported" in capsys.readouterr().err
 
 
+def _sequence_stream(frame) -> bytes:
+    """Two closed-loop frames behind access-unit delimiters (NAL type
+    35), the layout of the JAX package's sequence streams."""
+    import struct
+
+    from nanohevc_tpu_torch.config import EncoderConfig
+    from nanohevc_tpu_torch.models.wavefront import encode_frame_closed_loop
+    from nanohevc_tpu_torch.runtime.entropy import wrap_nal
+
+    _, bits = encode_frame_closed_loop(frame, EncoderConfig(), device="cpu")
+    return b"".join(wrap_nal(35, struct.pack("<I", i)) + bits for i in range(2))
+
+
 @pytest.mark.parametrize("argv", [
     ["encode-seq", "in.yuv", "--width", "64", "--height", "48",
      "--frames", "2", "--bitstream", "o.bin"],
-    ["decode", "o.bin", "-o", "d.yuv"],
+    ["--device", "cpu", "decode", "{sequence}", "-o", "{out}"],
     ["--platform", "cpu", "demo"],
 ])
-def test_unported_commands_exit_2(capsys, argv):
+def test_unported_commands_exit_2(capsys, tmp_path, argv):
+    seq, out = tmp_path / "seq.bin", tmp_path / "d.yuv"
+    seq.write_bytes(_sequence_stream(create_test_frame(16, 32)))
+    argv = [a.format(sequence=seq, out=out) for a in argv]
     with pytest.raises(SystemExit) as exc:
         torch_main(argv)
     assert exc.value.code == 2
     assert "not yet ported" in capsys.readouterr().err
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("extra", [
+    [],
+    ["--qp", "20", "--block-size", "4", "--scan", "mode"],
+    ["--block-size", "16", "--entropy", "cabac", "--dequant-rescale"],
+    ["--intra-smoothing", "--entropy", "hevc-slice"],
+    ["--mode-search", "--decision", "sad", "--qp", "30"],
+    ["--decision", "satd", "--block-size", "32"],
+])
+def test_closed_loop_and_decode_identical(capsys, yuv_input, extra):
+    """`encode --pipeline closed-loop` then `decode`: stdout, recon,
+    bitstream and decoded YUV equal the JAX CLI's (whose DC/planar
+    closed loop runs its K4 kernel in interpret mode here)."""
+    tmp, src = yuv_input
+    out, bits, dec = (str(tmp / f) for f in ("out.yuv", "out.bin", "dec.yuv"))
+    results = []
+    for run, flag in ((jax_main, ["--platform", "cpu"]),
+                      (torch_main, ["--device", "cpu"])):
+        for path in (out, bits, dec):
+            if os.path.exists(path):
+                os.remove(path)
+        run(flag + ["encode", src, "--width", "64", "--height", "48",
+                    "--pipeline", "closed-loop", "-o", out, "--bitstream",
+                    bits] + extra)
+        run(flag + ["decode", bits, "-o", dec])
+        files = []
+        for path in (out, bits, dec):
+            with open(path, "rb") as f:
+                files.append(f.read())
+        results.append((capsys.readouterr().out, files))
+    (jout, jf), (tout, tf) = results
+    assert tout == jout
+    assert tf == jf
+    assert tf[0] == tf[2]                 # decode == encoder recon
+    assert "decodable" in tout and "Decoded:" in tout
+
+
+def test_closed_loop_mode_search_round_trip(capsys, yuv_input):
+    """--mode-search (SATD) in the closed loop: the port's bytes equal
+    the port's library encode, and decode gives back the recon."""
+    from nanohevc_tpu_torch.config import EncoderConfig
+    from nanohevc_tpu_torch.frame import Frame
+    from nanohevc_tpu_torch.models.wavefront import encode_frame_closed_loop
+
+    tmp, src = yuv_input
+    out, bits, dec = (str(tmp / f) for f in ("out.yuv", "out.bin", "dec.yuv"))
+    torch_main(["--device", "cpu", "encode", src, "--width", "64", "--height",
+                "48", "--pipeline", "closed-loop", "--mode-search", "-o", out,
+                "--bitstream", bits])
+    torch_main(["--device", "cpu", "decode", bits, "-o", dec])
+    assert "Decoded: " in capsys.readouterr().out
+    with open(src, "rb") as f:
+        frame = Frame.from_yuv420p(f.read(), 48, 64)
+    recon, want = encode_frame_closed_loop(
+        frame, EncoderConfig(mode_set="all", decision="satd"), device="cpu")
+    with open(bits, "rb") as f:
+        assert f.read() == want
+    with open(out, "rb") as f, open(dec, "rb") as g:
+        assert f.read() == g.read() == recon.to_yuv420p()
+
+
+def test_decode_corrupt_stream_errors(capsys, tmp_path):
+    bad = tmp_path / "bad.bin"
+    bad.write_bytes(b"\x00\x00\x01garbage")
+    with pytest.raises(SystemExit) as exc:
+        torch_main(["--device", "cpu", "decode", str(bad), "-o",
+                    str(tmp_path / "d.yuv")])
+    assert exc.value.code == 1
+    assert "Error:" in capsys.readouterr().err
 
 
 def test_short_file_errors(capsys, tmp_path):

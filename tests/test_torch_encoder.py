@@ -3,9 +3,11 @@
 Small seeded 4:2:0 frames go through `nanohevc_tpu.models.all_intra`
 and `nanohevc_tpu_torch.models.all_intra` (device="cpu").  Recon,
 scan-packed levels, modes, nnz and dtypes must be equal, and so must
-the bytes the shared runtime writes from either side's output.
+the bytes each side's runtime writes from its output.  Each side gets
+its own package's `EncoderConfig` and `Frame`.
 """
 
+import dataclasses
 from functools import lru_cache
 
 import numpy as np
@@ -18,9 +20,27 @@ from nanohevc_tpu.config import EncoderConfig
 from nanohevc_tpu.frame import Frame, Plane
 from nanohevc_tpu.models import all_intra as jax_ai
 from nanohevc_tpu.runtime import parse_bitstream
+from nanohevc_tpu_torch import config as port_config
+from nanohevc_tpu_torch import frame as port_frame_mod
 from nanohevc_tpu_torch import resolve_device
 from nanohevc_tpu_torch.cli import assemble_frame_bitstream
 from nanohevc_tpu_torch.models import all_intra as torch_ai
+
+
+def port_cfg(cfg):
+    """The port's EncoderConfig with the fields of JAX's `cfg`."""
+    return port_config.EncoderConfig(**dataclasses.asdict(cfg))
+
+
+def port_frame(frame):
+    """The port's Frame holding the planes of JAX's `frame`."""
+    return port_frame_mod.Frame(*(port_frame_mod.Plane(p.data)
+                                  for p in (frame.y, frame.u, frame.v)))
+
+
+def torch_frame_full(frame, cfg, device="cpu"):
+    return torch_ai.encode_frame_full(port_frame(frame), port_cfg(cfg),
+                                      device=device)
 
 
 def make_frame(h, w, seed, bit_depth=8):
@@ -42,7 +62,7 @@ def make_frame(h, w, seed, bit_depth=8):
 def _encoded(h, w, seed, cfg):
     frame = make_frame(h, w, seed, cfg.bit_depth)
     return (frame, jax_ai.encode_frame_full(frame, cfg),
-            torch_ai.encode_frame_full(frame, cfg, device="cpu"))
+            torch_frame_full(frame, cfg))
 
 
 def _jax_frame_xla(frame, cfg):
@@ -86,8 +106,7 @@ def _jax_frame_xla(frame, cfg):
 @lru_cache(maxsize=None)
 def _encoded_xla(h, w, seed, cfg):
     frame = make_frame(h, w, seed, cfg.bit_depth)
-    return (frame, _jax_frame_xla(frame, cfg),
-            torch_ai.encode_frame_full(frame, cfg, device="cpu"))
+    return (frame, _jax_frame_xla(frame, cfg), torch_frame_full(frame, cfg))
 
 
 def _assert_same(jax_res, torch_res):
@@ -159,11 +178,11 @@ def test_unaligned_width_takes_plain_path(monkeypatch):
     cfg = EncoderConfig(block_size=16, qp=22)
     frame = make_frame(40, 72, 17)
     _assert_same(jax_ai.encode_frame_full(frame, cfg),
-                 torch_ai.encode_frame_full(frame, cfg, device="cpu"))
+                 torch_frame_full(frame, cfg))
     assert calls == []                       # 72 % 16 and 36 % 8 != 0
 
     frame = make_frame(40, 64, 17)
-    torch_ai.encode_frame_full(frame, cfg, device="cpu")
+    torch_frame_full(frame, cfg)
     assert calls == [((40, 64), 16), ((20, 32), 8), ((20, 32), 8)]
 
 
@@ -171,8 +190,8 @@ def test_unaligned_width_takes_plain_path(monkeypatch):
 def test_bitstream_bytes_match_jax(bs):
     cfg = EncoderConfig(block_size=bs, qp=22)
     frame, (_, ji), (_, ti) = _encoded(48, 96, bs, cfg)
-    want = assemble_frame_bitstream(96, 48, cfg, ji)
-    got = assemble_frame_bitstream(96, 48, cfg, ti)
+    want = assemble_frame_bitstream(96, 48, port_cfg(cfg), ji)
+    got = assemble_frame_bitstream(96, 48, port_cfg(cfg), ti)
     assert got == want
     parsed = parse_bitstream(got)
     for name in ("Y", "U", "V"):
@@ -184,8 +203,8 @@ def test_bitstream_bytes_match_jax(bs):
 def test_encode_frame_intra_matches_jax(bs, tmp_path):
     frame = make_frame(40, 64, 23)
     jr, js = jax_ai.encode_frame_intra(frame, bs, str(tmp_path / "j.yuv"))
-    tr, ts = torch_ai.encode_frame_intra(frame, bs, str(tmp_path / "t.yuv"),
-                                         device="cpu")
+    tr, ts = torch_ai.encode_frame_intra(port_frame(frame), bs,
+                                         str(tmp_path / "t.yuv"), device="cpu")
     assert js == ts
     for p in ("y", "u", "v"):
         assert np.array_equal(getattr(jr, p).data, getattr(tr, p).data)
@@ -208,7 +227,7 @@ def test_create_test_frame_matches_jax():
 def test_unported_configs_raise(kw):
     cfg = EncoderConfig(block_size=8, qp=22, **kw)
     with pytest.raises(NotImplementedError):
-        torch_ai.encode_frame_full(make_frame(16, 16, 1), cfg, device="cpu")
+        torch_frame_full(make_frame(16, 16, 1), cfg)
 
 
 MODE_SEARCH = dict(mode_set="all", decision="satd")
@@ -288,7 +307,7 @@ def test_mode_search_routing(monkeypatch, kw, width, want):
 
         monkeypatch.setattr(torch_ai, name, spy)
     cfg = EncoderConfig(qp=22, **kw)
-    torch_ai.encode_frame_full(make_frame(40, width, 66), cfg, device="cpu")
+    torch_frame_full(make_frame(40, width, 66), cfg)
     assert calls == {"mode_search": want, "slab": []}
 
 
@@ -296,8 +315,8 @@ def test_mode_search_routing(monkeypatch, kw, width, want):
 def test_mode_search_bitstream_bytes_match_jax(bs):
     cfg = EncoderConfig(block_size=bs, qp=22, **MODE_SEARCH)
     frame, (_, ji), (_, ti) = _encoded_xla(48, 96, 67, cfg)
-    want = assemble_frame_bitstream(96, 48, cfg, ji)
-    got = assemble_frame_bitstream(96, 48, cfg, ti)
+    want = assemble_frame_bitstream(96, 48, port_cfg(cfg), ji)
+    got = assemble_frame_bitstream(96, 48, port_cfg(cfg), ti)
     assert got == want
     parsed = parse_bitstream(got)
     for name in ("Y", "U", "V"):
@@ -309,8 +328,7 @@ def test_cuda_request_without_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         resolve_device("cuda")
     with pytest.raises(RuntimeError):
-        torch_ai.encode_frame_full(make_frame(16, 16, 1), EncoderConfig(),
-                                   device="cuda")
+        torch_frame_full(make_frame(16, 16, 1), EncoderConfig(), device="cuda")
 
 
 @pytest.mark.cuda
@@ -321,6 +339,6 @@ def test_cuda_frame_matches_cpu(kw):
                     "python -m pytest -m cuda tests/test_torch_*.py")
     cfg = EncoderConfig(block_size=8, qp=22, **kw)
     frame = make_frame(136, 240, 5)
-    rc, ic = torch_ai.encode_frame_full(frame, cfg, device="cpu")
-    rg, ig = torch_ai.encode_frame_full(frame, cfg, device="cuda")
+    rc, ic = torch_frame_full(frame, cfg)
+    rg, ig = torch_frame_full(frame, cfg, device="cuda")
     _assert_same((rc, ic), (rg, ig))
