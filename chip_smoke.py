@@ -2,24 +2,28 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Drives the port's main paths on a seeded 1080p 4:2:0 frame, the
-open-loop all-intra encode and the closed-loop (wavefront) encode with
-its decoder, each with the default EncoderConfig (8x8 luma, 4x4
-chroma, QP 22, DC/planar by energy) and with the 35-mode SATD search
+Drives the port's main paths on seeded 1080p 4:2:0 input: the open-loop
+all-intra encode and the closed-loop (wavefront) encode with its
+decoder, each with the default EncoderConfig (8x8 luma, 4x4 chroma, QP
+22, DC/planar by energy) and with the 35-mode SATD search
 (mode_set="all", decision="satd", what the CLI's --mode-search
-selects), and checks them end to end:
+selects); the blocks API `fused_encode_planes`; and the sequence runner
+over a 16-frame file at batch 8.  It checks them end to end:
 
 1. the card, its power limit, and the PyTorch and CUDA versions;
 2. builds the CUDA kernels from the sources in this checkout, one nvcc
    per source, all at once;
-3. holds the slab kernel (3) and the mode-search kernel (3b) against
-   their plain PyTorch versions on the card, exactly, over N 4/8/16/32,
-   DST at 4, 8/10-bit, both dequant modes and QP 0/22/37/51, on a
-   1080x1920 luma and a 540x960 chroma plane, and at N 4/8 on a 45x200
-   plane that leaves thread blocks part empty; and the wavefront kernel
-   (3c), both bodies, over the same N, bit depths, dequant modes and
-   QPs at batch 1 and 2 on a 540x960 and a padded 45x200 plane, and at
-   N 4 DST, 8 and 16 (padded to 1088 rows) on 1080x1920;
+3. holds each kernel against its plain PyTorch version on the card,
+   exactly: the slab kernel (3) and the mode-search kernel (3b) over
+   N 4/8/16/32, DST at 4, 8/10-bit, both dequant modes and QP
+   0/22/37/51, on a 1080x1920 luma and a 540x960 chroma plane, and at
+   N 4/8 on a 45x200 plane that leaves thread blocks part empty; the
+   wavefront kernel (3c), both bodies, over the same N, bit depths,
+   dequant modes and QPs at batch 1 and 2 on a 540x960 and a padded
+   45x200 plane, and at N 4 DST, 8 and 16 (padded to 1088 rows) on
+   1080x1920; the fused blocks kernel (3e) over N 4-32, 8/10-bit and
+   the four QPs on two 1080p planes and a 45x200 plane, and against the
+   slab kernel (DCT, parity) on the 1080p plane's full block rows;
 4. encodes the frame on the card under each config through the open
    loop (4: default, 4b: mode search) and the closed loop (4c, 4d):
    the path's kernel must launch once per plane (3 times) and every
@@ -28,11 +32,27 @@ selects), and checks them end to end:
    oracle (for the closed loop, a per-block simulation on the
    reconstructed neighbours), and the bitstream written by the port's
    runtime must parse back to the same levels and modes; the closed
-   loop's stream must decode on the card to the recon pixel for pixel;
-5. runs the CLI on the same frame under each config and compares its
-   bitstream (5, 5b: open loop; 5c: closed loop, then `decode`);
-6. times kernels and plain versions per 1080p luma plane, the frame
-   under each config, and the closed-loop frame and its decode (6c).
+   loop's stream must decode on the card to the recon pixel for pixel.
+   4e: `fused_encode_planes` on 8 luma planes in one launch, equal to
+   the plain path on the CPU over a 270x480 crop and to the oracle.
+   4f/4g: `encode_sequence` on 16 frames, open and closed loop, under
+   both configs: 3 x 16 launches of K1 (K2), or 2 a batch of the
+   wavefront kernel, and none of any other; every frame parses back to
+   its single-frame encode on the card; a 4-frame 270x480 sequence
+   gives the CPU's bytes; `decode_sequence` on the card gives the
+   closed loop's recon.  4h: target_bpp rate control (open and closed
+   loop), resume (8 frames, then 16 == a straight run), a corrupt
+   sidecar (restart from frame 0);
+5. runs the CLI under each config and compares its bitstream (5, 5b:
+   open loop; 5c: closed loop, then `decode`; 5d: `encode-seq` open,
+   closed and `--target-bpp`, `decode` of the sequence, `encode
+   --target-bytes` against `find_frame_qp`);
+6. times kernels and plain versions per 1080p luma plane (6, 6b, 6c,
+   6e: also a batch of 8 for the fused kernel), the frame under each
+   config, the closed-loop frame and its decode (6c), and the sequence
+   under all four configs (6f: throughput, stages, whether drain
+   overlaps the next batch, device busy share, entropy_tiles=4,
+   `decode_sequence`).
 
 Prints one JSON line of kernel results before the last line, and as the
 last line {"ok": true, "device": {...}}.  Exits non-zero, without that
@@ -41,7 +61,8 @@ line, when there is no CUDA card or a phase fails.
 Each kernel's bound in the JSON line is the larger of its bytes over
 the card's 3.35 TB/s and its integer operations over 67 T/s (the H100
 SXM's float32 rate outside the tensor cores, which no int32 add or
-multiply exceeds), counted per pixel as `kernel_bound` says.
+multiply exceeds), counted per pixel as `kernel_bound` (`fused_bound`
+for the fused blocks kernel) says.
 """
 
 from __future__ import annotations
@@ -64,6 +85,12 @@ try:
     from nanohevc_tpu_torch.config import EncoderConfig
     from nanohevc_tpu_torch.frame import Frame, Plane
     from nanohevc_tpu_torch.kernels import build
+    from nanohevc_tpu_torch.kernels.fused_pipeline import (
+        fused_encode_blocks,
+        fused_encode_blocks_reference,
+        fused_encode_planes,
+        fused_encode_planes_reference,
+    )
     from nanohevc_tpu_torch.kernels.mode_search import (
         mode_search_encode_plane,
         mode_search_encode_plane_reference,
@@ -76,10 +103,12 @@ try:
         wavefront_encode_planes,
         wavefront_encode_planes_reference,
     )
+    from nanohevc_tpu_torch.models import sequence as seq
     from nanohevc_tpu_torch.models.all_intra import (
         encode_frame_full,
         encode_plane_config,
     )
+    from nanohevc_tpu_torch.models.rate_control import find_frame_qp
     from nanohevc_tpu_torch.models.wavefront import (
         decode_frame,
         encode_frame_closed_loop,
@@ -118,6 +147,11 @@ KERNELS = {
         "nanohevc_tpu/kernels/wavefront_mode_grouped.py:199, "
         "nanohevc_tpu/kernels/wavefront_mode_slab.py:182, "
         "nanohevc_tpu/kernels/wavefront_slab.py:151",
+    ),
+    "fused_encode_blocks": (
+        fused_encode_blocks, fused_encode_blocks_reference,
+        "nanohevc_tpu_torch/csrc/fused_pipeline.cu",
+        "nanohevc_tpu/kernels/fused_pipeline.py:136",
     ),
 }
 # The wavefront kernel's two bodies, by (mode_set, decision).
@@ -190,6 +224,15 @@ def max_abs_err(got: dict, want: dict) -> int:
         int((got[k].long() - want[k].long()).abs().max()) if want[k].numel() else 0
         for k in want
     )
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        KERNELS[name][0].launches = 0
+
+
+def read_launches() -> dict:
+    return {name: KERNELS[name][0].launches for name in KERNELS}
 
 
 def phase_kernel_vs_plain(dev, name: str, tag: str) -> int:
@@ -348,13 +391,12 @@ def phase_main_path(dev, frame: Frame, config: EncoderConfig, path: str,
                     tag: str):
     """Encode the frame on the card through `path` (a KERNELS name):
     that kernel must launch 3 times and every other kernel 0 times."""
-    for name in KERNELS:
-        KERNELS[name][0].launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     recon, info = encode_frame_full(frame, config, device=dev)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {name: KERNELS[name][0].launches for name in KERNELS}
+    launches = read_launches()
     log(f"[{tag}] encode_frame_full on {dev}: {first_s:.3f} s (first call), "
         f"kernel launches {launches}")
     want = {name: 3 if name == path else 0 for name in KERNELS}
@@ -487,14 +529,14 @@ def busy_share(busy_us: float, wall_us: float) -> str:
             else "not measured (the profiler recorded no device activity)")
 
 
-def device_busy(call):
-    """(device-busy us, wall us) of three call()s under the profiler."""
+def device_busy(call, repeats: int = 3):
+    """(device-busy us, wall us) of `repeats` call()s under the profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(3):
+        for _ in range(repeats):
             call()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
@@ -618,13 +660,12 @@ def phase_closed_loop(dev, frame: Frame, config: EncoderConfig, tag: str):
     must launch 3 times and every other kernel 0 times; the result must
     equal the plain path on the CPU and the per-block simulation, parse
     back, and decode on the card to the recon pixel for pixel."""
-    for name in KERNELS:
-        KERNELS[name][0].launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     recon, bits = encode_frame_closed_loop(frame, config, device=dev)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {name: KERNELS[name][0].launches for name in KERNELS}
+    launches = read_launches()
     log(f"[{tag}] encode_frame_closed_loop on {dev}: {first_s:.3f} s (first "
         f"call), kernel launches {launches}")
     want = {name: 3 if name == "wavefront_encode_planes" else 0
@@ -811,6 +852,503 @@ def closed_loop_times(dev, frame: Frame, config: EncoderConfig, label: str,
         f"{wall_us:.1f} us: {busy_share(busy_us, wall_us)} [{gpu}]")
 
 
+# --- K5, the blocks-API fused pipeline (3e, 4e, 6e) --------------------------
+
+def fused_bound(n: int, pixels: int) -> tuple:
+    """(bound ms, "bytes" or "operations") of fused_encode_blocks over
+    `pixels` pixels at block size n: per pixel 4 bytes of block, (4N+2)
+    int32 references per block, 8 bytes of recon and levels; the slab
+    kernel's DC/planar operation count, 8N + 34 a pixel."""
+    t_bytes = (12 * pixels + 4 * (4 * n + 2) * pixels // (n * n)) / 3.35e12 * 1e3
+    t_ops = (8 * n + 34) * pixels / 67e12 * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_fused_vs_plain(dev) -> int:
+    """3e: K5 == its plain version on the card, exactly, over N 4-32,
+    8/10-bit and QP 0/22/37/51, on a batch of two 1080p luma planes and
+    a 45x200 plane (ragged rows and columns, part-empty thread blocks);
+    then K5 == K1 (DCT, parity, 8-bit) on the 1080p plane's full block
+    rows."""
+    rng = np.random.default_rng(SEED)
+    worst, cases, cross = 0, 0, 0
+    for batch, h, w in ((2, H, W), (1, 45, 200)):
+        for bd in (8, 10):
+            planes = torch.from_numpy(np.stack(
+                [textured(h, w, bd, rng) for _ in range(batch)])).to(dev)
+            for n in (4, 8, 16, 32):
+                for qp in (0, 22, 37, 51):
+                    got = fused_encode_planes(planes, qp, n, bit_depth=bd)
+                    want = fused_encode_planes_reference(planes, qp, n,
+                                                         bit_depth=bd)
+                    torch.cuda.synchronize()
+                    err = max_abs_err(got, want)
+                    if err:
+                        raise SystemExit(
+                            f"fused_encode_blocks != plain at {(batch, h, w)} "
+                            f"N={n} bd={bd} qp={qp}: max abs err {err}")
+                    worst = max(worst, err)
+                    cases += 1
+                    if h == H and bd == 8:
+                        k1 = slab_encode_plane(planes[0], qp, n)
+                        rows = (H // n) * n
+                        if not (torch.equal(got["recon"][0, :rows],
+                                            k1["recon"][:rows])
+                                and torch.equal(got["levels"][0],
+                                                k1["levels"].reshape(-1, n * n))):
+                            raise SystemExit(f"fused_encode_blocks != "
+                                             f"slab_encode_plane at N={n} qp={qp}")
+                        cross += 1
+    log(f"[3e] fused_encode_blocks == plain on CUDA in {cases} cases (max abs "
+        f"err {worst}); == slab_encode_plane (DCT, parity, 8-bit) on the "
+        f"full block rows of a 1080p plane in {cross} cases")
+    return worst
+
+
+def phase_fused_main(dev):
+    """4e: fused_encode_planes on 8 seeded 1080p luma planes: one
+    launch; the 270x480 corner equals the plain version on the CPU run
+    on that crop; 256 sampled blocks match the numpy oracle (fill 128,
+    no DST)."""
+    rng = np.random.default_rng(SEED + 2)
+    planes = torch.from_numpy(np.stack(
+        [textured(H, W, 8, rng) for _ in range(8)])).to(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fused_encode_planes(planes, 22, 8)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    log(f"[4e] fused_encode_planes on 8 1080p luma planes: {first_s:.3f} s "
+        f"(first call), kernel launches {launches}")
+    want = {name: 1 if name == "fused_encode_blocks" else 0 for name in KERNELS}
+    if launches != want:
+        raise SystemExit(f"fused_encode_planes launched {launches}, "
+                         f"expected {want}")
+    ch, cw = 270, 480
+    cpu = fused_encode_planes_reference(planes[:, :ch, :cw].cpu(), 22, 8)
+    rows = (ch // 8) * 8
+    idx = (torch.arange(ch // 8)[:, None] * (W // 8)
+           + torch.arange(cw // 8)[None]).reshape(-1).to(dev)
+    if not (torch.equal(out["recon"][:, :rows, :cw].cpu(), cpu["recon"][:, :rows])
+            and torch.equal(out["levels"][:, idx].cpu(), cpu["levels"])
+            and not cpu["recon"][:, rows:].any()):
+        raise SystemExit("fused_encode_planes on the card differs from the "
+                         "plain version on the CPU over a 270x480 crop")
+    bad = oracle_gate(planes[0].cpu().numpy(),
+                      out["levels"][0].reshape(-1, 8, 8).cpu().numpy(),
+                      out["recon"][0].cpu().numpy(), 8, 22)
+    if bad:
+        raise SystemExit(f"{bad} of 256 sampled K5 blocks differ from the oracle")
+    log("[4e] == plain path on the CPU over the 270x480 crop (recon, levels, "
+        "zero fill); 256 sampled blocks == numpy oracle")
+    return launches["fused_encode_blocks"], planes
+
+
+def fused_times(dev, planes8, gpu: str) -> dict:
+    """6e: K5 and its plain version per seeded 1080p luma plane, N 4-32,
+    and per batch of 8 at N = 8, QP 22, CUDA events."""
+    rng = np.random.default_rng(SEED + 1)
+    y = torch.from_numpy(textured(H, W, 8, rng)).to(dev)
+    mpix = H * W / 1e6
+    times = {}
+    for n in (4, 8, 16, 32):
+        blocks = ops.tile_plane(y, n).contiguous()
+        refs = ops.extract_refs(y, n)
+        k_ms = cuda_ms(lambda: fused_encode_blocks(blocks, refs, 22))
+        p_ms = cuda_ms(lambda: fused_encode_blocks_reference(blocks, refs, 22),
+                       iters=5)
+        bound_ms, by = fused_bound(n, H * W)
+        times[n] = (k_ms, p_ms)
+        log(f"[6e] fused_encode_blocks 1080p luma N={n}: kernel {k_ms:.4f} ms "
+            f"({mpix / k_ms * 1e3:.1f} Mpix/s), plain {p_ms:.4f} ms, bound "
+            f"{bound_ms * 1e3:.2f} us ({by}) [{gpu}]")
+        if n == 8:
+            cold = cold_l2_ms(lambda: fused_encode_blocks(blocks, refs, 22), dev)
+            log(f"[6e] fused_encode_blocks 1080p luma N=8 with L2 flushed "
+                f"before each launch: {cold:.4f} ms [{gpu}]")
+    blocks8 = torch.stack([ops.tile_plane(p, 8) for p in planes8]).reshape(-1, 8, 8)
+    refs8 = torch.stack([ops.extract_refs(p, 8) for p in planes8]).reshape(-1, 34)
+    k_ms = cuda_ms(lambda: fused_encode_blocks(blocks8, refs8, 22))
+    p_ms = cuda_ms(lambda: fused_encode_blocks_reference(blocks8, refs8, 22),
+                   iters=3)
+    call_ms = cuda_ms(lambda: fused_encode_planes(planes8, 22, 8), iters=10)
+    bound_ms, by = fused_bound(8, 8 * H * W)
+    log(f"[6e] fused_encode_blocks batch of 8 1080p luma planes N=8: kernel "
+        f"{k_ms:.4f} ms ({8 * mpix / k_ms * 1e3:.1f} Mpix/s), plain "
+        f"{p_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({by}); the whole "
+        f"fused_encode_planes call (tiling, references, kernel, untiling) "
+        f"{call_ms:.4f} ms [{gpu}]")
+    return times
+
+
+# --- the sequence runner (4f, 4g, 4h, 5d, 6f) -------------------------------
+
+SEQ_FRAMES, SEQ_BATCH = 16, 8
+SEQ_CONFIGS = {"default": (EncoderConfig(), False),
+               "mode search": (MODE_SEARCH, False),
+               "closed loop default": (EncoderConfig(), True),
+               "closed loop mode search": (MODE_SEARCH, True)}
+
+
+def sequence_frames(count: int, h: int, w: int, seed: int) -> list:
+    """`count` distinct seeded frames: three textured planes, each
+    rolled by a frame-dependent offset."""
+    rng = np.random.default_rng(seed)
+    base = (textured(h, w, 8, rng), textured(h // 2, w // 2, 8, rng),
+            textured(h // 2, w // 2, 8, rng))
+    return [Frame(*(Plane(np.roll(p, (5 * i * (k + 1), 11 * i), axis=(0, 1))
+                          .astype(np.int16)) for k, p in enumerate(base)))
+            for i in range(count)]
+
+
+def write_yuv(path: str, frames: list) -> str:
+    with open(path, "wb") as f:
+        for fr in frames:
+            f.write(fr.to_yuv420p())
+    return path
+
+
+def run_sequence(dev, src: str, bits: str, config: EncoderConfig,
+                 closed: bool, frames: int = SEQ_FRAMES, **kw):
+    """encode_sequence of the 1080p file at batch 8, from scratch unless
+    `resume` is given."""
+    return seq.encode_sequence(src, W, H, frames, config, bits,
+                               batch=SEQ_BATCH, closed_loop=closed,
+                               device=dev, **{"resume": False, **kw})
+
+
+def same_planes(parsed: dict, want: dict) -> bool:
+    """Levels and modes of planes Y, U, V of two parsed frames."""
+    return all(np.array_equal(parsed[p][k], want[p][k])
+               for p in "YUV" for k in ("levels", "modes"))
+
+
+def phase_sequence_open(dev, tmp: str, src: str, frames: list, label: str,
+                        config: EncoderConfig, tag: str):
+    """4f: encode_sequence, open loop: K1 (or K2) launches 3 x 16 times
+    and no other kernel; each frame parses back to encode_frame_full's
+    levels and modes; a 4-frame 270x480 sequence gives the same bytes
+    on the card as on the CPU."""
+    path = ("slab_encode_plane" if config.mode_set == "dc_planar"
+            else "mode_search_encode_plane")
+    bits = os.path.join(tmp, f"{tag}.bin")
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_sequence(dev, src, bits, config, False)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    log(f"[{tag}] encode_sequence {label}, 16 1080p frames, batch 8: "
+        f"{first_s:.3f} s (first call), {res.bytes_written} bytes, mean Y-PSNR "
+        f"{res.mean_psnr_y:.2f} dB, kernel launches {launches}")
+    want = {name: 3 * SEQ_FRAMES if name == path else 0 for name in KERNELS}
+    if launches != want or res.frames != SEQ_FRAMES:
+        raise SystemExit(f"sequence launched {launches} for {res.frames} "
+                         f"frames, expected {want}")
+    parsed = seq.decode_sequence_levels(bits)
+    for i, fr in enumerate(frames):
+        _, info = encode_frame_full(fr, config, device=dev)
+        if not same_planes(parsed[i], info["planes"]):
+            raise SystemExit(f"sequence frame {i} differs from encode_frame_full")
+    log(f"[{tag}] each of the 16 frames parses back to encode_frame_full's "
+        f"levels and modes on the card")
+    small = write_yuv(os.path.join(tmp, f"{tag}_small.yuv"),
+                      sequence_frames(4, 270, 480, SEED + 5))
+    got = []
+    for d in (dev, "cpu"):
+        out = os.path.join(tmp, f"{tag}_small_{torch.device(d).type}.bin")
+        seq.encode_sequence(small, 480, 270, 4, config, out, batch=SEQ_BATCH,
+                            resume=False, device=d)
+        with open(out, "rb") as f:
+            got.append(f.read())
+    if got[0] != got[1]:
+        raise SystemExit("4-frame 270x480 sequence: card bytes != CPU bytes")
+    log(f"[{tag}] 4-frame 270x480 sequence: bytes on the card == plain path "
+        f"on the CPU ({len(got[0])} bytes)")
+    return launches[path], bits
+
+
+def phase_sequence_closed(dev, tmp: str, src: str, frames: list, label: str,
+                          config: EncoderConfig, tag: str):
+    """4g: the closed-loop sequence: the wavefront kernel launches twice
+    a batch (luma batch, chroma stack), no other kernel; each frame
+    parses back to encode_frame_closed_loop's levels and modes; and
+    decode_sequence on the card gives its recon pixel for pixel."""
+    bits = os.path.join(tmp, f"{tag}.bin")
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_sequence(dev, src, bits, config, True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    log(f"[{tag}] encode_sequence {label}, 16 1080p frames, batch 8: "
+        f"{first_s:.3f} s (first call), {res.bytes_written} bytes, mean "
+        f"Y-PSNR {res.mean_psnr_y:.2f} dB, kernel launches {launches}")
+    batches = -(-SEQ_FRAMES // SEQ_BATCH)
+    want = {name: 2 * batches if name == "wavefront_encode_planes" else 0
+            for name in KERNELS}
+    if launches != want or res.frames != SEQ_FRAMES:
+        raise SystemExit(f"closed-loop sequence launched {launches}, "
+                         f"expected {want}")
+    parsed = seq.decode_sequence_levels(bits)
+    recon = []
+    for i, fr in enumerate(frames):
+        rec, fbits = encode_frame_closed_loop(fr, config, device=dev)
+        if not same_planes(parsed[i], parse_bitstream(fbits)):
+            raise SystemExit(f"closed-loop sequence frame {i} differs from "
+                             "encode_frame_closed_loop")
+        recon.append(rec.to_yuv420p())
+    dec = os.path.join(tmp, f"{tag}_dec.yuv")
+    t0 = time.perf_counter()
+    n = seq.decode_sequence(bits, dec, device=dev)
+    dec_s = time.perf_counter() - t0
+    with open(dec, "rb") as f:
+        if n != SEQ_FRAMES or f.read() != b"".join(recon):
+            raise SystemExit("decode_sequence on the card != the recon")
+    log(f"[{tag}] each frame parses back to encode_frame_closed_loop's levels "
+        f"and modes; decode_sequence on {dev} == recon pixel for pixel "
+        f"({dec_s:.3f} s for 16 frames, first call)")
+    return launches["wavefront_encode_planes"], bits, b"".join(recon)
+
+
+def phase_rate_and_resume(dev, tmp: str, src: str, straight_bits: str,
+                          bpp_at_22: float, gpu: str) -> dict:
+    """4h: target_bpp rate control, open and closed loop (QP schedule,
+    achieved bpp); 8 frames then resumed to 16 == a straight 16-frame
+    run; a corrupt sidecar restarts from frame 0."""
+    target = round(bpp_at_22 / 2, 3)
+    rc_bits = {}
+    for closed in (False, True):
+        bits = os.path.join(tmp, f"rc_{int(closed)}.bin")
+        res = run_sequence(dev, src, bits, EncoderConfig(), closed,
+                           target_bpp=target)
+        qps = [fr["Y"].get("qp") for fr in seq.decode_sequence_levels(bits)]
+        rc = res.stats["rate_control"]
+        log(f"[4h] target_bpp {target} ({'closed' if closed else 'open'} "
+            f"loop): per-frame QP {qps}, achieved {rc['achieved_bpp']:.4f} bpp "
+            f"(QP {rc['qp_start']} -> {rc['qp_final']}) [{gpu}]")
+        if len(qps) != SEQ_FRAMES:
+            raise SystemExit("rate-controlled sequence lost frames")
+        rc_bits[closed] = (bits, target)
+    with open(straight_bits, "rb") as f:
+        straight = f.read()
+    with open(straight_bits + ".progress") as f:
+        straight_side = f.read()
+    bits = os.path.join(tmp, "resumed.bin")
+    first = run_sequence(dev, src, bits, EncoderConfig(), False, frames=8,
+                         resume=True)
+    res = run_sequence(dev, src, bits, EncoderConfig(), False, resume=True)
+    with open(bits, "rb") as f, open(bits + ".progress") as g:
+        if (first.frames, res.resumed_from, res.frames) != (8, 8, 16) or \
+                f.read() != straight or g.read() != straight_side:
+            raise SystemExit("8 frames resumed to 16 != a straight 16-frame run")
+    with open(bits + ".progress", "w") as f:
+        f.write("{broken json")
+    res = run_sequence(dev, src, bits, EncoderConfig(), False, frames=8,
+                       resume=True)
+    with open(bits, "rb") as f:
+        data = f.read()
+    if res.resumed_from != 0 or len(data) != res.bytes_written or \
+            data != straight[:len(data)]:
+        raise SystemExit("a corrupt sidecar did not restart from frame 0")
+    log("[4h] 8 frames, then resumed to 16: byte-identical to the straight "
+        "run (bitstream and sidecar); a corrupt sidecar restarts from frame 0")
+    return rc_bits
+
+
+def phase_cli_sequence(dev, tmp: str, src: str, frame0: Frame,
+                       want: dict) -> None:
+    """5d: the CLI on the card, in one process: encode-seq (open loop,
+    closed loop, --target-bpp) == the API's bytes; decode of the
+    closed-loop sequence == its recon; encode --target-bytes picks
+    find_frame_qp's QP."""
+    geo = ["--width", str(W), "--height", str(H)]
+    seq_args = ["encode-seq", src, *geo, "--frames", str(SEQ_FRAMES),
+                "--batch", str(SEQ_BATCH), "--no-resume"]
+    outs = {k: os.path.join(tmp, f"cli_{k}.bin") for k in ("open", "closed", "rc")}
+    dec = os.path.join(tmp, "cli_dec.yuv")
+    one = write_yuv(os.path.join(tmp, "frame0.yuv"), [frame0])
+    budget = want["target_bytes"]
+    argv = [
+        seq_args + ["--bitstream", outs["open"]],
+        seq_args + ["--bitstream", outs["closed"], "--closed-loop"],
+        seq_args + ["--bitstream", outs["rc"], "--target-bpp",
+                    str(want["target_bpp"])],
+        ["decode", outs["closed"], "-o", dec],
+        ["encode", one, *geo, "--pipeline", "full", "--target-bytes",
+         str(budget), "--bitstream", os.path.join(tmp, "cli_tb.bin")],
+    ]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import json, sys; from nanohevc_tpu_torch"
+         ".cli import main; [main(a) for a in json.loads(sys.argv[1])]",
+         json.dumps(argv)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+    )
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"CLI failed (rc {proc.returncode}):\n{proc.stderr}")
+    for k in outs:
+        with open(outs[k], "rb") as f, open(want[k], "rb") as g:
+            if f.read() != g.read():
+                raise SystemExit(f"CLI encode-seq ({k}) bytes != the API's")
+    with open(dec, "rb") as f:
+        if f.read() != want["recon"]:
+            raise SystemExit("CLI decode of the sequence != the recon")
+    qp, size = find_frame_qp(frame0, EncoderConfig(), budget, closed_loop=False,
+                             device=dev)
+    line = f"Rate search: QP {qp} fits {budget} bytes ({size} coded)"
+    if line not in proc.stdout:
+        raise SystemExit(f"CLI --target-bytes did not pick find_frame_qp's "
+                         f"QP {qp}:\n{proc.stdout}")
+    log(f"[5d] CLI on the GPU ({cli_s:.1f} s): encode-seq open loop, closed "
+        f"loop and --target-bpp {want['target_bpp']} == the API's bytes; "
+        f"decode of the closed-loop sequence == recon YUV; encode "
+        f"--target-bytes {budget} -> QP {qp} ({size} bytes) == find_frame_qp")
+
+
+class OverlapProbe:
+    """Records, for each drain but the last, whether the batch
+    dispatched after it was still running on the card when the drain's
+    fetch began and when it returned."""
+
+    def __enter__(self):
+        self.batches, self.next_running = [], []
+        self.real = (seq._BatchFetch.__init__, seq._BatchFetch.fetch)
+        real_init, real_fetch = self.real
+        probe = self
+
+        def init(fetch, *a, **kw):
+            real_init(fetch, *a, **kw)
+            probe.batches.append(fetch)
+
+        def fetch(fetch_, stream):
+            i = probe.batches.index(fetch_)
+            nxt = probe.batches[i + 1] if i + 1 < len(probe.batches) else None
+            before = nxt is not None and not nxt.event.query()
+            out = real_fetch(fetch_, stream)
+            if nxt is not None:
+                probe.next_running.append((before, not nxt.event.query()))
+            return out
+
+        seq._BatchFetch.__init__, seq._BatchFetch.fetch = init, fetch
+        return self
+
+    def __exit__(self, *exc):
+        seq._BatchFetch.__init__, seq._BatchFetch.fetch = self.real
+        return False
+
+
+def drain_waits_on_its_event_only(dev, frames: list, gpu: str) -> None:
+    """6f: one closed-loop batch of 8 frames is dispatched, then about
+    1 s of other work (a spin kernel, standing in for batch i+1) is
+    enqueued behind it.  The batch's fetch (27-90 ms of host copies
+    beside an NVIDIA H100 80GB HBM3, PERF.md) must return before half
+    the spin is over; a plain .cpu() of the same levels waits for all
+    of it."""
+    from nanohevc_tpu_torch.parallel.sharding import make_closed_loop_encoder
+
+    clock = time.perf_counter
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10 ** 8)
+    end.record()
+    end.synchronize()
+    spin_ms = 1000
+    spin = int(10 ** 8 * spin_ms / start.elapsed_time(end))
+    luma = make_closed_loop_encoder(EncoderConfig(), is_luma=True)
+    chroma = make_closed_loop_encoder(EncoderConfig(), is_luma=False)
+    ys = torch.from_numpy(np.stack([f.y.data for f in frames[:8]])
+                          .astype(np.int32)).to(dev)
+    uvs = torch.from_numpy(np.stack([f.u.data for f in frames[:8]]
+                                    + [f.v.data for f in frames[:8]])
+                           .astype(np.int32)).to(dev)
+    copy_stream = torch.cuda.Stream(dev)
+    took = {}
+    for how in ("event", "plain"):
+        y_out, c_out = luma(ys, 22), chroma(uvs, 22)
+        fetch = seq._BatchFetch(y_out, c_out, dev)
+        torch.cuda._sleep(spin)
+        t0 = clock()
+        if how == "event":
+            fetch.fetch(copy_stream)
+        else:
+            y_out["levels"].cpu(), c_out["levels"].cpu()
+        took[how] = 1e3 * (clock() - t0)
+        torch.cuda.synchronize()
+    log(f"[6f] drain of a closed-loop batch with ~{spin_ms} ms of other work "
+        f"enqueued behind it: the sequence's fetch {took['event']:.1f} ms, a "
+        f"plain .cpu() of the same levels {took['plain']:.1f} ms [{gpu}]")
+    if took["event"] > spin_ms / 2:
+        raise SystemExit("the sequence's fetch waited for work enqueued "
+                         "after its batch")
+
+
+def entropy_split(dev, frames: list, gpu: str) -> None:
+    """6f: where the entropy stage of one 1080p frame goes: the coder
+    (`assemble_bitstream`) and the parameter-set strip (NAL split and
+    re-wrap) that the sequence adds, host clock."""
+    config = EncoderConfig()
+    _, info = encode_frame_full(frames[0], config, device=dev)
+    clock = time.perf_counter
+    t0 = clock()
+    bits = assemble_bitstream(
+        W, H, config.qp,
+        {k: (p["levels"], p["block_size"]) for k, p in info["planes"].items()},
+        {k: p["modes"] for k, p in info["planes"].items()})
+    t1 = clock()
+    seq._strip_param_sets(bits)
+    t2 = clock()
+    log(f"[6f] entropy stage of one default-config 1080p frame ({len(bits)} "
+        f"bytes): assemble_bitstream {1e3 * (t1 - t0):.2f} ms, "
+        f"_strip_param_sets {1e3 * (t2 - t1):.2f} ms (host clock) [{gpu}]")
+
+
+def sequence_times(dev, tmp: str, src: str, frames: list, closed_bits: str,
+                   gpu: str) -> None:
+    """6f: 16 1080p 4:2:0 frames, batch 8, under each config (warm):
+    throughput as the JAX package counts it (all samples) and luma
+    Mpix/s, the Stopwatch stages, whether the next batch was still
+    running when drain began and ended, the device busy share
+    (torch.profiler); then the drain's event check, the entropy stage's
+    split, one run with entropy_tiles=4 and decode_sequence."""
+    bits = os.path.join(tmp, "times.bin")
+    for label, (config, closed) in SEQ_CONFIGS.items():
+        with OverlapProbe() as probe:
+            res = run_sequence(dev, src, bits, config, closed)
+        tp = res.stats["throughput"]
+        stages = ", ".join(f"{k} {v['total_s'] * 1e3:.1f} ms/{v['calls']}"
+                           for k, v in res.stats.items() if k != "throughput")
+        log(f"[6f] sequence {label}: {tp['seconds'] * 1e3:.1f} ms for 16 "
+            f"frames, {tp['mpix_per_s']:.2f} Mpix/s counted as the JAX "
+            f"package counts (all samples), "
+            f"{SEQ_FRAMES * H * W / tp['seconds'] / 1e6:.2f} Mpix/s luma, "
+            f"{1e3 * tp['seconds'] / SEQ_FRAMES:.2f} ms a frame; stages "
+            f"(host clock) {stages}; the next batch still running on the card "
+            f"when drain began / ended: {probe.next_running} [{gpu}]")
+        busy_us, wall_us = device_busy(
+            lambda: run_sequence(dev, src, bits, config, closed), repeats=1)
+        log(f"[6f] sequence {label} device over one run (torch.profiler): "
+            f"{busy_us:.1f} us of kernels and copies in {wall_us:.1f} us: "
+            f"{busy_share(busy_us, wall_us)} [{gpu}]")
+    drain_waits_on_its_event_only(dev, frames, gpu)
+    entropy_split(dev, frames, gpu)
+    res = run_sequence(dev, src, bits, EncoderConfig(), False, entropy_tiles=4)
+    tp = res.stats["throughput"]
+    log(f"[6f] sequence default, entropy_tiles=4: {tp['seconds'] * 1e3:.1f} ms "
+        f"for 16 frames ({tp['mpix_per_s']:.2f} Mpix/s all samples), entropy "
+        f"{res.stats['entropy']['total_s'] * 1e3:.1f} ms [{gpu}]")
+    t0 = time.perf_counter()
+    seq.decode_sequence(closed_bits, os.path.join(tmp, "times_dec.yuv"),
+                        device=dev)
+    dec_s = time.perf_counter() - t0
+    log(f"[6f] decode_sequence of the 16-frame closed-loop (default) stream: "
+        f"{dec_s * 1e3:.1f} ms ({dec_s * 1e3 / SEQ_FRAMES:.2f} ms a frame; "
+        f"plain PyTorch, host in and out) [{gpu}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -837,6 +1375,7 @@ def main() -> int:
         "mode_search_encode_plane": phase_kernel_vs_plain(
             dev, "mode_search_encode_plane", "3b"),
         "wavefront_encode_planes": phase_wavefront_vs_plain(dev),
+        "fused_encode_blocks": phase_fused_vs_plain(dev),
     }
     frame = make_frame(np.random.default_rng(SEED))
     config = EncoderConfig()
@@ -850,11 +1389,47 @@ def main() -> int:
     ms_launches, ms_cl_bits, ms_cl_recon = phase_closed_loop(
         dev, frame, MODE_SEARCH, "4d")
     launches["wavefront_encode_planes"] = cl_launches + ms_launches
+    launches["fused_encode_blocks"], planes8 = phase_fused_main(dev)
+
+    # The sequence runner drives K1, K2 and the wavefront kernel: each
+    # run's launches add to those of the kernel's single-frame paths.
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    frames = sequence_frames(SEQ_FRAMES, H, W, SEED + 3)
+    src = write_yuv(os.path.join(tmp, "seq.yuv"), frames)
+    seq_bits = {}
+    for tag, label, cfg, kern in (
+            ("4f", "default", config, "slab_encode_plane"),
+            ("4f-search", "mode search", MODE_SEARCH,
+             "mode_search_encode_plane")):
+        n, seq_bits[label] = phase_sequence_open(dev, tmp, src, frames, label,
+                                                 cfg, tag)
+        launches[kern] += n
+    for tag, label, cfg in (("4g", "closed loop default", config),
+                            ("4g-search", "closed loop mode search",
+                             MODE_SEARCH)):
+        n, seq_bits[label], recon = phase_sequence_closed(
+            dev, tmp, src, frames, label, cfg, tag)
+        launches["wavefront_encode_planes"] += n
+        if label == "closed loop default":
+            closed_recon = recon
+    bpp_at_22 = 8 * os.path.getsize(seq_bits["default"]) / (SEQ_FRAMES * H * W)
+    rc_bits = phase_rate_and_resume(dev, tmp, src, seq_bits["default"],
+                                    bpp_at_22, gpu)
+
     phase_cli(frame, bits, [], "5")
     phase_cli(frame, ms_bits, ["--mode-search"], "5b")
     phase_cli_closed_loop(frame, cl_bits, cl_recon, [], "5c")
     phase_cli_closed_loop(frame, ms_cl_bits, ms_cl_recon, ["--mode-search"],
                           "5c")
+    phase_cli_sequence(dev, tmp, src, frames[0], {
+        "open": seq_bits["default"], "closed": seq_bits["closed loop default"],
+        "rc": rc_bits[False][0], "target_bpp": rc_bits[False][1],
+        "recon": closed_recon,
+        "target_bytes": len(assemble_frame_bitstream(
+            W, H, config, encode_frame_full(frames[0], config,
+                                            device=dev)[1])) // 2,
+    })
     times = {
         "slab_encode_plane": kernel_times(dev, "slab_encode_plane", "6", gpu),
         "mode_search_encode_plane": kernel_times(
@@ -866,6 +1441,9 @@ def main() -> int:
     frame_times(dev, frame, MODE_SEARCH, "mode search:", gpu)
     closed_loop_times(dev, frame, config, "default config:", gpu)
     closed_loop_times(dev, frame, MODE_SEARCH, "mode search:", gpu)
+    times["fused_encode_blocks"] = fused_times(dev, planes8, gpu)
+    sequence_times(dev, tmp, src, frames, seq_bits["closed loop default"], gpu)
+    tmp_dir.cleanup()
 
     # ms and bounds at the main path's shape: a 1080p luma plane at N = 8
     # (the wavefront kernel: its DC/planar body, the default config's).
@@ -874,8 +1452,9 @@ def main() -> int:
     entries = []
     for name, (_, _, source, replaces) in KERNELS.items():
         k_ms, p_ms = times[name][config.block_size]
-        bound_ms, bound_by = kernel_bound(searches[name], config.block_size,
-                                          H * W)
+        bound_ms, bound_by = (
+            fused_bound(config.block_size, H * W) if name == "fused_encode_blocks"
+            else kernel_bound(searches[name], config.block_size, H * W))
         entries.append({
             "name": name,
             "route": "cuda",
@@ -887,7 +1466,7 @@ def main() -> int:
             "plain_ms": p_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            "library_ms": None,    # no one PyTorch call encodes a plane
+            "library_ms": None,    # no one PyTorch call encodes a block
         })
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)

@@ -10,11 +10,19 @@ Layout mirrors the JAX package so each counterpart is easy to find:
 
 - `params`: spec tables and per-QP scalars as int32 tensors;
 - `ops`: plain PyTorch formulations of the block ops (CPU and CUDA);
-- `kernels`: hand-written CUDA kernels and their wrappers;
+- `kernels`: hand-written CUDA kernels and their wrappers, the blocks
+  API `fused_encode_blocks` / `fused_encode_planes` among them;
 - `models.all_intra`: the open-loop all-intra frame encoder;
 - `models.wavefront`: the closed-loop (wavefront) encoder and decoder;
+- `models.rate_control`: the per-frame QP search and the sequence's
+  rate controller;
+- `models.sequence`: the multi-frame sequence encoder (resume, rate
+  control) and its decoder;
+- `parallel.sharding`: the multi-frame batch encoders (no mesh yet);
+- `ops.sparse`: the level-prefix device-to-host transfer;
+- `utils.tracing`: stage stopwatch and profiler regions;
 - `cli`: `python -m nanohevc_tpu_torch [--device cuda|cpu]
-  demo|encode|decode`.
+  demo|encode|encode-seq|decode`.
 
 Entry points run on the CUDA card unless the caller asks for the CPU.
 """
@@ -48,6 +56,14 @@ from nanohevc_tpu_torch.models.all_intra import (  # noqa: E402
     encode_frame_full,
     encode_frame_intra,
 )
+from nanohevc_tpu_torch.kernels.fused_pipeline import (  # noqa: E402
+    fused_encode_blocks,
+    fused_encode_planes,
+)
+from nanohevc_tpu_torch.models.sequence import (  # noqa: E402
+    decode_sequence,
+    encode_sequence,
+)
 from nanohevc_tpu_torch.models.wavefront import (  # noqa: E402
     decode_frame,
     decode_plane,
@@ -68,4 +84,8 @@ __all__ = [
     "decode_planes",
     "decode_plane",
     "decode_frame",
+    "encode_sequence",
+    "decode_sequence",
+    "fused_encode_planes",
+    "fused_encode_blocks",
 ]

@@ -1,12 +1,15 @@
 """Command-line interface: `python -m nanohevc_tpu_torch [--device cuda|cpu]
-demo|encode|decode`.
+demo|encode|encode-seq|decode`.
 
 Output text and files equal those of `python -m nanohevc_tpu` for the
 same arguments.  Ported: the open-loop slice (DC/planar, the 35-mode
 search, reference smoothing), the closed loop (`encode --pipeline
-closed-loop`) and `decode` of single-frame streams.  The flags and
-commands of the JAX CLI that need anything else exit with rc 2 and a
-"not yet ported" message; nothing runs in their place.
+closed-loop`), the rate search (`encode --target-bytes`), the sequence
+runner (`encode-seq`, with resume and `--target-bpp` rate control) and
+`decode` of single-frame and sequence streams.  The flags of the JAX
+CLI that need anything else (RD tools, in-loop filters, the standard
+HEVC export, fixed chroma modes) exit with rc 2 and a "not yet ported"
+message; nothing runs in their place.
 """
 
 from __future__ import annotations
@@ -16,16 +19,14 @@ import sys
 
 import numpy as np
 
-# JAX-CLI flags of `encode` that need code not ported yet, by dest.
+# JAX-CLI flags of `encode` and `encode-seq` that need code not ported
+# yet, by dest.
 _REFUSED_ENCODE_SWITCHES = (
     "rdo", "rdoq", "deblock", "sao", "sao_ctb", "hevc_mono",
 )
 _REFUSED_ENCODE_VALUES = (
-    "target_bytes", "sao_tile", "hevc_export", "chroma_mode",
+    "sao_tile", "hevc_export", "chroma_mode",
 )
-# NAL type of the access-unit delimiters that mark a multi-frame
-# sequence stream (nanohevc_tpu/models/sequence.py, not ported yet).
-NAL_AUD = 35
 
 
 def demo_predictions(height: int, width: int, block_size: int, device) -> None:
@@ -100,6 +101,14 @@ def cmd_encode(args: argparse.Namespace) -> None:
     frame = Frame.from_yuv420p(data[:expected], args.height, args.width)
     print(f"Loaded: {args.input} ({args.width}x{args.height})")
 
+    if args.target_bytes and args.pipeline == "predict":
+        print(
+            "Error: --target-bytes needs a coded bitstream to measure; "
+            "use --pipeline full or closed-loop",
+            file=sys.stderr,
+        )
+        sys.exit(1)
+
     if args.pipeline == "predict":
         recon, stats = encode_frame_intra(
             frame, args.block_size, args.output, device=args.device
@@ -127,6 +136,8 @@ def cmd_encode(args: argparse.Namespace) -> None:
         dequant_rescale=args.dequant_rescale,
         intra_smoothing=args.intra_smoothing,
     )
+    if args.target_bytes:
+        config = _rate_search(frame, config, args)
     if args.pipeline == "closed-loop":
         encode_closed_loop(frame, config, args)
         return
@@ -150,6 +161,22 @@ def cmd_encode(args: argparse.Namespace) -> None:
             f"{8 * len(bs) / (args.width * args.height):.3f} bpp, "
             f"{raw / len(bs):.1f}x vs raw YUV)"
         )
+
+
+def _rate_search(frame, config, args: argparse.Namespace):
+    """Pick the QP that fits the byte budget on the chosen pipeline."""
+    from dataclasses import replace
+
+    from nanohevc_tpu_torch.models.rate_control import find_frame_qp
+
+    qp, size = find_frame_qp(
+        frame, config, args.target_bytes,
+        closed_loop=args.pipeline == "closed-loop", device=args.device,
+    )
+    print(f"Rate search: QP {qp} fits {args.target_bytes} bytes "
+          f"({size} coded)")
+    args.qp = qp
+    return replace(config, qp=qp)
 
 
 def encode_closed_loop(frame, config, args: argparse.Namespace) -> None:
@@ -176,20 +203,70 @@ def encode_closed_loop(frame, config, args: argparse.Namespace) -> None:
         )
 
 
-def _decode_command(parser: argparse.ArgumentParser):
-    def cmd_decode(args: argparse.Namespace) -> None:
-        """Decode a single-frame closed-loop bitstream to YUV420p."""
-        from nanohevc_tpu_torch.models.wavefront import decode_frame
-        from nanohevc_tpu_torch.runtime.bitstream import (
-            _split_nals,
-            parse_bitstream,
-        )
+def cmd_encode_seq(args: argparse.Namespace) -> None:
+    from nanohevc_tpu_torch.config import EncoderConfig
+    from nanohevc_tpu_torch.models.sequence import encode_sequence
 
-        with open(args.input, "rb") as f:
-            bitstream = f.read()
-        if any(t == NAL_AUD for t, _ in _split_nals(bitstream)):
-            _not_ported(parser, "decoding a multi-frame sequence stream")
-        try:
+    config = EncoderConfig(
+        block_size=args.block_size,
+        qp=args.qp,
+        mode_set="all" if args.mode_search else "dc_planar",
+        decision=args.decision or ("satd" if args.mode_search else "energy"),
+        scan=args.scan,
+        entropy_coder=args.entropy,
+        dequant_rescale=args.dequant_rescale,
+        intra_smoothing=args.intra_smoothing,
+    )
+    res = encode_sequence(
+        args.input,
+        args.width,
+        args.height,
+        args.frames,
+        config,
+        args.bitstream,
+        batch=args.batch,
+        resume=not args.no_resume,
+        report_every=args.report_every,
+        closed_loop=args.closed_loop,
+        target_bpp=args.target_bpp,
+        entropy_tiles=args.entropy_tiles,
+        device=args.device,
+    )
+    print("\nSequence results:")
+    if res.resumed_from:
+        print(f"  Resumed from frame {res.resumed_from}")
+    print(f"  Frames: {res.frames}")
+    print(f"  Bitstream: {args.bitstream} ({res.bytes_written} bytes)")
+    print(f"  Mean Y-PSNR: {res.mean_psnr_y:.2f} dB")
+    tp = res.stats["throughput"]
+    print(f"  Throughput: {tp['mpix_per_s']:.2f} Mpix/s "
+          f"({tp['pixels']/1e6:.1f} Mpix in {tp['seconds']:.2f}s)")
+    rc = res.stats.get("rate_control")
+    if rc:
+        print(f"  Rate control: target {rc['target_bpp']:.3f} bpp -> "
+              f"achieved {rc['achieved_bpp']:.3f} bpp "
+              f"(QP {rc['qp_start']} -> {rc['qp_final']})")
+    for stage, s in res.stats.items():
+        if stage not in ("throughput", "rate_control"):
+            print(f"    {stage:8s} {s['total_s']:8.3f}s over {s['calls']} calls")
+
+
+def cmd_decode(args: argparse.Namespace) -> None:
+    """Decode a closed-loop bitstream (one frame, or a sequence behind
+    access-unit delimiters) to YUV420p."""
+    from nanohevc_tpu_torch.models.sequence import NAL_AUD, decode_sequence
+    from nanohevc_tpu_torch.models.wavefront import decode_frame
+    from nanohevc_tpu_torch.runtime.bitstream import _split_nals, parse_bitstream
+
+    with open(args.input, "rb") as f:
+        bitstream = f.read()
+    # multi-frame sequence streams carry AUD NALs; single frames don't
+    is_sequence = any(t == NAL_AUD for t, _ in _split_nals(bitstream))
+    try:
+        if is_sequence:
+            n = decode_sequence(args.input, args.output, device=args.device)
+            print(f"Decoded: {args.input} -> {args.output} ({n} frames)")
+        else:
             frame = decode_frame(bitstream, device=args.device)
             params = parse_bitstream(bitstream).get("params", {})
             depth = 8 + params.get("bit_depth_luma_minus8", 0)
@@ -198,10 +275,9 @@ def _decode_command(parser: argparse.ArgumentParser):
             suffix = "" if depth == 8 else f", {depth}-bit 16le samples"
             print(f"Decoded: {args.input} -> {args.output} "
                   f"({frame.width}x{frame.height}{suffix})")
-        except ValueError as e:
-            print(f"Error: {e}", file=sys.stderr)
-            sys.exit(1)
-    return cmd_decode
+    except ValueError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        sys.exit(1)
 
 
 def assemble_frame_bitstream(width: int, height: int, config, info: dict) -> bytes:
@@ -227,10 +303,14 @@ def _not_ported(parser: argparse.ArgumentParser, what: str) -> None:
     parser.error(f"{what} is not yet ported to nanohevc_tpu_torch")
 
 
-def _refuse_command(parser):
-    def run(args: argparse.Namespace) -> None:
-        _not_ported(parser, f"the {args.command!r} command")
-    return run
+def _add_refused(sub: argparse.ArgumentParser) -> None:
+    """The JAX CLI's flags that the port refuses, hidden from --help."""
+    for dest in _REFUSED_ENCODE_SWITCHES:
+        sub.add_argument("--" + dest.replace("_", "-"), action="store_true",
+                         help=argparse.SUPPRESS)
+    for dest in _REFUSED_ENCODE_VALUES:
+        sub.add_argument("--" + dest.replace("_", "-"), default=None,
+                         help=argparse.SUPPRESS)
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -299,35 +379,79 @@ def main(argv: list[str] | None = None) -> None:
         help="[1 2 1] reference-sample smoothing per spec 8.4.4.2.3 "
         "(luma, N>=8); carried in the PPS",
     )
-    for dest in _REFUSED_ENCODE_SWITCHES:
-        enc.add_argument("--" + dest.replace("_", "-"), action="store_true",
-                         help=argparse.SUPPRESS)
-    for dest in _REFUSED_ENCODE_VALUES:
-        enc.add_argument("--" + dest.replace("_", "-"), default=None,
-                         help=argparse.SUPPRESS)
+    enc.add_argument(
+        "--target-bytes", type=int, default=None,
+        help="rate search: pick the lowest QP whose coded frame fits "
+        "this many bytes (bisection over real coder sizes; full and "
+        "closed-loop pipelines)",
+    )
+    _add_refused(enc)
     enc.set_defaults(func=cmd_encode)
 
-    seq = sub.add_parser("encode-seq", help="(encode-seq is not ported yet)")
-    seq.add_argument("rest", nargs=argparse.REMAINDER)
-    seq.set_defaults(func=_refuse_command(parser))
+    seq = sub.add_parser(
+        "encode-seq", help="Encode a multi-frame YUV420p sequence to a bitstream"
+    )
+    seq.add_argument("input", help="Input YUV420p sequence file")
+    seq.add_argument("--width", type=int, required=True)
+    seq.add_argument("--height", type=int, required=True)
+    seq.add_argument("--frames", type=int, required=True, help="Frames to encode")
+    seq.add_argument("--block-size", type=int, default=8)
+    seq.add_argument("--qp", type=int, default=22)
+    seq.add_argument("--batch", type=int, default=8, help="Frames per device batch")
+    seq.add_argument("--bitstream", required=True, help="Output bitstream path")
+    seq.add_argument(
+        "--scan", choices=("diag", "horizontal", "vertical", "mode"),
+        default="diag", help="coefficient scan order (see encode --scan)",
+    )
+    seq.add_argument(
+        "--decision", choices=("energy", "satd", "sad", "rd"), default=None,
+        help="mode-decision cost override (see encode --decision; rd is "
+        "not ported yet)",
+    )
+    seq.add_argument(
+        "--entropy", choices=("range", "cabac", "hevc-slice"),
+        default="range", help="slice entropy engine (see encode --entropy)",
+    )
+    seq.add_argument("--mode-search", action="store_true")
+    seq.add_argument("--entropy-tiles", type=int, default=1,
+                     help="parallel host entropy: split each plane's "
+                     "levels into N independent context chunks coded "
+                     "on N threads (HEVC tiles/WPP analog)")
+    seq.add_argument("--target-bpp", type=float, default=None,
+                     help="one-pass rate control: target bits per luma "
+                     "pixel (QP adapts between batches; --qp seeds it)")
+    seq.add_argument("--intra-smoothing", action="store_true",
+                     help="[1 2 1] reference smoothing (PPS-carried)")
+    seq.add_argument("--dequant-rescale", action="store_true",
+                     help="spec-correct dequant size rescale (PPS-carried)")
+    seq.add_argument("--closed-loop", action="store_true",
+                     help="reconstruction-fed wavefront encode "
+                          "(stream decodable to pixels)")
+    seq.add_argument(
+        "--no-resume", action="store_true",
+        help="ignore existing progress sidecar and start over",
+    )
+    seq.add_argument("--report-every", type=int, default=0)
+    _add_refused(seq)
+    seq.set_defaults(func=cmd_encode_seq)
 
     dec = sub.add_parser(
         "decode", help="Decode a closed-loop bitstream to YUV420p"
     )
     dec.add_argument("input", help="Input bitstream file")
     dec.add_argument("-o", "--output", required=True, help="Output YUV path")
-    dec.set_defaults(func=_decode_command(parser))
+    dec.set_defaults(func=cmd_decode)
 
     args = parser.parse_args(argv)
     if args.platform is not None:
         _not_ported(parser, "--platform (a JAX backend flag; use --device)")
-    if args.command == "encode":
+    if args.command in ("encode", "encode-seq"):
         for dest in _REFUSED_ENCODE_SWITCHES + _REFUSED_ENCODE_VALUES:
             if getattr(args, dest) not in (None, False):
                 _not_ported(parser, "--" + dest.replace("_", "-"))
         if args.decision == "rd":
             _not_ported(parser, "--decision rd")
-    if args.command in ("demo", "encode", "decode"):
+    if args.command in ("demo", "encode", "encode-seq", "decode"):
         from nanohevc_tpu_torch import resolve_device
 
         try:

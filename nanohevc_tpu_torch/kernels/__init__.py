@@ -15,6 +15,12 @@ from nanohevc_tpu_torch.kernels.mode_search import (
     mode_search_encode_plane_reference,
     mode_search_supported,
 )
+from nanohevc_tpu_torch.kernels.fused_pipeline import (
+    fused_encode_blocks,
+    fused_encode_blocks_reference,
+    fused_encode_planes,
+    fused_encode_planes_reference,
+)
 from nanohevc_tpu_torch.kernels.wavefront import (
     wavefront_encode_planes,
     wavefront_encode_planes_reference,
@@ -22,6 +28,10 @@ from nanohevc_tpu_torch.kernels.wavefront import (
 )
 
 __all__ = [
+    "fused_encode_blocks",
+    "fused_encode_blocks_reference",
+    "fused_encode_planes",
+    "fused_encode_planes_reference",
     "mode_search_encode_plane",
     "mode_search_encode_plane_reference",
     "mode_search_supported",

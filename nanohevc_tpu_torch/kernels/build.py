@@ -47,6 +47,9 @@ SIGNATURES = {
     # recon, levels, modes, stream, device
     "wavefront": {"nhv_wavefront_encode":
                   [_P] + [_I] * 6 + [_I] * 7 + [_P, _P, _P, _P, _I]},
+    # blocks, refs, nb, n, 7 QpScalars, recon, levels, stream, device
+    "fused_pipeline": {"nhv_fused_encode":
+                       [_P, _P, _I, _I] + [_I] * 7 + [_P, _P, _P, _I]},
 }
 
 

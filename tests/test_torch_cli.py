@@ -3,14 +3,16 @@
 For the same arguments (the port with --device cpu, the JAX CLI with
 --platform cpu) stdout and the files written must be identical, for
 `demo`, `encode` (predict, full and closed-loop pipelines) and
-`decode`.  Flags the port does not cover yet exit with rc 2; a missing
-card fails instead of running on the CPU.
+`decode`.  `encode-seq`, `decode` of a sequence and `encode --target-bytes` too.
+Flags the port does not cover yet exit with rc 2; a missing card fails
+instead of running on the CPU.
 """
 
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 import torch
@@ -178,7 +180,8 @@ def test_predict_pipeline_ignores_search_flags(capsys, yuv_input, flag):
     ["--rdo"], ["--rdoq"],
     ["--deblock"], ["--sao"], ["--sao-ctb"], ["--sao-tile", "32"],
     ["--hevc-export", "x.hevc"], ["--hevc-mono"], ["--chroma-mode", "dc"],
-    ["--target-bytes", "1000"], ["--pipeline", "closed-loop", "--deblock"],
+    ["--pipeline", "closed-loop", "--rdoq"],
+    ["--pipeline", "closed-loop", "--deblock"],
     ["--decision", "rd"],
 ])
 def test_unported_encode_flags_exit_2(capsys, yuv_input, argv):
@@ -204,9 +207,11 @@ def _sequence_stream(frame) -> bytes:
 
 
 @pytest.mark.parametrize("argv", [
-    ["encode-seq", "in.yuv", "--width", "64", "--height", "48",
-     "--frames", "2", "--bitstream", "o.bin"],
-    ["--device", "cpu", "decode", "{sequence}", "-o", "{out}"],
+    ["encode-seq", "{sequence}", "--width", "64", "--height", "48",
+     "--frames", "2", "--bitstream", "{out}", "--rdo"],
+    ["--device", "cpu", "encode-seq", "{sequence}", "--width", "64",
+     "--height", "48", "--frames", "2", "--bitstream", "{out}",
+     "--decision", "rd"],
     ["--platform", "cpu", "demo"],
 ])
 def test_unported_commands_exit_2(capsys, tmp_path, argv):
@@ -320,3 +325,136 @@ def test_module_entry_point():
     )
     assert proc.returncode == 0, proc.stderr
     assert "PSNR" in proc.stdout
+
+
+# --- encode-seq, sequence decode, --target-bytes ----------------------------
+
+def _timing_free(text: str) -> str:
+    """stdout without the wall-clock lines (throughput, stage seconds)."""
+    return "".join(line for line in text.splitlines(keepends=True)
+                   if "Throughput:" not in line and " calls" not in line)
+
+
+@pytest.fixture
+def yuv_sequence(tmp_path):
+    rng = np.random.default_rng(5)
+    data = rng.integers(0, 256, 5 * 64 * 32 * 3 // 2, dtype=np.uint8)
+    src = tmp_path / "seq.yuv"
+    src.write_bytes((data // 4 + 96).astype(np.uint8).tobytes())
+    return tmp_path, str(src)
+
+
+@pytest.mark.parametrize("extra", [
+    [],
+    ["--closed-loop", "--qp", "27"],
+    ["--target-bpp", "1.5", "--qp", "18"],
+    ["--no-resume", "--entropy-tiles", "2", "--block-size", "16"],
+    ["--closed-loop", "--target-bpp", "1.2", "--scan", "mode",
+     "--dequant-rescale"],
+])
+def test_encode_seq_identical(capsys, yuv_sequence, extra):
+    """Two runs each (4 frames, then resumed to 5): stdout, bitstream
+    and sidecar equal the JAX CLI's."""
+    tmp, src = yuv_sequence
+    bits = str(tmp / "seq.bin")
+    results = []
+    for run, flag in ((jax_main, ["--platform", "cpu"]),
+                      (torch_main, ["--device", "cpu"])):
+        for path in (bits, bits + ".progress"):
+            if os.path.exists(path):
+                os.remove(path)
+        for frames in ("4", "5"):
+            run(flag + ["encode-seq", src, "--width", "64", "--height", "32",
+                        "--frames", frames, "--batch", "2", "--bitstream",
+                        bits] + extra)
+        with open(bits, "rb") as f, open(bits + ".progress") as g:
+            results.append((_timing_free(capsys.readouterr().out),
+                            f.read(), g.read()))
+    assert results[1] == results[0]
+    out = results[1][0]
+    assert "Frames: 5" in out and "Mean Y-PSNR" in out
+    resumed = "--no-resume" not in extra
+    assert ("Resumed from frame 4" in out) == resumed
+
+
+def test_sequence_decode_identical(capsys, yuv_sequence):
+    """`decode` of a closed-loop sequence: the JAX CLI and the port give
+    the same text and YUV, and the YUV is the encoder's recon."""
+    from nanohevc_tpu_torch.config import EncoderConfig
+    from nanohevc_tpu_torch.frame import Frame
+    from nanohevc_tpu_torch.models.wavefront import encode_frame_closed_loop
+
+    tmp, src = yuv_sequence
+    bits, dec = str(tmp / "seq.bin"), str(tmp / "dec.yuv")
+    torch_main(["--device", "cpu", "encode-seq", src, "--width", "64",
+                "--height", "32", "--frames", "5", "--batch", "4",
+                "--closed-loop", "--bitstream", bits])
+    capsys.readouterr()
+    (jout, jf), (tout, tf) = _run_both(capsys, ["decode", bits, "-o", dec],
+                                       outputs=[dec])
+    assert tout == jout
+    assert tf == jf
+    assert "(5 frames)" in tout
+    with open(src, "rb") as f:
+        raw = f.read()
+    fs = 64 * 32 * 3 // 2
+    recon = b"".join(
+        encode_frame_closed_loop(
+            Frame.from_yuv420p(raw[i * fs:(i + 1) * fs], 32, 64),
+            EncoderConfig(), device="cpu")[0].to_yuv420p()
+        for i in range(5))
+    assert tf[dec] == recon
+
+
+@pytest.mark.parametrize("pipeline", ["full", "closed-loop"])
+def test_encode_target_bytes_identical(capsys, yuv_input, pipeline):
+    tmp, src = yuv_input
+    out, bits = str(tmp / "out.yuv"), str(tmp / "out.bin")
+    (jout, jf), (tout, tf) = _run_both(
+        capsys, ["encode", src, "--width", "64", "--height", "48",
+                 "--pipeline", pipeline, "--target-bytes", "1500", "-o", out,
+                 "--bitstream", bits], outputs=[out, bits])
+    assert tout == jout
+    assert tf == jf
+    assert "Rate search: QP" in tout
+    assert len(tf[bits]) <= 1500
+
+
+def test_target_bytes_needs_a_bitstream(capsys, yuv_input):
+    _, src = yuv_input
+    for run, flag in ((jax_main, ["--platform", "cpu"]),
+                      (torch_main, ["--device", "cpu"])):
+        with pytest.raises(SystemExit) as exc:
+            run(flag + ["encode", src, "--width", "64", "--height", "48",
+                        "--target-bytes", "900"])
+        assert exc.value.code == 1
+        assert "--target-bytes needs a coded bitstream" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--rdo"], ["--rdoq"], ["--deblock"], ["--sao"], ["--sao-ctb"],
+    ["--sao-tile", "32"], ["--hevc-export", "x.hevc"], ["--hevc-mono"],
+    ["--chroma-mode", "dc"], ["--decision", "rd"],
+])
+def test_unported_encode_seq_flags_exit_2(capsys, yuv_sequence, argv):
+    tmp, src = yuv_sequence
+    bits = tmp / "never.bin"
+    with pytest.raises(SystemExit) as exc:
+        torch_main(["--device", "cpu", "encode-seq", src, "--width", "64",
+                    "--height", "32", "--frames", "2", "--closed-loop",
+                    "--bitstream", str(bits)] + argv)
+    assert exc.value.code == 2
+    assert "not yet ported" in capsys.readouterr().err
+    assert not bits.exists()
+
+
+def test_encode_seq_without_card_fails(capsys, monkeypatch, yuv_sequence):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tmp, src = yuv_sequence
+    bits = tmp / "never.bin"
+    with pytest.raises(SystemExit) as exc:
+        torch_main(["encode-seq", src, "--width", "64", "--height", "32",
+                    "--frames", "2", "--bitstream", str(bits)])
+    assert exc.value.code == 1
+    assert "torch.cuda.is_available() is False" in capsys.readouterr().err
+    assert not bits.exists()

@@ -316,3 +316,51 @@ def test_bitstream_bytes_and_parse_equal(case):
                 assert np.array_equal(tp[key][k], v), (key, k)
             else:
                 assert tp[key][k] == v, (key, k)
+
+
+# --- models/rate_control ----------------------------------------------------
+
+def _rate_control_code(text: str) -> list:
+    """Source lines with the device keyword the copy threads through to
+    the port's encoders taken out."""
+    return [re.sub(r', device=("cuda"|device)', "", line) for line in _code(text)]
+
+
+def test_rate_control_copy_differs_only_in_imports_and_device():
+    rel = "models/rate_control.py"
+    orig = (REPO / "nanohevc_tpu" / rel).read_text()
+    header, _, copy = (REPO / "nanohevc_tpu_torch" / rel).read_text().partition("\n")
+    assert header.startswith(f"# Copy of nanohevc_tpu/{rel} (only the import "
+                             "lines and the device")
+    assert _rate_control_code(copy) == _code(orig)
+
+
+@pytest.mark.parametrize("closed_loop", [False, True], ids=["open", "closed"])
+def test_find_frame_qp_equal(closed_loop):
+    import nanohevc_tpu.models.rate_control as j_rc
+    import nanohevc_tpu_torch.models.rate_control as t_rc
+
+    rng = np.random.default_rng(17)
+    planes = [(rng.integers(0, 256, s) // 4 + 96).astype(np.int16)
+              for s in ((32, 32), (16, 16), (16, 16))]
+    budget = 420
+    want = j_rc.find_frame_qp(j_frame.Frame(*map(j_frame.Plane, planes)),
+                              j_config.EncoderConfig(), budget,
+                              closed_loop=closed_loop)
+    got = t_rc.find_frame_qp(t_frame.Frame(*map(t_frame.Plane, planes)),
+                             t_config.EncoderConfig(), budget,
+                             closed_loop=closed_loop, device="cpu")
+    assert got == want
+    assert 0 < got[0] < 51 and got[1] <= budget
+
+
+def test_rate_controller_equal():
+    import nanohevc_tpu.models.rate_control as j_rc
+    import nanohevc_tpu_torch.models.rate_control as t_rc
+
+    rng = np.random.default_rng(2)
+    j = j_rc.RateController(target_bits=8e4, qp=30)
+    t = t_rc.RateController(target_bits=8e4, qp=30)
+    for bits in rng.integers(1, 4e5, 24):
+        assert t.update(float(bits)) == j.update(float(bits))
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)

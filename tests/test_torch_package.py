@@ -3,8 +3,11 @@
 The GPU machine has no JAX, and the port keeps its own copies of the
 host modules it needs, so `nanohevc_tpu_torch` (and `chip_smoke.py`)
 import nothing from `nanohevc_tpu`, not even a module that imports no
-JAX.  Checked twice: statically over the sources, and by running the
-port in a process where importing jax or `nanohevc_tpu` raises.
+JAX.  Checked twice: statically over the sources (every module of the
+package, the sequence runner's included, and `chip_smoke.py`), and by
+running the port in a process where importing jax or `nanohevc_tpu`
+raises: an open-loop and a closed-loop frame, the CLI's demo, and a
+2-frame closed-loop sequence encoded and decoded.
 """
 
 import ast
@@ -105,6 +108,22 @@ JAX_BLOCKED = textwrap.dedent("""
         for p in ("y", "u", "v"):
             assert np.array_equal(getattr(decoded, p).data, getattr(recon, p).data)
     main(["--device", "cpu", "demo", "--width", "16", "--height", "16"])
+
+    import os
+    import tempfile
+    from nanohevc_tpu_torch import decode_sequence, encode_sequence
+    with tempfile.TemporaryDirectory() as tmp:
+        frames = [create_test_frame(16, 32) for _ in range(2)]
+        src, bits, dec = (os.path.join(tmp, f) for f in ("s.yuv", "s.bin", "d.yuv"))
+        with open(src, "wb") as f:
+            f.write(b"".join(fr.to_yuv420p() for fr in frames))
+        res = encode_sequence(src, 32, 16, 2, EncoderConfig(), bits, batch=2,
+                              closed_loop=True, device="cpu")
+        assert res.frames == 2
+        assert decode_sequence(bits, dec, device="cpu") == 2
+        recon, _ = encode_frame_closed_loop(frames[0], EncoderConfig(), device="cpu")
+        with open(dec, "rb") as f:
+            assert f.read() == 2 * recon.to_yuv420p()
     assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     print("JAX-FREE OK")
 """)
