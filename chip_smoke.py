@@ -17,11 +17,16 @@ over a 16-frame file at batch 8.  It checks them end to end:
    exactly: the slab kernel (3) and the mode-search kernel (3b) over
    N 4/8/16/32, DST at 4, 8/10-bit, both dequant modes and QP
    0/22/37/51, on a 1080x1920 luma and a 540x960 chroma plane, and at
-   N 4/8 on a 45x200 plane that leaves thread blocks part empty; the
-   wavefront kernel (3c), both bodies, over the same N, bit depths,
-   dequant modes and QPs at batch 1 and 2 on a 540x960 and a padded
-   45x200 plane, and at N 4 DST, 8 and 16 (padded to 1088 rows) on
-   1080x1920; the fused blocks kernel (3e) over N 4-32, 8/10-bit and
+   N 4/8 on a 45x200 plane that leaves thread blocks part empty (3b
+   also on a 12-bit plane at N=32, where the packed (cost, mode) key
+   does not fit int32); the wavefront kernel (3c), both bodies, over
+   the same N, bit depths, dequant modes and QPs at batch 1 and 2 on a
+   540x960 and a padded 45x200 plane, and at N 4 DST, 8 and 16 (padded
+   to 1088 rows) on 1080x1920, then the row schedule's cases (a tall
+   200x45 plane, one block row, one block column, the 16-plane chroma
+   stack at N=4, a 12-bit search at N=32, and the 1080p search at N=8
+   three more times, each equal to the first); the fused blocks kernel
+   (3e) over N 4-32, 8/10-bit and
    the four QPs on two 1080p planes and a 45x200 plane, and against the
    slab kernel (DCT, parity) on the 1080p plane's full block rows;
 4. encodes the frame on the card under each config through the open
@@ -47,15 +52,18 @@ over a 16-frame file at batch 8.  It checks them end to end:
    open loop; 5c: closed loop, then `decode`; 5d: `encode-seq` open,
    closed and `--target-bpp`, `decode` of the sequence, `encode
    --target-bytes` against `find_frame_qp`);
-6. times kernels and plain versions per 1080p luma plane (6, 6b, 6c,
-   6e: also a batch of 8 for the fused kernel), the frame under each
+6. times kernels and plain versions per 1080p luma plane (6, 6b, 6c:
+   with the grids each call launched, and one launch on 8 luma planes
+   and on the 16-plane chroma stack; 6e: also a batch of 8 for the
+   fused kernel), the frame under each
    config, the closed-loop frame and its decode (6c), and the sequence
    under all four configs (6f: throughput, stages, whether drain
    overlaps the next batch, device busy share, entropy_tiles=4,
    `decode_sequence`).
 
-Prints one JSON line of kernel results before the last line, and as the
-last line {"ok": true, "device": {...}}.  Exits non-zero, without that
+Prints one JSON line of kernel results before the last line (the
+wavefront kernel has an entry per body, each with its launches), and
+as the last line {"ok": true, "device": {...}}.  Exits non-zero, without that
 line, when there is no CUDA card or a phase fails.
 
 Each kernel's bound in the JSON line is the larger of its bytes over
@@ -235,36 +243,46 @@ def read_launches() -> dict:
     return {name: KERNELS[name][0].launches for name in KERNELS}
 
 
-def phase_kernel_vs_plain(dev, name: str, tag: str) -> int:
+def phase_kernel_vs_plain(dev, name: str, tag: str,
+                          wide_bits: bool = False) -> int:
+    """The kernel == its plain version over N 4 (DCT and DST) to 32,
+    8/10-bit, both dequant modes and four QPs on three planes; with
+    `wide_bits`, also a 12-bit plane at N=32, where the search's packed
+    (cost, mode) key does not fit int32."""
     kernel, plain = KERNELS[name][:2]
     rng = np.random.default_rng(SEED)
     worst = 0
     cases = 0
+    sizes = ((4, False), (4, True), (8, False), (16, False), (32, False))
     # The 45x200 plane leaves the last thread block of N=4 and N=8 part
     # empty (its block count is no multiple of 16 or 4).
-    for shape in ((H, W), (H // 2, W // 2), (45, 200)):
-        for bit_depth in (8, 10):
-            plane = torch.from_numpy(textured(*shape, bit_depth, rng)).to(dev)
-            for n, use_dst in ((4, False), (4, True), (8, False),
-                               (16, False), (32, False)):
-                if shape[1] % n:
-                    continue
-                for rescale in (False, True):
-                    for qp in (0, 22, 37, 51):
-                        kw = dict(bit_depth=bit_depth, use_dst=use_dst,
-                                  dequant_rescale=rescale)
-                        got = kernel(plane, qp, n, **kw)
-                        want = plain(plane, qp, n, **kw)
-                        torch.cuda.synchronize()
-                        err = max_abs_err(got, want)
-                        if err:
-                            raise SystemExit(
-                                f"{name} != plain at {shape} N={n} "
-                                f"dst={use_dst} bd={bit_depth} "
-                                f"rescale={rescale} qp={qp}: max abs err {err}")
-                        worst = max(worst, err)
-                        cases += 1
+    grid = [(shape, bd, sizes, (0, 22, 37, 51))
+            for shape in ((H, W), (H // 2, W // 2), (45, 200))
+            for bd in (8, 10)]
+    if wide_bits:
+        grid.append(((H // 2, W // 2), 12, ((32, False),), (22, 37)))
+    for shape, bit_depth, n_list, qps in grid:
+        plane = torch.from_numpy(textured(*shape, bit_depth, rng)).to(dev)
+        for n, use_dst in n_list:
+            if shape[1] % n:
+                continue
+            for rescale in (False, True):
+                for qp in qps:
+                    kw = dict(bit_depth=bit_depth, use_dst=use_dst,
+                              dequant_rescale=rescale)
+                    got = kernel(plane, qp, n, **kw)
+                    want = plain(plane, qp, n, **kw)
+                    torch.cuda.synchronize()
+                    err = max_abs_err(got, want)
+                    if err:
+                        raise SystemExit(
+                            f"{name} != plain at {shape} N={n} "
+                            f"dst={use_dst} bd={bit_depth} "
+                            f"rescale={rescale} qp={qp}: max abs err {err}")
+                    worst = max(worst, err)
+                    cases += 1
     log(f"[{tag}] {name} == plain on CUDA in {cases} cases "
+        f"{'(4 of them 12-bit at N=32) ' if wide_bits else ''}"
         f"(max abs err {worst})")
     return worst
 
@@ -595,7 +613,10 @@ def kernel_bound(search: bool, n: int, pixels: int) -> tuple:
     quantize, dequantize, clip); DC/planar by energy 16 (planar's four
     products and sums, both energies); the search 35 modes of 2N + 10
     (prediction, residual, two N-term WHT passes, |.|, sum) plus 9 for
-    planar and DC.  No step of these kernels depends on the data.
+    planar and DC.  No step of these kernels depends on the data.  The
+    count stays the yardstick of earlier runs: the butterfly WHT of
+    mode_sweep.cuh needs 2 log2 N adds a pixel, not 2N, so the search's
+    least operation count is lower than this one (PERF.md).
     """
     per_pixel = 8 * n + 18 + (35 * (2 * n + 10) + 9 if search else 16)
     t_bytes = (12 * pixels + 4 * pixels // (n * n)) / 3.35e12 * 1e3
@@ -613,7 +634,12 @@ def stacked_planes(shape, bit_depth: int, batch: int, n: int, dev, rng):
 def phase_wavefront_vs_plain(dev) -> int:
     """The wavefront kernel == its plain version on the card, both
     bodies, every N; (bit depth, dequant rescale, batch) rotates over
-    the QPs so that each QP meets every combination across the N."""
+    the QPs so that each QP meets every combination across the N.  Then
+    the cases that stress the row schedule: a tall plane, one block row,
+    one block column, the sequence's 16-plane chroma stack at N=4 (more
+    rows than resident thread blocks), a 12-bit plane at N=32 (the
+    search's packed key off), and the 1080p search at N=8 run three
+    times, each equal to the first, so that a race shows."""
     kernel, plain = KERNELS["wavefront_encode_planes"][:2]
     rng = np.random.default_rng(SEED)
     combos = [(bd, rs, b) for bd in (8, 10) for rs in (False, True)
@@ -631,6 +657,16 @@ def phase_wavefront_vs_plain(dev) -> int:
     for body in WAVEFRONT_BODIES:     # 1080 rows pad to 1088 at N = 16
         for n, use_dst in ((4, True), (8, False), (16, False)):
             cases.append(((H, W), body, n, use_dst, 22, 8, False, 1))
+    old_cases = len(cases)
+    for body in WAVEFRONT_BODIES:
+        for n in (4, 8):
+            cases += [((200, 45), body, n, False, 22, 8, False, 2),
+                      ((n, 200), body, n, False, 37, 8, True, 2),
+                      ((200, n), body, n, False, 22, 10, False, 2)]
+        cases.append(((H // 2, W // 2), body, 4, False, 22, 8, False, 16))
+    for qp in (22, 37):
+        cases.append(((H // 2, W // 2), "search", 32, False, qp, 12, qp == 37,
+                      1))
     planes = {}
     worst = 0
     for shape, body, n, use_dst, qp, bd, rescale, batch in cases:
@@ -650,8 +686,20 @@ def phase_wavefront_vs_plain(dev) -> int:
                 f"N={n} dst={use_dst} bd={bd} rescale={rescale} qp={qp} "
                 f"batch={batch}: max abs err {err}")
         worst = max(worst, err)
+    y = planes[(H, W), 8, 1, 8]
+    kw = dict(zip(("mode_set", "decision"), WAVEFRONT_BODIES["search"]))
+    first = kernel(y, 22, 8, **kw)
+    for rep in range(3):
+        again = kernel(y, 22, 8, **kw)
+        torch.cuda.synchronize()
+        if max_abs_err(again, first):
+            raise SystemExit(f"wavefront_encode_planes search 1080p N=8: "
+                             f"repeat {rep + 1} differs from the first run")
     log(f"[3c] wavefront_encode_planes == plain on CUDA in {len(cases)} "
-        f"cases (max abs err {worst})")
+        f"cases ({old_cases} + {len(cases) - old_cases} of the row schedule: "
+        f"tall, one block row, one block column, 16 chroma planes at N=4, "
+        f"12-bit N=32 search) (max abs err {worst}); 1080p search N=8 run "
+        f"three more times, each == the first")
     return worst
 
 
@@ -771,14 +819,29 @@ def wavefront_times(dev, gpu: str) -> dict:
             y = stacked_planes((H, W), 8, 1, n, dev, rng)
             kw = dict(mode_set=mode_set, decision=decision, use_dst=n == 4)
             depth = y.shape[1] // n + y.shape[2] // n - 1
+            grids0, calls0 = kernel.grids, kernel.launches
+            kernel(y, 22, n, **kw)
+            grids = (kernel.grids - grids0) / (kernel.launches - calls0)
             k_ms = cuda_ms(lambda: kernel(y, 22, n, **kw), iters=10)
             p_ms = cuda_ms(lambda: plain(y, 22, n, **kw), iters=1, warmup=1)
             times[body, n] = (k_ms, p_ms)
             log(f"[6c] wavefront_encode_planes {body} 1080p luma N={n}"
                 f"{' DST' if n == 4 else ''}: kernel {k_ms:.4f} ms "
-                f"({mpix / k_ms * 1e3:.1f} Mpix/s; {depth} dependent "
-                f"launches, {1e3 * k_ms / depth:.2f} us each), plain "
-                f"{p_ms:.4f} ms ({mpix / p_ms * 1e3:.1f} Mpix/s) [{gpu}]")
+                f"({mpix / k_ms * 1e3:.1f} Mpix/s; {grids:g} grid launch per "
+                f"call, a chain of {depth} blocks, {1e3 * k_ms / depth:.2f} "
+                f"us a block), plain {p_ms:.4f} ms "
+                f"({mpix / p_ms * 1e3:.1f} Mpix/s) [{gpu}]")
+    # batches: 8 luma planes at N=8 and the sequence's 16-plane chroma
+    # stack at N=4, one launch each
+    for shape, batch, n in (((H, W), 8, 8), ((H // 2, W // 2), 16, 4)):
+        planes = stacked_planes(shape, 8, batch, n, dev, rng)
+        for body, (mode_set, decision) in WAVEFRONT_BODIES.items():
+            kw = dict(mode_set=mode_set, decision=decision)
+            k_ms = cuda_ms(lambda: kernel(planes, 22, n, **kw), iters=5)
+            log(f"[6c] wavefront_encode_planes {body} batch of {batch} "
+                f"{shape[0]}x{shape[1]} planes N={n}: kernel {k_ms:.4f} ms "
+                f"({k_ms / times[body, 8 if n == 8 else 4][0]:.2f}x one "
+                f"1080p luma plane at N={n}) [{gpu}]")
     return times
 
 
@@ -1373,7 +1436,7 @@ def main() -> int:
     worst = {
         "slab_encode_plane": phase_kernel_vs_plain(dev, "slab_encode_plane", "3"),
         "mode_search_encode_plane": phase_kernel_vs_plain(
-            dev, "mode_search_encode_plane", "3b"),
+            dev, "mode_search_encode_plane", "3b", wide_bits=True),
         "wavefront_encode_planes": phase_wavefront_vs_plain(dev),
         "fused_encode_blocks": phase_fused_vs_plain(dev),
     }
@@ -1384,11 +1447,13 @@ def main() -> int:
         dev, frame, config, "slab_encode_plane", "4")
     launches["mode_search_encode_plane"], ms_bits = phase_main_path(
         dev, frame, MODE_SEARCH, "mode_search_encode_plane", "4b")
-    # The wavefront kernel's main paths are both closed-loop configs.
-    cl_launches, cl_bits, cl_recon = phase_closed_loop(dev, frame, config, "4c")
-    ms_launches, ms_cl_bits, ms_cl_recon = phase_closed_loop(
+    # The wavefront kernel's main paths are both closed-loop configs,
+    # one a body: its launches are counted per body.
+    wf_launches = {}
+    wf_launches["dc_planar"], cl_bits, cl_recon = phase_closed_loop(
+        dev, frame, config, "4c")
+    wf_launches["search"], ms_cl_bits, ms_cl_recon = phase_closed_loop(
         dev, frame, MODE_SEARCH, "4d")
-    launches["wavefront_encode_planes"] = cl_launches + ms_launches
     launches["fused_encode_blocks"], planes8 = phase_fused_main(dev)
 
     # The sequence runner drives K1, K2 and the wavefront kernel: each
@@ -1405,12 +1470,12 @@ def main() -> int:
         n, seq_bits[label] = phase_sequence_open(dev, tmp, src, frames, label,
                                                  cfg, tag)
         launches[kern] += n
-    for tag, label, cfg in (("4g", "closed loop default", config),
-                            ("4g-search", "closed loop mode search",
-                             MODE_SEARCH)):
+    for tag, label, cfg, body in (
+            ("4g", "closed loop default", config, "dc_planar"),
+            ("4g-search", "closed loop mode search", MODE_SEARCH, "search")):
         n, seq_bits[label], recon = phase_sequence_closed(
             dev, tmp, src, frames, label, cfg, tag)
-        launches["wavefront_encode_planes"] += n
+        wf_launches[body] += n
         if label == "closed loop default":
             closed_recon = recon
     bpp_at_22 = 8 * os.path.getsize(seq_bits["default"]) / (SEQ_FRAMES * H * W)
@@ -1436,7 +1501,6 @@ def main() -> int:
             dev, "mode_search_encode_plane", "6b", gpu),
     }
     wf = wavefront_times(dev, gpu)
-    times["wavefront_encode_planes"] = {n: wf["dc_planar", n] for n in (8,)}
     frame_times(dev, frame, config, "default config:", gpu)
     frame_times(dev, frame, MODE_SEARCH, "mode search:", gpu)
     closed_loop_times(dev, frame, config, "default config:", gpu)
@@ -1445,23 +1509,35 @@ def main() -> int:
     sequence_times(dev, tmp, src, frames, seq_bits["closed loop default"], gpu)
     tmp_dir.cleanup()
 
-    # ms and bounds at the main path's shape: a 1080p luma plane at N = 8
-    # (the wavefront kernel: its DC/planar body, the default config's).
-    searches = {"slab_encode_plane": False, "mode_search_encode_plane": True,
-                "wavefront_encode_planes": False}
+    # ms and bounds at the main path's shape, a 1080p luma plane at N = 8;
+    # the wavefront kernel has an entry per body, each with its launches
+    # and the TPU kernels that body replaces.
+    n8 = config.block_size
+    rows = [(name, times[name][n8], launches[name], worst[name],
+             kernel_bound(name == "mode_search_encode_plane", n8, H * W),
+             KERNELS[name][3])
+            for name in ("slab_encode_plane", "mode_search_encode_plane")]
+    for body, label, replaces in (
+            ("dc_planar", "wavefront_encode_planes",
+             "nanohevc_tpu/kernels/wavefront_slab.py:151"),
+            ("search", "wavefront_encode_planes (search body)",
+             "nanohevc_tpu/kernels/wavefront_mode_grouped.py:199, "
+             "nanohevc_tpu/kernels/wavefront_mode_slab.py:182")):
+        rows.append((label, wf[body, n8], wf_launches[body],
+                     worst["wavefront_encode_planes"],
+                     kernel_bound(body == "search", n8, H * W), replaces))
+    rows.append(("fused_encode_blocks", times["fused_encode_blocks"][n8],
+                 launches["fused_encode_blocks"], worst["fused_encode_blocks"],
+                 fused_bound(n8, H * W), KERNELS["fused_encode_blocks"][3]))
     entries = []
-    for name, (_, _, source, replaces) in KERNELS.items():
-        k_ms, p_ms = times[name][config.block_size]
-        bound_ms, bound_by = (
-            fused_bound(config.block_size, H * W) if name == "fused_encode_blocks"
-            else kernel_bound(searches[name], config.block_size, H * W))
+    for name, (k_ms, p_ms), count, err, (bound_ms, bound_by), replaces in rows:
         entries.append({
             "name": name,
             "route": "cuda",
-            "source": source,
+            "source": KERNELS[name.split(" ")[0]][2],
             "replaces": replaces,
-            "launches": launches[name],
-            "max_abs_err": worst[name],
+            "launches": count,
+            "max_abs_err": err,
             "ms": k_ms,
             "plain_ms": p_ms,
             "bound_ms": bound_ms,

@@ -1,5 +1,6 @@
 // The DC/planar decision by residual energy, shared by the open-loop
-// kernel (slab_pipeline.cu, K1) and the closed loop's DC/planar body
+// kernel (slab_pipeline.cu, K1), the blocks-API kernel
+// (fused_pipeline.cu, K5) and the closed loop's DC/planar body
 // (wavefront.cu, K4): bit for bit the decision of the TPU kernels
 // nanohevc_tpu/kernels/slab_pipeline.py and wavefront_slab.py:
 //   DC = floor((sum T[1..N] + sum L[1..N] + N) / 2N);
@@ -12,20 +13,24 @@
 
 #include "encode_tail.cuh"
 
-// Predict one N x N block, one thread per pixel (i, j).  `ref` is the
-// block's references in shared memory, in the layout of
-// ops.tiling.extract_refs: the top arm at ref[0..2N] with the corner at
-// 0, the left arm at ref[2N+1..4N+1]; only T[1..N] and L[1..N] are
-// read.  s_a and s_b are the block's N*N-int shared scratch.  Every
-// thread of the thread block must call it (it holds barriers), after a
-// barrier that follows the writes of `ref`.  Returns the prediction of
-// pixel (i, j); `use_dc` is the same for every pixel of the block.
-template <int N>
+// Predict one N x N block, one thread per pixel (i, j), in a thread
+// block of THREADS threads.  `ref` is the block's references in shared
+// memory, in the layout of ops.tiling.extract_refs: the top arm at
+// ref[0..2N] with the corner at 0, the left arm at ref[2N+1..4N+1]; only
+// T[1..N] and L[1..N] are read.  s_a and s_b are the block's N*N-int
+// shared scratch (the first N*N/32 ints of each hold the per-warp sums
+// at N >= 8).  Every thread of the thread block must call it (it holds a
+// barrier at N >= 8), after a barrier that follows the writes of `ref`.
+// Returns the prediction of pixel (i, j); `use_dc` is the same for every
+// pixel of the block.
+template <int N, int THREADS>
 __device__ __forceinline__ int dc_planar_energy(const int* ref, int x, int i,
                                                 int j, int* s_a, int* s_b,
                                                 bool& use_dc) {
   constexpr int NN = N * N;
   constexpr int LOG2N = Log2<N>::value;
+  constexpr int LANES = NN < 32 ? NN : 32;       // lanes per block per warp
+  constexpr unsigned kMask = THREADS >= 32 ? 0xffffffffu : (1u << THREADS) - 1u;
   const int* top = ref + 1;             // T[1..N]
   const int* left = ref + 2 * N + 2;    // L[1..N]
   const int p = i * N + j;
@@ -40,19 +45,30 @@ __device__ __forceinline__ int dc_planar_energy(const int* ref, int x, int i,
                   (N - 1 - i) * top[j] + (i + 1) * bl + N) >>
                  (LOG2N + 1);
 
-  // energies as shared-memory tree reductions, ties to DC
+  // energies: warp shuffles, then one shared-memory step across the
+  // block's warps; int32 sums wrap alike in any order.  Ties to DC.
   const int rd = x - dc, rp = x - pl;
-  s_a[p] = rd * rd;
-  s_b[p] = rp * rp;
-  __syncthreads();
+  int e_dc = rd * rd, e_pl = rp * rp;
 #pragma unroll
-  for (int s = NN / 2; s > 0; s >>= 1) {
-    if (p < s) {
-      s_a[p] += s_a[p + s];
-      s_b[p] += s_b[p + s];
+  for (int off = LANES / 2; off > 0; off >>= 1) {
+    e_dc += __shfl_xor_sync(kMask, e_dc, off);
+    e_pl += __shfl_xor_sync(kMask, e_pl, off);
+  }
+  if constexpr (NN > 32) {             // each warp sums the warps' sums
+    const int lane = p & 31;
+    if (lane == 0) {
+      s_a[p >> 5] = e_dc;
+      s_b[p >> 5] = e_pl;
     }
     __syncthreads();
+    e_dc = lane < NN / 32 ? s_a[lane] : 0;
+    e_pl = lane < NN / 32 ? s_b[lane] : 0;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      e_dc += __shfl_xor_sync(kMask, e_dc, off);
+      e_pl += __shfl_xor_sync(kMask, e_pl, off);
+    }
   }
-  use_dc = s_a[0] <= s_b[0];
+  use_dc = e_dc <= e_pl;
   return use_dc ? dc : pl;
 }

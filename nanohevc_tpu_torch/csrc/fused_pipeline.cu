@@ -74,8 +74,8 @@ fused_encode_kernel(const int* __restrict__ blocks,
 
   // --- DC/planar by energy, ties to DC (dc_planar.cuh) -------------
   bool use_dc;
-  const int pred = dc_planar_energy<N>(s_ref[lb], x, i, j, s_a[lb], s_b[lb],
-                                       use_dc);
+  const int pred = dc_planar_energy<N, N * N * BPB>(
+      s_ref[lb], x, i, j, s_a[lb], s_b[lb], use_dc);
 
   // --- transform, quantize, reconstruct (shared tail) ----------------
   int level, rec;

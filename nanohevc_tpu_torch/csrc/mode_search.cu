@@ -23,25 +23,26 @@
 //
 // Design.  The TPU kernels keep row slabs in lanes and turn the search
 // into lane rolls, phase masks, g-row interleaving, 128-lane padding
-// and a packed (cost*64 + mode) minimum; none of that carries over.
-// Here, as in slab_pipeline.cu, one thread block takes BPB whole N x N
-// blocks (BPB = 256 / N^2 for N <= 8, else 1), one thread per pixel.
-// Each block's pixels, its 4N+2 references and all 33 per-mode
-// reference arrays are built in shared memory once; then the 35 modes
-// are swept in order (mode_sweep.cuh).  Each thread computes its pixel's prediction,
-// the residual goes through the WHT as two N-term signed sums (columns,
-// then rows) in shared memory, and |.| is summed per block with warp
-// shuffles (plus one shared-memory step across the block's warps at
-// N >= 8).  Each thread keeps its pixel of the best prediction in a
-// register, so the tail needs no second prediction pass.
+// and a packed (cost*64 + mode) minimum; of those only the packed
+// minimum carries over.  Here, as in slab_pipeline.cu, one thread block
+// takes BPB whole N x N blocks (BPB = 128 / N^2 for N <= 8, else 1; 128
+// threads measured a little faster than 256 or 512 with this sweep),
+// one thread per pixel.  Each block's pixels, its 4N+2 references and
+// all 33 per-mode reference arrays are built in shared memory once;
+// then the block's N*N threads, as N groups of N lanes, sweep the 35
+// modes a group at a time, each mode's WHT as XOR butterflies in
+// registers and warp shuffles (mode_sweep.cuh): ceil(35 / N) passes
+// with no barrier inside, one shared-memory step for the winner at
+// N >= 8.  The winner's prediction is recomputed per pixel for the tail.
 //
-// What bounds it on the card: per block about 35 SATDs, each roughly 2N
-// adds per pixel plus 2-3 barriers, against 12 bytes per pixel of
-// memory traffic (read the plane, write recon and levels).  It should
-// be bound by integer ALU and barriers, not by HBM.  Left for later:
-// the WHT-linearity shortcuts the TPU kernel uses for DC / 10 / 26
-// (mode_search_slab.py:23-27), a WHT as butterflies in warp shuffles,
-// and a Hadamard on the tensor cores.
+// What bounds it on the card: operations.  Per block the search is 35
+// SATDs of about 2 log2 N butterfly adds a pixel, the predictions and
+// the |.| sums, against 12 bytes a pixel of memory traffic (read the
+// plane, write recon and levels).  32,400 blocks of a 1080p plane at
+// N = 8 keep every SM full, so it is throughput-bound: the groups idle
+// in the last pass (1 of 36 slots at N = 4, 5 of 40 at 8, 13 of 48 at
+// 16, 29 of 64 at 32; whole idle warps leave the loop) and the
+// reference reads are what is left above the operation count.
 
 #include "mode_sweep.cuh"   // also defines c_tables, the constant table
 
@@ -53,17 +54,14 @@ mode_search_kernel(const int* __restrict__ plane, int height, int width,
                    int* __restrict__ modes) {
   constexpr int NN = N * N;
   constexpr int R = 2 * N + 1;          // one reference arm, corner at 0
-  constexpr int L = 3 * N + 1;          // a mode's projection array
-  constexpr int WARPS = NN > 32 ? NN / 32 : 1;   // warps per N x N block
 
   __shared__ int s_t[NN];               // T[i][k] at i*N + k
   __shared__ int s_tt[NN];              // T[j][k] at k*N + j
   __shared__ int s_x[BPB][NN];          // the tail's scratch
-  __shared__ int s_a[BPB][NN];          // residual, then tail scratch
-  __shared__ int s_b[BPB][NN];          // column WHT, then tail scratch
+  __shared__ int s_a[BPB][NN];
+  __shared__ int s_b[BPB][NN];
   __shared__ int s_ref[BPB][2 * R];     // top arm | left arm
-  __shared__ int s_mref[BPB][kNumAngular][L];
-  __shared__ int s_part[BPB][WARPS];
+  __shared__ SweepScratch<N, NN> s_sweep[BPB];
 
   const int tid = threadIdx.x;
   const int lb = tid / NN;              // block slot in this thread block
@@ -79,6 +77,7 @@ mode_search_kernel(const int* __restrict__ plane, int height, int width,
     s_tt[tid] = c_tables[t_offset + (tid % N) * N + tid / N];
   }
   const int x = active ? plane[(size_t)(y0 + i) * width + x0 + j] : 0;
+  s_sweep[lb].x[i * (N + 1) + j] = x;
 
   // --- references (extract_refs) -------------------------------------
   for (int k = p; k < 2 * R; k += NN) {
@@ -103,9 +102,10 @@ mode_search_kernel(const int* __restrict__ plane, int height, int width,
   __syncthreads();
 
   // --- the 35-mode search (mode_sweep.cuh) --------------------------
-  int best_mode, best_pred;
-  mode_sweep<N, N * N * BPB>(s_ref[lb], s_mref[lb], s_a[lb], s_b[lb],
-                             s_part[lb], x, i, j, best_mode, best_pred);
+  const int best_mode =
+      mode_sweep<N, NN, NN * BPB>(s_ref[lb], s_sweep[lb], p, q.max_pix);
+  const int best_pred =
+      predict_pixel<N>(s_ref[lb], s_sweep[lb].mref, best_mode, i, j);
 
   // --- transform, quantize, reconstruct (shared tail) ------------------
   int level, rec;
@@ -160,11 +160,11 @@ extern "C" int nhv_mode_search_encode(const int* plane, int height, int width,
   cudaStream_t s = (cudaStream_t)stream;
   switch (n) {
     case 4:
-      launch<4, 16>(plane, height, width, nbx, nb, transform_offset(4, use_dst),
+      launch<4, 8>(plane, height, width, nbx, nb, transform_offset(4, use_dst),
                     q, recon, levels, modes, s);
       break;
     case 8:
-      launch<8, 4>(plane, height, width, nbx, nb, transform_offset(8, false), q,
+      launch<8, 2>(plane, height, width, nbx, nb, transform_offset(8, false), q,
                    recon, levels, modes, s);
       break;
     case 16:

@@ -13,6 +13,30 @@
 // angle); this relies on nvcc's >> on signed int being arithmetic, as
 // it is on every NVIDIA target.
 //
+// Design.  The modes are spread over groups of N lanes, one group per
+// mode at a time: the BT threads that serve a block form BT / N groups,
+// and group g takes modes g, g + BT/N, ... in rising order, so a block
+// is a few passes (2-9, by N and BT) with no barrier inside.  A group
+// first builds its mode's projection array (3N+1 samples, about 3 a
+// lane) in shared memory, then synchronises its warp.  Lane r of
+// a group holds one line of the residual in N registers: row r for
+// planar, DC and the vertical modes 18..34, column r for the horizontal
+// modes 2..17.  A horizontal mode's prediction along a column is the
+// vertical formula with the axes swapped, so both families run one
+// code path (one fraction and one run of N+1 reference reads a lane),
+// and the SATD of the transposed residual is the same sum, since H is
+// symmetric.  The WHT is log2 N XOR-butterfly stages in registers along
+// the line, then log2 N stages across the group's lanes with
+// __shfl_xor_sync: Sylvester order gives H.D.H^T exactly (int32 adds
+// wrap alike in any order).  |.| is summed in the lane, then across the
+// group with shuffles.  The winner is the lexicographic minimum of
+// (cost, mode) over the groups: shuffles within a warp, then one
+// shared-memory step across the block's warps; it is the packed key
+// cost * 64 + mode where that fits int32 for every possible SATD
+// (mode_search_slab.py::_packed_min_ok: N^3 * max_pix * 64 + 34 <
+// 2^31), else the pair.  The caller recomputes the winner's prediction
+// per pixel for the tail (predict_pixel).
+//
 // Each .cu under csrc/ is its own shared library, so this header
 // defines the __constant__ table of each library that includes it:
 // the transform matrices (encode_tail.cuh), then intraPredAngle of
@@ -29,121 +53,209 @@ constexpr int kInvAngleOffset = kTransformInts + kNumAngular;
 constexpr int kTableInts = kTransformInts + 2 * kNumAngular;
 __constant__ int c_tables[kTableInts];
 
-// Search one N x N block, one thread per pixel (i, j), in a thread
-// block of THREADS threads.  `ref` is the block's 4N+2 references in
-// shared memory (extract_refs layout: top arm at 0..2N, corner at 0,
-// left arm at 2N+1..4N+1), `mref` its shared 33 x (3N+1) projection
-// arrays, s_a / s_b its N*N-int shared scratch and s_part one int per
-// warp of the block.  Every thread of the thread block must call it
-// (it holds barriers), after a barrier that follows the writes of
-// `ref`.  Returns the winning mode (the same for every pixel of the
-// block) and this pixel's prediction under it.
-template <int N, int THREADS>
-__device__ __forceinline__ void mode_sweep(const int* ref,
-                                           int (*mref)[3 * N + 1], int* s_a,
-                                           int* s_b, int* s_part, int x, int i,
-                                           int j, int& best_mode,
-                                           int& best_pred) {
-  constexpr int NN = N * N;
-  constexpr int LOG2N = Log2<N>::value;
-  constexpr int R = 2 * N + 1;          // one reference arm, corner at 0
-  constexpr int L = 3 * N + 1;          // a mode's projection array
-  constexpr int WARPS = NN > 32 ? NN / 32 : 1;   // warps per N x N block
-  constexpr int LANES = NN < 32 ? NN : 32;       // lanes per block per warp
-  constexpr unsigned kMask = THREADS >= 32 ? 0xffffffffu : (1u << THREADS) - 1u;
-  const int p = i * N + j;
+// Shared scratch of one block's search, served by BT threads.
+template <int N, int BT>
+struct SweepScratch {
+  int mref[kNumAngular][3 * N + 1];     // the 33 projection arrays
+  int x[N * (N + 1)];                   // the block's pixels, row stride N+1
+  int best[2][BT > 32 ? BT / 32 : 1];   // per warp: key or (cost, mode)
+};
 
-  // --- the 33 projection arrays (angular_tables.py src) ---------------
-  // ref[N + i] for i in -N..2N: the primary arm at i >= 0 (i = 0 is the
-  // corner); below 0, the extension from the other arm where the angle
-  // is negative and i >= (N * angle) >> 5, else the corner.
-  for (int e = p; e < kNumAngular * L; e += NN) {
-    const int m = e / L;
-    const int pos = e % L - N;
-    const int angle = c_tables[kAngleOffset + m];
-    const bool vertical = m + 2 >= 18;
-    const int prim = vertical ? 0 : R, sec = vertical ? R : 0;
-    int v;
-    if (pos >= 0) {
-      v = ref[prim + pos];
-    } else if (angle < 0 && pos >= ((N * angle) >> 5)) {
-      const int inv = c_tables[kInvAngleOffset + m];
-      v = ref[sec + (((pos + 1) * inv + 128) >> 8)];
-    } else {
-      v = ref[0];
-    }
-    mref[m][e % L] = v;
-  }
+// Whether cost * 64 + mode fits int32 for every SATD at this bit depth.
+template <int N>
+__device__ __forceinline__ bool packed_min_ok(int max_pix) {
+  return (long long)N * N * N * max_pix * 64 + 34 < (1LL << 31);
+}
 
-  // --- DC and planar, per pixel ---------------------------------------
+// Planar's prediction of pixel (i, j).
+template <int N>
+__device__ __forceinline__ int planar_pixel(const int* ref, int i, int j) {
   const int* top = ref;
-  const int* left = ref + R;
+  const int* left = ref + 2 * N + 1;
+  return ((N - 1 - j) * left[1 + i] + (j + 1) * top[N] +
+          (N - 1 - i) * top[1 + j] + (i + 1) * left[N] + N) >>
+         (Log2<N>::value + 1);
+}
+
+template <int N>
+__device__ __forceinline__ int dc_value(const int* ref) {
   int sum = 0;
 #pragma unroll
-  for (int k = 1; k <= N; ++k) sum += top[k] + left[k];
-  const int dc = floor_div(sum + N, 2 * N);
-  const int pl = ((N - 1 - j) * left[1 + i] + (j + 1) * top[N] +
-                  (N - 1 - i) * top[1 + j] + (i + 1) * left[N] + N) >>
-                 (LOG2N + 1);
-  __syncthreads();                      // projection arrays complete
+  for (int k = 1; k <= N; ++k) sum += ref[k] + ref[2 * N + 1 + k];
+  return floor_div(sum + N, 2 * N);
+}
 
-  // --- the sweep over modes 0..34 -------------------------------------
-  int best_cost = 0x7fffffff;
-  best_mode = 0;
-  best_pred = 0;
+// The prediction of pixel (i, j) under `mode`, from the block's
+// references and its projection arrays (as mode_sweep left them).
+template <int N>
+__device__ __forceinline__ int predict_pixel(const int* ref,
+                                             const int (*mref)[3 * N + 1],
+                                             int mode, int i, int j) {
+  if (mode == 0) return planar_pixel<N>(ref, i, j);
+  if (mode == 1) return dc_value<N>(ref);
+  const int m = mode - 2;
+  const int angle = c_tables[kAngleOffset + m];
+  const bool vertical = mode >= 18;
+  const int scan = vertical ? i : j, base = vertical ? j : i;
+  const int proj = (scan + 1) * angle;
+  const int frac = proj & 31;
+  const int idx = N + base + 1 + (proj >> 5);
+  const int a = mref[m][idx];
+  const int b = mref[m][min(idx + 1, 3 * N)];
+  return ((32 - frac) * a + frac * b + 16) >> 5;
+}
+
+// Search one N x N block with the BT threads t = 0 .. BT-1 that serve
+// it (BT a multiple of N, at least N*N, and of 32 when above it), in a
+// thread block of THREADS threads.  `ref` is the block's 4N+2
+// references in shared memory (extract_refs layout: top arm at 0..2N,
+// corner at 0, left arm at 2N+1..4N+1); s.x holds the block's pixels,
+// x[i * (N+1) + j].  Every thread of the thread block must call it (it
+// holds barriers), after a barrier that follows the writes of `ref` and
+// s.x.  Fills s.mref and returns the winning mode, the same for every
+// thread of the block.
+template <int N, int BT, int THREADS>
+__device__ __forceinline__ int mode_sweep(const int* ref,
+                                          SweepScratch<N, BT>& s, int t,
+                                          int max_pix) {
+  constexpr int R = 2 * N + 1;          // one reference arm, corner at 0
+  constexpr int L = 3 * N + 1;          // a mode's projection array
+  constexpr int G = BT / N;             // groups, one mode each a pass
+  constexpr int SPAN = BT < 32 ? BT : 32;   // a block's lanes in a warp
+  constexpr int S = N + 1;              // row stride of s.x
+  constexpr unsigned kMask = THREADS >= 32 ? 0xffffffffu : (1u << THREADS) - 1u;
+  static_assert(BT % N == 0 && BT >= N * N && G <= 34, "threads per block");
+
+  const int dc = dc_value<N>(ref);
+
+  // --- the passes: group g codes mode base + g, lane r one line -------
+  const int g = t / N, r = t % N;
+  const int warp_g0 = (t & ~31) / N;    // first group of this warp
+  int best_cost = 0x7fffffff, best_mode = 0;
 #pragma unroll 1
-  for (int mode = 0; mode < 35; ++mode) {
-    int pred;
-    if (mode == 0) {
-      pred = pl;
-    } else if (mode == 1) {
-      pred = dc;
-    } else {
-      const int m = mode - 2;
-      const int angle = c_tables[kAngleOffset + m];
-      const bool vertical = mode >= 18;
-      const int scan = vertical ? i : j, base = vertical ? j : i;
-      const int proj = (scan + 1) * angle;
+  for (int base = 0; base < 35; base += G) {
+    if (base + warp_g0 >= 35) break;    // uniform: the warp has no mode
+    const int mode = min(base + g, 34);
+    const int m = mode - 2;
+    // The group's projection array (angular_tables.py src): ref[N + i]
+    // for i in -N..2N, the primary arm at i >= 0 (i = 0 is the corner);
+    // below 0, the extension from the other arm where the angle is
+    // negative and i >= (N * angle) >> 5, else the corner.  Groups past
+    // mode 34 neither build nor keep anything.
+    const int angle = mode >= 2 ? c_tables[kAngleOffset + m] : 0;
+    const bool vertical = mode >= 18;
+    if (mode >= 2 && base + g < 35) {
+      const int prim = vertical ? 0 : R, sec = vertical ? R : 0;
+      const int inv = c_tables[kInvAngleOffset + m];
+      for (int e = r; e < L; e += N) {
+        const int pos = e - N;
+        int v;
+        if (pos >= 0)
+          v = ref[prim + pos];
+        else if (angle < 0 && pos >= ((N * angle) >> 5))
+          v = ref[sec + (((pos + 1) * inv + 128) >> 8)];
+        else
+          v = ref[0];
+        s.mref[m][e] = v;
+      }
+    }
+    __syncwarp(kMask);                  // the group's array is complete
+    int v[N];
+    if (mode < 2) {                     // planar or DC, lane r = row r
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        v[k] = s.x[r * S + k] - (mode == 0 ? planar_pixel<N>(ref, r, k) : dc);
+    } else {                            // lane r = row (vertical) or column
+      const int proj = (r + 1) * angle;
       const int frac = proj & 31;
-      const int idx = N + base + 1 + (proj >> 5);
-      const int a = mref[m][idx];
-      const int b = mref[m][min(idx + 1, 3 * N)];
-      pred = ((32 - frac) * a + frac * b + 16) >> 5;
-    }
-
-    // SATD: column pass H.D, then row pass (H.D).H^T; H[r][c] is
-    // (-1)^popcount(r & c) in Sylvester order.
-    s_a[p] = x - pred;
-    __syncthreads();
-    int acc = 0;
+      const int idx = N + 1 + (proj >> 5);
+      const int* a = s.mref[m];
+      const int* xs = s.x + (vertical ? r * S : r);
+      const int step = vertical ? 1 : S;
+      int prev = a[idx];
 #pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const int v = s_a[k * N + j];
-      acc += (__popc(i & k) & 1) ? -v : v;
+      for (int k = 0; k < N; ++k) {
+        const int next = a[min(idx + k + 1, 3 * N)];
+        v[k] = xs[k * step] - (((32 - frac) * prev + frac * next + 16) >> 5);
+        prev = next;
+      }
     }
-    s_b[p] = acc;
-    __syncthreads();
-    acc = 0;
+    // WHT along the line, in registers
 #pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const int v = s_b[i * N + k];
-      acc += (__popc(j & k) & 1) ? -v : v;
+    for (int h = 1; h < N; h <<= 1) {
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        if (k & h) continue;
+        const int lo = v[k], hi = v[k + h];
+        v[k] = lo + hi;
+        v[k + h] = lo - hi;
+      }
     }
-    int cost = acc < 0 ? -acc : acc;
+    // WHT across the group's lanes; the upper lane keeps lo - hi
 #pragma unroll
-    for (int off = LANES / 2; off > 0; off >>= 1)
-      cost += __shfl_xor_sync(kMask, cost, off);
-    if constexpr (WARPS > 1) {
-      if ((p & 31) == 0) s_part[p >> 5] = cost;
-      __syncthreads();
-      cost = 0;
+    for (int h = 1; h < N; h <<= 1) {
+      const int sign = r & h ? -1 : 1;
 #pragma unroll
-      for (int w = 0; w < WARPS; ++w) cost += s_part[w];
+      for (int k = 0; k < N; ++k)
+        v[k] = __shfl_xor_sync(kMask, v[k], h) + sign * v[k];
     }
-    if (cost < best_cost) {             // uniform across the block
+    int cost = 0;
+#pragma unroll
+    for (int k = 0; k < N; ++k) cost += v[k] < 0 ? -v[k] : v[k];
+#pragma unroll
+    for (int h = 1; h < N; h <<= 1) cost += __shfl_xor_sync(kMask, cost, h);
+    if (base + g < 35 && cost < best_cost) {   // modes rise in a group
       best_cost = cost;
       best_mode = mode;
-      best_pred = pred;
     }
   }
+
+  // --- the winner: lexicographic (cost, mode) minimum over groups ------
+  if (packed_min_ok<N>(max_pix)) {      // uniform over the launch
+    int key = best_cost * 64 + best_mode;
+#pragma unroll
+    for (int h = N; h < SPAN; h <<= 1)
+      key = min(key, __shfl_xor_sync(kMask, key, h));
+    if constexpr (BT > 32) {            // each warp takes the warps' min
+      if ((t & 31) == 0) s.best[0][t >> 5] = key;
+      __syncthreads();
+      key = (t & 31) < BT / 32 ? s.best[0][t & 31] : 0x7fffffff;
+#pragma unroll
+      for (int h = 16; h > 0; h >>= 1)
+        key = min(key, __shfl_xor_sync(kMask, key, h));
+    }
+    __syncwarp(kMask);                  // the winner's array, BT <= 32
+    return key & 63;
+  }
+  int cost = best_cost, mode = best_mode;
+#pragma unroll
+  for (int h = N; h < SPAN; h <<= 1) {
+    const int oc = __shfl_xor_sync(kMask, cost, h);
+    const int om = __shfl_xor_sync(kMask, mode, h);
+    if (oc < cost || (oc == cost && om < mode)) {
+      cost = oc;
+      mode = om;
+    }
+  }
+  if constexpr (BT > 32) {
+    if ((t & 31) == 0) {
+      s.best[0][t >> 5] = cost;
+      s.best[1][t >> 5] = mode;
+    }
+    __syncthreads();
+    const bool real = (t & 31) < BT / 32;
+    cost = real ? s.best[0][t & 31] : 0x7fffffff;
+    mode = real ? s.best[1][t & 31] : 0;
+#pragma unroll
+    for (int h = 16; h > 0; h >>= 1) {
+      const int oc = __shfl_xor_sync(kMask, cost, h);
+      const int om = __shfl_xor_sync(kMask, mode, h);
+      if (oc < cost || (oc == cost && om < mode)) {
+        cost = oc;
+        mode = om;
+      }
+    }
+  }
+  __syncwarp(kMask);
+  return mode;
 }

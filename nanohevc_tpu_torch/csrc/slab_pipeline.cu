@@ -15,8 +15,8 @@
 // turned every block-local step into lane rolls and butterflies.  Here
 // one thread block takes BPB whole N x N blocks (BPB = 256 / N^2 for
 // N <= 8, else 1), one thread per pixel.  A block, its top row and its
-// left column sit in shared memory; the energies are shared-memory tree
-// reductions; each transform pass is an N-term dot product per pixel
+// left column sit in shared memory; the energies are warp-shuffle sums
+// (dc_planar.cuh); each transform pass is an N-term dot product per pixel
 // against T (and T^T) copied from __constant__ memory into shared
 // memory.  Outputs go straight to their final layouts: recon (H, W),
 // levels (nb, N, N) raster blocks, one mode per block (1 DC, 0 planar).
@@ -82,8 +82,8 @@ slab_encode_kernel(const int* __restrict__ plane, int width, int nbx, int nb,
 
   // --- DC/planar by energy, ties to DC (dc_planar.cuh) -------------
   bool use_dc;
-  const int pred = dc_planar_energy<N>(s_ref[lb], x, i, j, s_a[lb], s_b[lb],
-                                       use_dc);
+  const int pred = dc_planar_energy<N, N * N * BPB>(
+      s_ref[lb], x, i, j, s_a[lb], s_b[lb], use_dc);
 
   // --- transform, quantize, reconstruct (shared tail) ----------------
   int level, rec;

@@ -44,9 +44,9 @@ SIGNATURES = {
     "slab_pipeline": {"nhv_slab_encode": _ENCODE_ARGS},
     "mode_search": {"nhv_mode_search_encode": _ENCODE_ARGS},
     # planes, batch, height, width, n, body, use_dst, 7 QpScalars,
-    # recon, levels, modes, stream, device
+    # recon, levels, modes, work, grids, stream, device
     "wavefront": {"nhv_wavefront_encode":
-                  [_P] + [_I] * 6 + [_I] * 7 + [_P, _P, _P, _P, _I]},
+                  [_P] + [_I] * 6 + [_I] * 7 + [_P] * 6 + [_I]},
     # blocks, refs, nb, n, 7 QpScalars, recon, levels, stream, device
     "fused_pipeline": {"nhv_fused_encode":
                        [_P, _P, _I, _I] + [_I] * 7 + [_P, _P, _P, _I]},

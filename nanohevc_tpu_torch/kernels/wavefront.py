@@ -16,11 +16,15 @@ One kernel, `csrc/wavefront.cu`, serves all three, templated on the
 body and on N; its header says how it is laid out and what bounds it.
 
 Blocks on one anti-diagonal (by + bx == d) depend only on earlier
-diagonals, so the encode walks the nby + nbx - 1 diagonals in order
-and codes each diagonal's blocks of every plane of the batch at once.
-A block's references come from the reconstruction with the clamps of
-`ops.extract_refs_at`, which on a zero-filled reconstruction written
-one diagonal at a time is the closed loop's availability rule.
+diagonals, so the plain version walks the nby + nbx - 1 diagonals in
+order and codes each diagonal's blocks of every plane of the batch at
+once.  A block's references come from the reconstruction with the
+clamps of `ops.extract_refs_at`, which on a zero-filled reconstruction
+written one diagonal at a time is the closed loop's availability rule.
+The kernel codes the same blocks in one launch, block row by block
+row, each row one block behind the row above (per-row ready flags);
+it writes the rule's extensions instead of reading them, so the
+order gives the same result.
 
 `wavefront_encode_planes` dispatches on the device of its input: a
 CPU tensor goes to `wavefront_encode_planes_reference`, a CUDA tensor
@@ -29,6 +33,7 @@ to the kernel (or an exception).  There is no fallback.
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 
 import numpy as np
@@ -146,10 +151,11 @@ def wavefront_encode_planes(planes: torch.Tensor, qp: int, n: int, *,
     configurations `wavefront_supported` admits.
 
     qp is a static Python int.  On a CUDA tensor this runs the
-    hand-written kernel, one launch per anti-diagonal from one C call,
-    on the current stream (no synchronisation), and adds one to
-    `wavefront_encode_planes.launches`; on a CPU tensor it runs the
-    plain version.
+    hand-written kernel, one persistent grid launch per call, on the
+    current stream (no synchronisation), adds one to
+    `wavefront_encode_planes.launches` and the grids the C call
+    launched to `wavefront_encode_planes.grids`; on a CPU tensor it
+    runs the plain version.
     """
     _validate(planes, n, mode_set, decision, use_dst, bit_depth)
     kw = dict(mode_set=mode_set, decision=decision, bit_depth=bit_depth,
@@ -159,7 +165,7 @@ def wavefront_encode_planes(planes: torch.Tensor, qp: int, n: int, *,
     b, hp, wp = planes.shape
     nb = (hp // n) * (wp // n)
     dev = planes.device
-    recon = torch.zeros_like(planes)
+    recon = torch.empty_like(planes)       # the kernel writes every pixel
     levels = torch.empty((b, nb, n, n), dtype=torch.int32, device=dev)
     modes = torch.empty((b, nb), dtype=torch.int32, device=dev)
     out = {"recon": recon, "levels": levels, "modes": modes}
@@ -169,16 +175,22 @@ def wavefront_encode_planes(planes: torch.Tensor, qp: int, n: int, *,
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     kern.ensure_tables(index)
     q = qp_scalars(qp, n, bit_depth, dequant_rescale)
+    # the ticket counter, then one progress flag per block row
+    work = torch.zeros(1 + b * (hp // n), dtype=torch.int32, device=dev)
+    grids = ctypes.c_int(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = kern.lib.nhv_wavefront_encode(
         planes.data_ptr(), b, hp, wp, n, BODIES[(mode_set, decision)],
         int(use_dst), *q, recon.data_ptr(), levels.data_ptr(),
-        modes.data_ptr(), stream, index,
+        modes.data_ptr(), work.data_ptr(), ctypes.addressof(grids), stream,
+        index,
     )
     if rc != 0:
         raise RuntimeError(f"nhv_wavefront_encode failed: CUDA error {rc}")
     wavefront_encode_planes.launches += 1
+    wavefront_encode_planes.grids += grids.value
     return out
 
 
 wavefront_encode_planes.launches = 0
+wavefront_encode_planes.grids = 0

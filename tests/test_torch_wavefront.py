@@ -425,3 +425,89 @@ def test_cuda_kernel_matches_plain(body):
     want = kwf.wavefront_encode_planes_reference(planes, 25, 8, **kw)
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+def textured_planes(b, h, w, seed):
+    """Seeded 8-bit planes of ramps at several angles plus noise, so that
+    the angular modes that read the extensions win some blocks."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    out = []
+    for _ in range(b):
+        a, c = rng.integers(-6, 7, 2)
+        wave = 40 * np.sin(xx / rng.uniform(3, 9) + yy / rng.uniform(3, 9))
+        noise = rng.integers(-6, 7, (h, w))
+        out.append(np.clip(128 + a * yy + c * xx + wave + noise, 0, 255))
+    return np.stack(out).astype(np.int32)
+
+
+def raster_encode(planes, qp, n, mode_set, decision, use_dst, rule=True):
+    """The closed loop coded block by block in raster order, the order
+    in which the kernel's rows advance.  With `rule`, the extensions
+    T[N+1..2N] and L[N+1..2N] are overwritten as the availability rule
+    says (0, or T[N] / L[N] replicated at the last block-column / row)
+    instead of read from the reconstruction."""
+    from nanohevc_tpu_torch.models.all_intra import decide_modes
+
+    b, hp, wp = planes.shape
+    nby, nbx = hp // n, wp // n
+    recon = torch.zeros_like(planes)
+    levels = torch.empty((b, nby * nbx, n, n), dtype=torch.int32)
+    modes = torch.empty((b, nby * nbx), dtype=torch.int32)
+    for by in range(nby):
+        for bx in range(nbx):
+            refs = ops.extract_refs_at(recon, torch.tensor([by]),
+                                       torch.tensor([bx]), n, 128)[:, 0]
+            if rule and by > 0:
+                refs[:, n + 1:2 * n + 1] = (refs[:, n:n + 1]
+                                            if bx == nbx - 1 else 0)
+            if rule and bx > 0:
+                left_n = refs[:, 3 * n + 1:3 * n + 2]
+                refs[:, 3 * n + 2:] = left_n if by == nby - 1 else 0
+            blk = planes[:, by * n:(by + 1) * n, bx * n:(bx + 1) * n]
+            pred, mode = decide_modes(blk, refs, n, mode_set, decision)
+            lev = ops.quantize(ops.forward_transform(blk - pred, use_dst), qp, n)
+            res = ops.inverse_transform(ops.dequantize(lev, qp, n), use_dst)
+            recon[:, by * n:(by + 1) * n, bx * n:(bx + 1) * n] = (
+                (pred + res).clamp(0, 255))
+            levels[:, by * nbx + bx] = lev
+            modes[:, by * nbx + bx] = mode.reshape(b)
+    return {"recon": recon, "levels": levels, "modes": modes}
+
+
+RASTER_SIZES = [(4, True), (4, False), (8, False), (16, False), (32, False)]
+
+
+@pytest.mark.parametrize("blocks", [(3, 5), (1, 6), (6, 1)],
+                         ids=["3x5", "one-row", "one-column"])
+@pytest.mark.parametrize("n,use_dst", RASTER_SIZES,
+                         ids=[f"n={n}{'-dst' if d else ''}"
+                              for n, d in RASTER_SIZES])
+@pytest.mark.parametrize("body", list(kwf.BODIES))
+def test_raster_order_with_the_rule_matches_reference(body, n, use_dst,
+                                                      blocks):
+    """What the kernel's row schedule relies on: coding the blocks in
+    raster order, with the extensions written by the availability rule
+    and never read, gives the diagonal walk's result exactly."""
+    planes = torch.from_numpy(
+        textured_planes(2, blocks[0] * n, blocks[1] * n, 3 * n + blocks[0]))
+    mode_set, decision = body
+    got = raster_encode(planes, 27, n, mode_set, decision, use_dst)
+    want = kwf.wavefront_encode_planes_reference(
+        planes, 27, n, mode_set=mode_set, decision=decision, use_dst=use_dst)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("n", [4, 8, 16])
+def test_raster_order_reading_the_extensions_differs(n):
+    """The raster-order check has teeth: the search body reads the
+    extensions, so reading the top-right block's reconstruction (already
+    coded in raster order) instead of writing the rule changes the
+    result on a textured plane."""
+    planes = torch.from_numpy(textured_planes(2, 6 * n, 8 * n, n))
+    got = raster_encode(planes, 27, n, "all", "satd", False, rule=False)
+    want = kwf.wavefront_encode_planes_reference(planes, 27, n,
+                                                 mode_set="all",
+                                                 decision="satd")
+    assert not torch.equal(got["modes"], want["modes"])
