@@ -28,7 +28,14 @@ over a 16-frame file at batch 8.  It checks them end to end:
    three more times, each equal to the first); the fused blocks kernel
    (3e) over N 4-32, 8/10-bit and
    the four QPs on two 1080p planes and a 45x200 plane, and against the
-   slab kernel (DCT, parity) on the 1080p plane's full block rows;
+   slab kernel (DCT, parity) on the 1080p plane's full block rows.  The
+   row kernels (3: slab, 3e: fused) also meet the edges of their
+   design: an adversarial 1080p plane (a 0 / max_pix checkerboard, and
+   flat max_pix next to flat 0 across block edges) at 8, 10 and 12 bits,
+   QP 0 and 51, every N (DST at 4 and both dequant modes for the slab
+   kernel; 3e also against the slab kernel at 8 bits), and an input
+   view 4 bytes past a 16-byte boundary, which must give the aligned
+   input's outputs through a counted copy (`.copies`);
 4. encodes the frame on the card under each config through the open
    loop (4: default, 4b: mode search) and the closed loop (4c, 4d):
    the path's kernel must launch once per plane (3 times) and every
@@ -55,7 +62,9 @@ over a 16-frame file at batch 8.  It checks them end to end:
 6. times kernels and plain versions per 1080p luma plane (6, 6b, 6c:
    with the grids each call launched, and one launch on 8 luma planes
    and on the 16-plane chroma stack; 6e: also a batch of 8 for the
-   fused kernel), the frame under each
+   fused kernel; K1, K2 and K5 on the card through a CUDA graph of their
+   calls, since their wrappers cost the host more than the kernels
+   take, and in a launch loop beside it), the frame under each
    config, the closed-loop frame and its decode (6c), and the sequence
    under all four configs (6f: throughput, stages, whether drain
    overlaps the next batch, device busy share, entropy_tiles=4,
@@ -209,18 +218,57 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def captured(fn, iters: int):
+    """A CUDA graph of `iters` fn() calls, captured after a warm-up on a
+    side stream (the first call builds and uploads the kernel's
+    tables)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return graph
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time of one fn() call with the host's launch cost taken
+    out: `iters` calls in one CUDA graph, each of `replays` replays timed
+    between CUDA events; the median replay over `iters`.  A wrapper that
+    costs the host more than its kernel takes on the card reads as host
+    time under cuda_ms."""
+    graph = captured(fn, iters)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return sorted(times)[replays // 2]
+
+
 def cold_l2_ms(fn, dev, iters: int = 10) -> float:
-    """Mean device time of fn() with the 50 MB L2 overwritten before each
-    launch (a 256 MB memset), so its inputs come from HBM."""
+    """Mean device time of one fn() call, captured in a CUDA graph, with
+    the 50 MB L2 overwritten before each replay (a 256 MB memset), so
+    its inputs come from HBM."""
     scratch = torch.empty(64 << 20, dtype=torch.int32, device=dev)
-    fn()
+    graph = captured(fn, 1)
     total = 0.0
     for _ in range(iters):
         scratch.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        graph.replay()
         end.record()
         end.synchronize()
         total += start.elapsed_time(end)
@@ -284,6 +332,70 @@ def phase_kernel_vs_plain(dev, name: str, tag: str,
     log(f"[{tag}] {name} == plain on CUDA in {cases} cases "
         f"{'(4 of them 12-bit at N=32) ' if wide_bits else ''}"
         f"(max abs err {worst})")
+    return worst
+
+
+def edge_plane(h: int, w: int, bit_depth: int, n: int) -> np.ndarray:
+    """The adversarial plane: a 0 / max_pix checkerboard in the top
+    half, and flat max_pix next to flat 0 in alternate N x N blocks in
+    the bottom half, so that every block edge there is a full step."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    checker = (yy + xx) % 2 == 0
+    blocks = (yy // n + xx // n) % 2 == 0
+    hot = np.where(yy < h // 2, checker, blocks)
+    return np.where(hot, (1 << bit_depth) - 1, 0).astype(np.int32)
+
+
+def misaligned(t):
+    """A contiguous view of t's values whose data pointer is 4 bytes
+    past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    if view.data_ptr() % 16 != 4:
+        raise SystemExit("could not make a view 4 bytes past a 16-byte "
+                         "boundary")
+    return view
+
+
+def phase_slab_edges(dev) -> int:
+    """3: K1 == its plain version on the adversarial 1080p plane at 8,
+    10 and 12 bits, QP 0 and 51, every N (DST at 4), both dequant
+    modes; then a plane view 4 bytes past a 16-byte boundary == the
+    aligned plane, through one counted copy a call."""
+    worst, cases = 0, 0
+    sizes = ((4, False), (4, True), (8, False), (16, False), (32, False))
+    for bd in (8, 10, 12):
+        for n, use_dst in sizes:
+            plane = torch.from_numpy(edge_plane(H, W, bd, n)).to(dev)
+            for qp in (0, 51):
+                for rescale in (False, True):
+                    kw = dict(bit_depth=bd, use_dst=use_dst,
+                              dequant_rescale=rescale)
+                    got = slab_encode_plane(plane, qp, n, **kw)
+                    want = slab_encode_plane_reference(plane, qp, n, **kw)
+                    torch.cuda.synchronize()
+                    err = max_abs_err(got, want)
+                    if err:
+                        raise SystemExit(
+                            f"slab_encode_plane != plain on the adversarial "
+                            f"plane at N={n} dst={use_dst} bd={bd} qp={qp} "
+                            f"rescale={rescale}: max abs err {err}")
+                    cases += 1
+    plane = torch.from_numpy(textured(H, W, 8, np.random.default_rng(SEED + 4))).to(dev)
+    copies = slab_encode_plane.copies
+    for n, use_dst in sizes:
+        got = slab_encode_plane(misaligned(plane), 22, n, use_dst=use_dst)
+        want = slab_encode_plane(plane, 22, n, use_dst=use_dst)
+        torch.cuda.synchronize()
+        worst = max(worst, max_abs_err(got, want))
+    if worst or slab_encode_plane.copies != copies + len(sizes):
+        raise SystemExit(f"slab_encode_plane on a misaligned view: max abs "
+                         f"err {worst}, copies {slab_encode_plane.copies - copies} "
+                         f"(expected {len(sizes)})")
+    log(f"[3] slab_encode_plane == plain on CUDA in {cases} adversarial cases "
+        f"(8/10/12-bit, QP 0/51); a misaligned plane view == the aligned "
+        f"plane in {len(sizes)} cases, one counted copy each")
     return worst
 
 
@@ -493,18 +605,53 @@ def kernel_times(dev, name: str, tag: str, gpu: str) -> dict:
     times = {}
     for n in (4, 8, 16, 32):
         use_dst = n == 4
-        k_ms = cuda_ms(lambda: kernel(y, 22, n, use_dst=use_dst))
+        loop_ms = cuda_ms(lambda: kernel(y, 22, n, use_dst=use_dst))
+        k_ms = graph_ms(lambda: kernel(y, 22, n, use_dst=use_dst))
         p_ms = cuda_ms(lambda: plain(y, 22, n, use_dst=use_dst), iters=5)
         times[n] = (k_ms, p_ms)
         log(f"[{tag}] {name} 1080p luma N={n}{' DST' if use_dst else ''}: "
-            f"kernel {k_ms:.4f} ms ({mpix / k_ms * 1e3:.1f} Mpix/s), plain "
-            f"{p_ms:.4f} ms ({mpix / p_ms * 1e3:.1f} Mpix/s) [{gpu}]")
+            f"kernel {k_ms:.4f} ms on the card ({mpix / k_ms * 1e3:.1f} "
+            f"Mpix/s; CUDA graph), {loop_ms:.4f} ms a call in a launch "
+            f"loop; plain {p_ms:.4f} ms ({mpix / p_ms * 1e3:.1f} Mpix/s) "
+            f"[{gpu}]")
     if name == "slab_encode_plane":
         cold = cold_l2_ms(lambda: kernel(y, 22, 8), dev)
         log(f"[{tag}] {name} 1080p luma N=8 with L2 flushed before each "
             f"launch: {cold:.4f} ms ({mpix / cold * 1e3:.1f} Mpix/s, "
             f"{12 * H * W / cold / 1e6:.1f} GB/s at 12 B/pixel) [{gpu}]")
+        log(f"[{tag}] {name} least operations with the butterflies: "
+            f"{butterfly_bounds()}")
     return times
+
+
+def butterfly_ops(n: int) -> float:
+    """Integer operations a pixel of one 1-D transform pass as the row
+    kernels do it (csrc/row_tail.cuh), rounding not counted: at each
+    level M = n, n/2, ..., 2 the M sums and differences of mirrored
+    terms, (M/2)^2 multiplies and (M/2)(M/2 - 1) adds for the odd rows,
+    and one multiply at the last level; a 4x4 product (7 a pixel) for the
+    DST.  kernel_bound and fused_bound count 2n, the N-term dot product,
+    and stay the yardstick of earlier runs."""
+    ops, m = 1, n
+    while m > 1:
+        h = m // 2
+        ops += m + h * h + h * (h - 1)
+        m = h
+    return ops / n
+
+
+def butterfly_bounds() -> str:
+    """The slab kernel's least operations a pixel per N (four butterfly
+    passes, the tail's other 18, DC/planar's 16) with the time they take
+    at 67 T/s, beside the bytes' time of kernel_bound."""
+    parts = []
+    for n in (4, 8, 16, 32):
+        per_pixel = 4 * butterfly_ops(n) + 18 + 16
+        t_ops = per_pixel * H * W / 67e12 * 1e3
+        t_bytes = (12 * H * W + 4 * H * W // (n * n)) / 3.35e12 * 1e3
+        parts.append(f"N={n} {per_pixel:g} a pixel, {t_ops * 1e3:.2f} us "
+                     f"against the bytes' {t_bytes * 1e3:.2f} us")
+    return "; ".join(parts) + " (the DST at 4: 7 a pixel a pass)"
 
 
 def frame_times(dev, frame: Frame, config: EncoderConfig, label: str,
@@ -932,7 +1079,9 @@ def phase_fused_vs_plain(dev) -> int:
     8/10-bit and QP 0/22/37/51, on a batch of two 1080p luma planes and
     a 45x200 plane (ragged rows and columns, part-empty thread blocks);
     then K5 == K1 (DCT, parity, 8-bit) on the 1080p plane's full block
-    rows."""
+    rows; then the adversarial plane at 8/10/12 bits and QP 0/51 (== K1
+    too at 8 bits), and blocks 4 bytes past a 16-byte boundary == the
+    aligned blocks through one counted copy a call."""
     rng = np.random.default_rng(SEED)
     worst, cases, cross = 0, 0, 0
     for batch, h, w in ((2, H, W), (1, 45, 200)):
@@ -953,19 +1102,57 @@ def phase_fused_vs_plain(dev) -> int:
                     worst = max(worst, err)
                     cases += 1
                     if h == H and bd == 8:
-                        k1 = slab_encode_plane(planes[0], qp, n)
-                        rows = (H // n) * n
-                        if not (torch.equal(got["recon"][0, :rows],
-                                            k1["recon"][:rows])
-                                and torch.equal(got["levels"][0],
-                                                k1["levels"].reshape(-1, n * n))):
-                            raise SystemExit(f"fused_encode_blocks != "
-                                             f"slab_encode_plane at N={n} qp={qp}")
-                        cross += 1
-    log(f"[3e] fused_encode_blocks == plain on CUDA in {cases} cases (max abs "
-        f"err {worst}); == slab_encode_plane (DCT, parity, 8-bit) on the "
-        f"full block rows of a 1080p plane in {cross} cases")
+                        cross += same_as_slab(planes[0], got, qp, n)
+    edge_cases = 0
+    for bd in (8, 10, 12):
+        for n in (4, 8, 16, 32):
+            planes = torch.from_numpy(edge_plane(H, W, bd, n)[None]).to(dev)
+            for qp in (0, 51):
+                got = fused_encode_planes(planes, qp, n, bit_depth=bd)
+                want = fused_encode_planes_reference(planes, qp, n,
+                                                     bit_depth=bd)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, want)
+                if err:
+                    raise SystemExit(
+                        f"fused_encode_blocks != plain on the adversarial "
+                        f"plane at N={n} bd={bd} qp={qp}: max abs err {err}")
+                edge_cases += 1
+                if bd == 8:
+                    cross += same_as_slab(planes[0], got, qp, n)
+    copies = fused_encode_blocks.copies
+    y = torch.from_numpy(textured(H, W, 8, np.random.default_rng(SEED + 4))).to(dev)
+    for n in (4, 8, 16, 32):
+        blocks = ops.tile_plane(y, n).contiguous()
+        refs = ops.extract_refs(y, n)
+        got = fused_encode_blocks(misaligned(blocks), refs, 22)
+        want = fused_encode_blocks(blocks, refs, 22)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise SystemExit(f"fused_encode_blocks on misaligned blocks != "
+                             f"aligned at N={n}")
+    if fused_encode_blocks.copies != copies + 4:
+        raise SystemExit(f"fused_encode_blocks counted "
+                         f"{fused_encode_blocks.copies - copies} copies of "
+                         f"misaligned blocks, expected 4")
+    log(f"[3e] fused_encode_blocks == plain on CUDA in {cases} cases and "
+        f"{edge_cases} adversarial ones (8/10/12-bit, QP 0/51; max abs err "
+        f"{worst}); == slab_encode_plane (DCT, parity, 8-bit) on the full "
+        f"block rows of a 1080p plane in {cross} cases; misaligned blocks "
+        f"== aligned in 4 cases, one counted copy each")
     return worst
+
+
+def same_as_slab(plane, got: dict, qp: int, n: int) -> int:
+    """1 when K5's outputs on one plane equal K1's (DCT, parity, 8-bit)
+    over the plane's full block rows; raises otherwise."""
+    k1 = slab_encode_plane(plane, qp, n)
+    rows = (plane.shape[0] // n) * n
+    if not (torch.equal(got["recon"][0, :rows], k1["recon"][:rows])
+            and torch.equal(got["levels"][0], k1["levels"].reshape(-1, n * n))):
+        raise SystemExit(f"fused_encode_blocks != slab_encode_plane at N={n} "
+                         f"qp={qp}")
+    return 1
 
 
 def phase_fused_main(dev):
@@ -1018,21 +1205,23 @@ def fused_times(dev, planes8, gpu: str) -> dict:
     for n in (4, 8, 16, 32):
         blocks = ops.tile_plane(y, n).contiguous()
         refs = ops.extract_refs(y, n)
-        k_ms = cuda_ms(lambda: fused_encode_blocks(blocks, refs, 22))
+        loop_ms = cuda_ms(lambda: fused_encode_blocks(blocks, refs, 22))
+        k_ms = graph_ms(lambda: fused_encode_blocks(blocks, refs, 22))
         p_ms = cuda_ms(lambda: fused_encode_blocks_reference(blocks, refs, 22),
                        iters=5)
         bound_ms, by = fused_bound(n, H * W)
         times[n] = (k_ms, p_ms)
         log(f"[6e] fused_encode_blocks 1080p luma N={n}: kernel {k_ms:.4f} ms "
-            f"({mpix / k_ms * 1e3:.1f} Mpix/s), plain {p_ms:.4f} ms, bound "
-            f"{bound_ms * 1e3:.2f} us ({by}) [{gpu}]")
+            f"on the card ({mpix / k_ms * 1e3:.1f} Mpix/s; CUDA graph), "
+            f"{loop_ms:.4f} ms a call in a launch loop; plain {p_ms:.4f} ms, "
+            f"bound {bound_ms * 1e3:.2f} us ({by}) [{gpu}]")
         if n == 8:
             cold = cold_l2_ms(lambda: fused_encode_blocks(blocks, refs, 22), dev)
             log(f"[6e] fused_encode_blocks 1080p luma N=8 with L2 flushed "
                 f"before each launch: {cold:.4f} ms [{gpu}]")
     blocks8 = torch.stack([ops.tile_plane(p, 8) for p in planes8]).reshape(-1, 8, 8)
     refs8 = torch.stack([ops.extract_refs(p, 8) for p in planes8]).reshape(-1, 34)
-    k_ms = cuda_ms(lambda: fused_encode_blocks(blocks8, refs8, 22))
+    k_ms = graph_ms(lambda: fused_encode_blocks(blocks8, refs8, 22))
     p_ms = cuda_ms(lambda: fused_encode_blocks_reference(blocks8, refs8, 22),
                    iters=3)
     call_ms = cuda_ms(lambda: fused_encode_planes(planes8, 22, 8), iters=10)
@@ -1434,7 +1623,9 @@ def main() -> int:
                 log(f"[2]   {line.strip()}")
 
     worst = {
-        "slab_encode_plane": phase_kernel_vs_plain(dev, "slab_encode_plane", "3"),
+        "slab_encode_plane": max(
+            phase_kernel_vs_plain(dev, "slab_encode_plane", "3"),
+            phase_slab_edges(dev)),
         "mode_search_encode_plane": phase_kernel_vs_plain(
             dev, "mode_search_encode_plane", "3b", wide_bits=True),
         "wavefront_encode_planes": phase_wavefront_vs_plain(dev),

@@ -11,106 +11,102 @@
 //   (acc + rnd) >> (log2N + 5); deadzone quantizer; the parity dequant
 //   only; inverse T^T.X then .T; clip to [0, max_pix].
 //
-// Design.  The TPU kernel held chunks of blocks with the block axis on
-// the 128 lanes.  Here the layout is the open-loop slab kernel's
-// (slab_pipeline.cu): one thread per pixel, BPB whole N x N blocks per
-// thread block (16/4/1/1 at N = 4/8/16/32), the block and its
-// references in shared memory, and its body -- the DC/planar decision of
-// dc_planar.cuh and the tail of encode_tail.cuh -- unchanged.  Only where
-// a block and its references come from differs: the block is row b of
-// the (nb, N, N) input, and the 4N+2 references of the BPB blocks are
-// one contiguous run of the (nb, 4N+2) input, which the thread block
-// copies into shared memory as it is (the layout dc_planar_energy
-// reads).  It lives in a file of its own so that the slab kernel's code,
-// registers and times stay as they were.
-//
 // What bounds it on the card: per pixel it reads 4 bytes of block and
 // (4N+2) * 4 / N^2 bytes of references and writes 8 bytes of recon and
-// levels (14.1 bytes at N = 8), against the slab kernel's 8N + 34
-// integer operations, so it is memory-bound: a 1080p luma plane at N = 8
-// is 32,400 blocks, 8,100 thread blocks of 256 threads.
+// levels (14.1 bytes at N = 8, 8.74 us for a 1080p luma plane at 3.35
+// TB/s), against the slab kernel's 8N + 34 integer operations counted as
+// dot products (chip_smoke.py::fused_bound; that count makes operations
+// the bound at N = 32), fewer with the butterflies, which leave bytes the
+// bound at every N.
+//
+// Design: K1's (slab_pipeline.cu), with its body from row_tail.cuh.  One
+// thread per block row, 32 / N blocks a warp, 4 warps a thread block;
+// the block is row b of the (nb, N, N) input, read as int4 (blocks,
+// recon and levels must be 16-byte aligned), and recon and levels go out
+// as int4 rows of (nb, N, N).  The references of a warp's blocks are one
+// contiguous run of the (nb, 4N+2) input, 8-byte aligned only: the warp
+// copies it into shared memory as it is, coalesced, and syncs itself.
+// Nothing crosses warps: no __syncthreads.  It lives in a file of its
+// own so that each kernel's code, registers and times are its own.
+//
+// What was measured (NVIDIA H100 80GB HBM3, 700.00 W; 1080p luma plane,
+// QP 22; device time through a CUDA graph, tools/torch_kernel_times.py,
+// PERF.md): 11.5-11.7 / 9.8-9.9 / 14.5-14.7 / 28.3-28.5 us at N = 4 / 8
+// / 16 / 32 and 87.0-87.8 us for a batch of 8 planes at N = 8, against
+// 22.0-22.5 / 31.6-32.3 / 54.4-54.7 / 94.6-95.1 and 232.2-232.7 us for
+// the earlier dot-product design in the same call; 89 % of the bytes
+// bound at N = 8.
 
-#include "dc_planar.cuh"
+#include "row_tail.cuh"
 
-// The transform matrices only (layout in encode_tail.cuh).
-constexpr int kTableInts = kTransformInts;
-__constant__ int c_tables[kTableInts];
-
-template <int N, int BPB>
-__global__ void __launch_bounds__(N * N * BPB)
+template <int N, int OFF>
+__global__ void __launch_bounds__(kRowThreads)
 fused_encode_kernel(const int* __restrict__ blocks,
-                    const int* __restrict__ refs, int nb, int t_offset,
-                    QpScalars q, int* __restrict__ recon,
-                    int* __restrict__ levels) {
-  constexpr int NN = N * N;
-  constexpr int RR = 4 * N + 2;     // one block's references
+                    const int* __restrict__ refs, int nb, QpScalars q,
+                    int* __restrict__ recon, int* __restrict__ levels) {
+  constexpr int BPW = 32 / N;              // blocks a warp
+  constexpr int RR = 4 * N + 2;            // one block's references
+  constexpr int TILE = row_tile_ints<N>();
+  __shared__ int s_tiles[kRowWarps][2][TILE];
+  __shared__ int s_refs[kRowWarps][BPW * RR];
 
-  __shared__ int s_t[NN];    // T[i][k] at i*N + k
-  __shared__ int s_tt[NN];   // T[j][k] at k*N + j (transposed copy)
-  __shared__ int s_x[BPB][NN];
-  __shared__ int s_a[BPB][NN];
-  __shared__ int s_b[BPB][NN];
-  __shared__ int s_ref[BPB][RR];
-
-  const int tid = threadIdx.x;
-  const int lb = tid / NN;          // block slot in this thread block
-  const int p = tid % NN;           // pixel in the block
-  const int i = p / N, j = p % N;
-  const int first = blockIdx.x * BPB;
-  const int g = first + lb;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = lane / N, i = lane % N;  // block slot in the warp, row
+  const int first = (blockIdx.x * kRowWarps + warp) * BPW;
+  const int g = first + grp;
   const bool active = g < nb;
 
-  if (tid < NN) {
-    s_t[tid] = c_tables[t_offset + tid];
-    s_tt[tid] = c_tables[t_offset + (tid % N) * N + tid / N];
+  // The warp's references: refs[first*RR .. (first+BPW)*RR), slots past
+  // nb read as 0.
+  int* ref = s_refs[warp];
+  for (int k = lane; k < BPW * RR; k += 32)
+    ref[k] = first + k / RR < nb ? refs[(size_t)first * RR + k] : 0;
+  int x[N];
+  if (active) {
+    load_row<N>(blocks + (size_t)g * N * N + i * N, x);
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) x[k] = 0;
   }
-  // The BPB blocks' references are refs[first*RR .. (first+BPB)*RR):
-  // copied whole, coalesced; slots past nb read as 0.
-  for (int k = tid; k < BPB * RR; k += N * N * BPB)
-    (&s_ref[0][0])[k] =
-        first + k / RR < nb ? refs[(size_t)first * RR + k] : 0;
-  const int x = active ? blocks[(size_t)g * NN + p] : 0;
-  __syncthreads();
+  __syncwarp();
+  ref += grp * RR;
+  int top[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) top[k] = ref[1 + k];
+  const int left = ref[2 * N + 2 + i];
 
-  // --- DC/planar by energy, ties to DC (dc_planar.cuh) -------------
-  bool use_dc;
-  const int pred = dc_planar_energy<N, N * N * BPB>(
-      s_ref[lb], x, i, j, s_a[lb], s_b[lb], use_dc);
+  int pred[N];
+  row_dc_planar<N>(x, top, left, i, pred);
+#pragma unroll
+  for (int j = 0; j < N; ++j) x[j] -= pred[j];
 
-  // --- transform, quantize, reconstruct (shared tail) ----------------
-  int level, rec;
-  transform_quant_recon<N>(s_t, s_tt, s_x[lb], s_a[lb], s_b[lb], i, j,
-                           x - pred, pred, q, level, rec);
+  int* tiles = &s_tiles[warp][0][grp * N * (N + 1)];
+  int level[N], rec[N];
+  row_transform_quant_recon<N, false, OFF>(x, pred, i, tiles, tiles + TILE,
+                                           q, level, rec);
 
   if (active) {
-    recon[(size_t)g * NN + p] = rec;
-    levels[(size_t)g * NN + p] = level;
+    store_row<N>(recon + (size_t)g * N * N + i * N, rec);
+    store_row<N>(levels + (size_t)g * N * N + i * N, level);
   }
 }
 
-template <int N, int BPB>
+template <int N>
 static void launch(const int* blocks, const int* refs, int nb, QpScalars q,
                    int* recon, int* levels, cudaStream_t stream) {
-  const int grid = (nb + BPB - 1) / BPB;
-  fused_encode_kernel<N, BPB><<<grid, N * N * BPB, 0, stream>>>(
-      blocks, refs, nb, transform_offset(N, false), q, recon, levels);
-}
-
-extern "C" int nhv_table_ints() { return kTableInts; }
-
-// Copy the transform tables (layout in encode_tail.cuh) into constant
-// memory of `device`.  Returns a cudaError_t.
-extern "C" int nhv_upload_tables(const int* host, int count, int device) {
-  if (count != kTableInts) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaMemcpyToSymbol(c_tables, host, count * sizeof(int));
+  constexpr int per_block = kRowWarps * (32 / N);
+  const int grid = (nb + per_block - 1) / per_block;
+  fused_encode_kernel<N, transform_offset(N, false)>
+      <<<grid, kRowThreads, 0, stream>>>(
+      blocks, refs, nb, q, recon, levels);
 }
 
 // Encode nb (N, N) int32 blocks against their (nb, 4N+2) references into
-// recon and levels, both (nb, N, N) raster.  The QP scalars are the
-// parity ones (dq_shift = 4 - qp/6); `boundary` is not read.  Launches
-// on `stream` without synchronising; returns cudaGetLastError().
+// recon and levels, both (nb, N, N) raster.  blocks, recon and levels
+// must be 16-byte aligned (cudaErrorMisalignedAddress if not).  The QP
+// scalars are the parity ones (dq_shift = 4 - qp/6); `boundary` is not
+// read.  Launches on `stream` without synchronising; returns
+// cudaGetLastError().
 extern "C" int nhv_fused_encode(const int* blocks, const int* refs, int nb,
                                 int n, int mf, int qshift, int qoffset,
                                 int dscale, int dq_shift, int max_pix,
@@ -120,20 +116,22 @@ extern "C" int nhv_fused_encode(const int* blocks, const int* refs, int nb,
   if (err != cudaSuccess) return (int)err;
   if (nb < 0) return (int)cudaErrorInvalidValue;
   if (nb == 0) return (int)cudaSuccess;
+  if (!aligned16(blocks) || !aligned16(recon) || !aligned16(levels))
+    return (int)cudaErrorMisalignedAddress;
   const QpScalars q{mf, qshift, qoffset, dscale, dq_shift, max_pix, boundary};
   cudaStream_t s = (cudaStream_t)stream;
   switch (n) {
     case 4:
-      launch<4, 16>(blocks, refs, nb, q, recon, levels, s);
+      launch<4>(blocks, refs, nb, q, recon, levels, s);
       break;
     case 8:
-      launch<8, 4>(blocks, refs, nb, q, recon, levels, s);
+      launch<8>(blocks, refs, nb, q, recon, levels, s);
       break;
     case 16:
-      launch<16, 1>(blocks, refs, nb, q, recon, levels, s);
+      launch<16>(blocks, refs, nb, q, recon, levels, s);
       break;
     case 32:
-      launch<32, 1>(blocks, refs, nb, q, recon, levels, s);
+      launch<32>(blocks, refs, nb, q, recon, levels, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -8,9 +8,14 @@ a hash of the flags and of every file under `csrc/` (the shared
 `*.cuh` headers included), and are loaded once per process.  Nothing
 but the sources in this package goes into them.
 
-Every library exports `nhv_table_ints` and `nhv_upload_tables` for its
-own `__constant__` table; `KernelLibrary` uploads that table once per
-device.
+The libraries of the search and wavefront kernels export
+`nhv_table_ints` and `nhv_upload_tables` for their own `__constant__`
+table, which `KernelLibrary` uploads once per device.  The row kernels
+(K1, K5) take the transform matrices as immediates instead: before
+compiling, `build_libraries` writes them from
+`slab_pipeline.transform_table()` into a generated header,
+`build/nanohevc_tpu_torch/include/transform_table.h`, whose text the
+hash covers as it covers the sources.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import numpy as np
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "nanohevc_tpu_torch"
+GENERATED_DIR = BUILD_DIR / "include"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -70,13 +76,42 @@ def _nvcc() -> str:
     )
 
 
+def generated_headers() -> dict[str, str]:
+    """{file name: text} of the headers generated for the build."""
+    from nanohevc_tpu_torch.kernels.slab_pipeline import transform_table
+
+    values = ", ".join(str(int(v)) for v in transform_table())
+    return {"transform_table.h": (
+        "// Generated by nanohevc_tpu_torch/kernels/build.py from\n"
+        "// kernels/slab_pipeline.py::transform_table(); do not edit.\n"
+        "#pragma once\n"
+        f"#define NHV_TRANSFORM_TABLE {{{values}}}\n"
+    )}
+
+
 def source_hash() -> str:
-    """Hash of the nvcc flags and of every file under csrc/."""
+    """Hash of the nvcc flags, every file under csrc/ and the generated
+    headers."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(p for p in _CSRC.rglob("*") if p.is_file()):
         h.update(str(src.relative_to(_CSRC)).encode())
         h.update(src.read_bytes())
+    for name, text in sorted(generated_headers().items()):
+        h.update(name.encode())
+        h.update(text.encode())
     return h.hexdigest()[:16]
+
+
+def _write_generated_headers() -> None:
+    GENERATED_DIR.mkdir(parents=True, exist_ok=True)
+    for name, text in generated_headers().items():
+        path = GENERATED_DIR / name
+        if path.exists() and path.read_text() == text:
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".h", dir=GENERATED_DIR)
+        with os.fdopen(fd, "w") as f:
+            f.write(text)
+        os.replace(tmp, path)
 
 
 def library_path(name: str) -> Path:
@@ -100,6 +135,7 @@ def build_libraries() -> dict[str, BuildInfo]:
     """
     infos: dict[str, BuildInfo] = {}
     running = []
+    _write_generated_headers()
     for src in _sources():
         lib = library_path(src.stem)
         if lib.exists():
@@ -108,7 +144,8 @@ def build_libraries() -> dict[str, BuildInfo]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(GENERATED_DIR), "-o", tmp,
+               str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
         running.append((src.stem, lib, tmp, cmd, proc, time.perf_counter()))
@@ -133,10 +170,11 @@ def load_library(name: str) -> tuple[ctypes.CDLL, BuildInfo]:
     """Build if needed, load library `name` once, declare its C signatures."""
     info = build_libraries()[name]
     lib = ctypes.CDLL(str(info.path))
-    lib.nhv_table_ints.argtypes = []
-    lib.nhv_table_ints.restype = _I
-    lib.nhv_upload_tables.argtypes = [_P, _I, _I]
-    lib.nhv_upload_tables.restype = _I
+    if hasattr(lib, "nhv_upload_tables"):      # a __constant__ table
+        lib.nhv_table_ints.argtypes = []
+        lib.nhv_table_ints.restype = _I
+        lib.nhv_upload_tables.argtypes = [_P, _I, _I]
+        lib.nhv_upload_tables.restype = _I
     for fn, args in SIGNATURES[name].items():
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = _I
@@ -144,19 +182,26 @@ def load_library(name: str) -> tuple[ctypes.CDLL, BuildInfo]:
 
 
 class KernelLibrary:
-    """A loaded library and the devices whose constant table is set."""
+    """A loaded library and the devices whose constant table is set.
 
-    def __init__(self, name: str, table: np.ndarray):
+    `table` is None for a library without a constant table (the row
+    kernels, whose tables are compiled in); `ensure_tables` then does
+    nothing.
+    """
+
+    def __init__(self, name: str, table: np.ndarray | None = None):
         self.name = name
         self.lib, self.build_info = load_library(name)
-        self.table = np.ascontiguousarray(table, dtype=np.int32)
-        if self.table.size != self.lib.nhv_table_ints():
-            raise RuntimeError(f"{name}: constant table layout differs "
-                               "from the kernel's")
+        self.table = None
+        if table is not None:
+            self.table = np.ascontiguousarray(table, dtype=np.int32)
+            if self.table.size != self.lib.nhv_table_ints():
+                raise RuntimeError(f"{name}: constant table layout differs "
+                                   "from the kernel's")
         self.uploaded: set[int] = set()
 
     def ensure_tables(self, device: int) -> None:
-        if device in self.uploaded:
+        if self.table is None or device in self.uploaded:
             return
         rc = self.lib.nhv_upload_tables(self.table.ctypes.data,
                                         self.table.size, device)

@@ -4,8 +4,10 @@ plain PyTorch version.
 Port of the TPU kernel `nanohevc_tpu/kernels/fused_pipeline.py`
 (`fused_encode_blocks` and `fused_encode_planes`, the public blocks API
 that `nanohevc_tpu.kernels` exports).  The kernel is
-`csrc/fused_pipeline.cu`; its header says how it is laid out and what
-bounds it.  Per block: DC and planar from the given references, the
+`csrc/fused_pipeline.cu`, its body K1's `csrc/row_tail.cuh`; their
+headers say how it is laid out and what bounds it.  It reads and writes
+16-byte rows, so blocks whose data pointer is not 16-byte aligned are
+copied first, counted in `fused_encode_blocks.copies`.  Per block: DC and planar from the given references, the
 pick by residual energy (ties to DC), DCT, deadzone quantizer, parity
 dequantizer, inverse DCT, clip.  What sets it apart from the open-loop
 slab kernel (`kernels.slab_pipeline`), as in the JAX package:
@@ -36,7 +38,7 @@ from functools import lru_cache
 import torch
 
 from nanohevc_tpu_torch import ops
-from nanohevc_tpu_torch.kernels.slab_pipeline import BLOCK_SIZES, transform_table
+from nanohevc_tpu_torch.kernels.slab_pipeline import BLOCK_SIZES, aligned16
 from nanohevc_tpu_torch.params import qp_scalars
 
 
@@ -92,7 +94,7 @@ def cuda_kernels():
     """Build (at first use) and load this kernel's CUDA library."""
     from nanohevc_tpu_torch.kernels.build import KernelLibrary
 
-    return KernelLibrary("fused_pipeline", transform_table())
+    return KernelLibrary("fused_pipeline")
 
 
 def fused_encode_blocks(blocks: torch.Tensor, refs: torch.Tensor, qp: int, *,
@@ -102,14 +104,15 @@ def fused_encode_blocks(blocks: torch.Tensor, refs: torch.Tensor, qp: int, *,
 
     qp is a Python int, clamped to [0, 51].  On CUDA tensors this
     launches the hand-written kernel once on the current stream (no
-    synchronisation) and adds one to `fused_encode_blocks.launches`; on
-    CPU tensors it runs the plain version.
+    synchronisation) and adds one to `fused_encode_blocks.launches` (and
+    to `.copies` when the blocks had to be copied to 16-byte alignment);
+    on CPU tensors it runs the plain version.
     """
     n = _validate(blocks, refs, bit_depth)
     if blocks.device.type == "cpu":
         return fused_encode_blocks_reference(blocks, refs, qp,
                                              bit_depth=bit_depth)
-    blocks = blocks.to(torch.int32).contiguous()
+    blocks = aligned16(blocks.to(torch.int32).contiguous(), fused_encode_blocks)
     refs = refs.to(torch.int32).contiguous()
     nb = blocks.shape[0]
     dev = blocks.device
@@ -119,7 +122,6 @@ def fused_encode_blocks(blocks: torch.Tensor, refs: torch.Tensor, qp: int, *,
         return recon, levels
     kern = cuda_kernels()
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    kern.ensure_tables(index)
     q = qp_scalars(qp, n, bit_depth, dequant_rescale=False)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = kern.lib.nhv_fused_encode(
@@ -133,6 +135,7 @@ def fused_encode_blocks(blocks: torch.Tensor, refs: torch.Tensor, qp: int, *,
 
 
 fused_encode_blocks.launches = 0
+fused_encode_blocks.copies = 0
 
 
 def _encode_planes(planes: torch.Tensor, qp: int, n: int, bit_depth: int,

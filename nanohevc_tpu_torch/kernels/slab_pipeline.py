@@ -2,8 +2,11 @@
 and its plain PyTorch version.
 
 Port of the TPU kernel `nanohevc_tpu/kernels/slab_pipeline.py`
-(`slab_encode_plane`).  The kernel is `csrc/slab_pipeline.cu`; its
-header says how it is laid out and what bounds it.  Unlike the TPU
+(`slab_encode_plane`).  The kernel is `csrc/slab_pipeline.cu`, its
+body `csrc/row_tail.cuh`; their headers say how it is laid out and what
+bounds it.  It reads and writes 16-byte rows, so a plane whose data
+pointer is not 16-byte aligned (a view at an odd offset) is copied
+first, and the copy is counted in `slab_encode_plane.copies`.  Unlike the TPU
 kernel, whose levels and modes came out in slab layout, this one
 writes levels as (nb, N, N) raster blocks and one mode per block.
 
@@ -11,8 +14,8 @@ writes levels as (nb, N, N) raster blocks and one mode per block.
 tensor goes to `slab_encode_plane_reference`, a CUDA tensor to the
 kernel (or an exception).  There is no fallback from one to the other.
 
-The checks, the transform-quantize tail and the launch are shared with
-`kernels.mode_search`, whose kernel has the same output contract.
+The checks, the plain transform-quantize tail and the launch are shared
+with `kernels.mode_search`, whose kernel has the same output contract.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ from nanohevc_tpu_torch.params import qp_scalars
 
 BLOCK_SIZES = (4, 8, 16, 32)
 
-# Order of the transform matrices in the kernels' constant tables.
+# Order of the transform matrices in the kernels' tables (the search and
+# wavefront kernels' constant tables, the row kernels' generated header).
 _TABLE_ORDER = ((4, False), (8, False), (16, False), (32, False), (4, True))
 
 
@@ -107,11 +111,21 @@ def encode_tail_reference(src: torch.Tensor, blocks: torch.Tensor,
 
 
 def transform_table() -> np.ndarray:
-    """The transform matrices in the kernels' constant-table order."""
+    """The transform matrices in the kernels' table order."""
     return np.concatenate([
         np.asarray(transform_matrix(m, d), np.int32).ravel()
         for m, d in _TABLE_ORDER
     ])
+
+
+def aligned16(t: torch.Tensor, wrapper) -> torch.Tensor:
+    """`t`, or a fresh copy of it (`clone`) when its data pointer is not
+    16-byte aligned, as the row kernels' int4 accesses need; each copy
+    adds one to `wrapper.copies`.  The kernel still runs on the copy."""
+    if t.data_ptr() % 16 == 0:
+        return t
+    wrapper.copies += 1
+    return t.clone()
 
 
 @lru_cache(maxsize=None)
@@ -119,7 +133,7 @@ def cuda_kernels():
     """Build (at first use) and load this kernel's CUDA library."""
     from nanohevc_tpu_torch.kernels.build import KernelLibrary
 
-    return KernelLibrary("slab_pipeline", transform_table())
+    return KernelLibrary("slab_pipeline")
 
 
 def launch_encode(kern, entry: str, plane: torch.Tensor, qp: int, n: int, *,
@@ -164,14 +178,16 @@ def slab_encode_plane(plane: torch.Tensor, qp: int, n: int, *,
 
     qp is a static Python int.  On a CUDA tensor this launches the
     hand-written kernel on the current stream (no synchronisation) and
-    adds one to `slab_encode_plane.launches`; on a CPU tensor it runs
-    the plain version.
+    adds one to `slab_encode_plane.launches` (and to `.copies` when the
+    plane had to be copied to 16-byte alignment); on a CPU tensor it
+    runs the plain version.
     """
     validate_plane("slab_encode_plane", plane, n, use_dst, bit_depth)
     kw = dict(bit_depth=bit_depth, use_dst=use_dst,
               dequant_rescale=dequant_rescale)
     if plane.device.type == "cpu":
         return slab_encode_plane_reference(plane, qp, n, **kw)
+    plane = aligned16(plane, slab_encode_plane)
     out = launch_encode(cuda_kernels(), "nhv_slab_encode", plane, qp, n, **kw)
     if out["modes"].numel():
         slab_encode_plane.launches += 1
@@ -179,3 +195,4 @@ def slab_encode_plane(plane: torch.Tensor, qp: int, n: int, *,
 
 
 slab_encode_plane.launches = 0
+slab_encode_plane.copies = 0

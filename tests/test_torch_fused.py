@@ -177,6 +177,27 @@ def test_cpu_tensor_never_builds(monkeypatch):
     assert fused_encode_blocks.launches == before
 
 
+def _blocks_view_at(values: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous view of `values` `offset` int32s into a fresh buffer."""
+    buf = torch.zeros(values.numel() + 4, dtype=torch.int32,
+                      device=values.device)
+    view = buf[offset:offset + values.numel()].view(values.shape)
+    view.copy_(values)
+    return view
+
+
+def test_misaligned_cpu_blocks_run_plain_without_copy():
+    rng = np.random.default_rng(13)
+    blocks = torch.from_numpy(rng.integers(0, 256, (5, 8, 8)).astype(np.int32))
+    refs = torch.from_numpy(rng.integers(0, 256, (5, 34)).astype(np.int32))
+    before = fused_encode_blocks.copies
+    got = fused_encode_blocks(_blocks_view_at(blocks, 3), refs, 22)
+    want = fused_encode_blocks_reference(blocks, refs, 22)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert fused_encode_blocks.copies == before
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -202,3 +223,23 @@ def test_cuda_kernel_matches_plain(cuda_device, n):
             assert fused_encode_blocks.launches == before + 1
             for k in want:
                 assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_cuda_misaligned_blocks_are_copied(cuda_device, n):
+    """Blocks 4 bytes past a 16-byte boundary give the aligned blocks'
+    outputs through one launch on a counted copy."""
+    rng = np.random.default_rng(50 + n)
+    blocks = torch.from_numpy(
+        rng.integers(0, 256, (37, n, n)).astype(np.int32)).to(cuda_device)
+    refs = torch.from_numpy(
+        rng.integers(0, 256, (37, 4 * n + 2)).astype(np.int32)).to(cuda_device)
+    view = _blocks_view_at(blocks, 1)
+    copies = fused_encode_blocks.copies
+    got = fused_encode_blocks(view, refs, 22)
+    want = fused_encode_blocks_reference(blocks, refs, 22)
+    torch.cuda.synchronize()
+    assert fused_encode_blocks.copies == copies + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -15,8 +15,9 @@ import torch
 
 from nanohevc_tpu.kernels.slab_pipeline import slab_encode_plane as jax_slab
 from nanohevc_tpu.ops import tile_plane as jax_tile
-from nanohevc_tpu_torch.kernels import slab_pipeline
+from nanohevc_tpu_torch.kernels import build, slab_pipeline
 from nanohevc_tpu_torch.kernels.slab_pipeline import (
+    aligned16,
     slab_encode_plane,
     slab_encode_plane_reference,
 )
@@ -131,6 +132,60 @@ def test_cpu_tensor_never_builds(monkeypatch):
     assert slab_encode_plane.launches == before
 
 
+def test_generated_table_header_holds_transform_table():
+    """The row kernels compile the transform matrices in as immediates,
+    from a header generated out of `transform_table()`."""
+    text = build.generated_headers()["transform_table.h"]
+    body = text.split("#define NHV_TRANSFORM_TABLE {", 1)[1].split("}", 1)[0]
+    values = np.array([int(v) for v in body.split(",")], np.int32)
+    assert np.array_equal(values, slab_pipeline.transform_table())
+
+
+def test_source_hash_covers_generated_headers(monkeypatch):
+    before = build.source_hash()
+    monkeypatch.setattr(build, "generated_headers",
+                        lambda: {"transform_table.h": "// another table\n"})
+    assert build.source_hash() != before
+
+
+def _view_at(values: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous view of `values` starting `offset` int32s into a
+    fresh buffer (4 * offset bytes past its 16-byte-aligned start)."""
+    buf = torch.zeros(values.numel() + 4, dtype=torch.int32,
+                      device=values.device)
+    view = buf[offset:offset + values.numel()].view(values.shape)
+    view.copy_(values)
+    return view
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3, 4])
+def test_aligned16_copies_only_misaligned(offset):
+    """The row kernels read int4 rows: a view 4, 8 or 12 bytes past a
+    16-byte boundary is cloned (and counted), an aligned one is not."""
+    values = torch.arange(64, dtype=torch.int32).view(8, 8)
+    view = _view_at(values, offset)
+    before = slab_encode_plane.copies
+    out = aligned16(view, slab_encode_plane)
+    misaligned = offset % 4 != 0
+    assert (view.data_ptr() % 16 != 0) == misaligned
+    assert out.data_ptr() % 16 == 0 and out.is_contiguous()
+    assert torch.equal(out, values)
+    assert (out is view) == (not misaligned)
+    assert slab_encode_plane.copies == before + misaligned
+
+
+def test_misaligned_cpu_plane_runs_plain_without_copy():
+    """On the CPU the plain version takes any view: no copy is counted."""
+    rng = np.random.default_rng(12)
+    plane = torch.from_numpy(rng.integers(0, 256, (16, 24)).astype(np.int32))
+    before = slab_encode_plane.copies
+    got = slab_encode_plane(_view_at(plane, 1), 22, 8)
+    want = slab_encode_plane_reference(plane, 22, 8)
+    for k in want:
+        assert torch.equal(got[k], want[k])
+    assert slab_encode_plane.copies == before
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -158,3 +213,22 @@ def test_cuda_kernel_matches_plain(cuda_device, n, use_dst):
             assert slab_encode_plane.launches == before + 1
             for k in want:
                 assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_cuda_misaligned_plane_is_copied(cuda_device, n):
+    """A view 4 bytes past a 16-byte boundary gives the aligned plane's
+    outputs through one launch on a counted copy."""
+    rng = np.random.default_rng(40 + n)
+    plane = torch.from_numpy(
+        rng.integers(0, 256, (96, 160)).astype(np.int32)).to(cuda_device)
+    view = _view_at(plane, 1)
+    copies, launches = slab_encode_plane.copies, slab_encode_plane.launches
+    got = slab_encode_plane(view, 22, n)
+    want = slab_encode_plane(plane, 22, n)
+    torch.cuda.synchronize()
+    assert slab_encode_plane.copies == copies + 1
+    assert slab_encode_plane.launches == launches + 2
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
