@@ -68,7 +68,20 @@ over a 16-frame file at batch 8.  It checks them end to end:
    config, the closed-loop frame and its decode (6c), and the sequence
    under all four configs (6f: throughput, stages, whether drain
    overlaps the next batch, device busy share, entropy_tiles=4,
-   `decode_sequence`).
+   `decode_sequence`);
+7. runs the RD stages, which launch no kernel (plain PyTorch on the
+   card, as the JAX package runs them on its XLA path): 7a the 1080p
+   frame under rdo_cbf+rdoq (default and mode search) and
+   decision="rd", each equal to the port on the CPU (recon, levels,
+   modes, nnz, bytes), with its frame call and device part; 7b the
+   35-mode RD decision (open loop) and the closed loop with RDOQ and
+   with decision="rd" on a 256x256 and a 138x250 crop, card == CPU;
+   7c both closed-loop RD encodes at 1080p, decoded on the card pixel
+   for pixel; 7d 16-frame sequences at batch 8 with rdo_cbf+rdoq (open
+   loop) and rdoq (closed loop), every frame equal to its single-frame
+   encode, bytes and mean Y-PSNR beside the runs without RD; 7e the
+   CLI's `encode --rdo --rdoq` and `encode --decision rd`, bytes equal
+   to the API's.
 
 Prints one JSON line of kernel results before the last line (the
 wavefront kernel has an entry per body, each with its launches), and
@@ -1294,6 +1307,7 @@ def phase_sequence_open(dev, tmp: str, src: str, frames: list, label: str,
     log(f"[{tag}] encode_sequence {label}, 16 1080p frames, batch 8: "
         f"{first_s:.3f} s (first call), {res.bytes_written} bytes, mean Y-PSNR "
         f"{res.mean_psnr_y:.2f} dB, kernel launches {launches}")
+    SEQ_RESULTS[label] = res
     want = {name: 3 * SEQ_FRAMES if name == path else 0 for name in KERNELS}
     if launches != want or res.frames != SEQ_FRAMES:
         raise SystemExit(f"sequence launched {launches} for {res.frames} "
@@ -1337,6 +1351,7 @@ def phase_sequence_closed(dev, tmp: str, src: str, frames: list, label: str,
     log(f"[{tag}] encode_sequence {label}, 16 1080p frames, batch 8: "
         f"{first_s:.3f} s (first call), {res.bytes_written} bytes, mean "
         f"Y-PSNR {res.mean_psnr_y:.2f} dB, kernel launches {launches}")
+    SEQ_RESULTS[label] = res
     batches = -(-SEQ_FRAMES // SEQ_BATCH)
     want = {name: 2 * batches if name == "wavefront_encode_planes" else 0
             for name in KERNELS}
@@ -1601,6 +1616,196 @@ def sequence_times(dev, tmp: str, src: str, frames: list, closed_bits: str,
         f"plain PyTorch, host in and out) [{gpu}]")
 
 
+# --- the RD stages (7a-7e) ---------------------------------------------------
+
+RD_FRAME_CONFIGS = {
+    "rdo_cbf+rdoq": EncoderConfig(rdo_cbf=True, rdoq=True),
+    "rdo_cbf+rdoq, mode search": EncoderConfig(
+        mode_set="all", decision="satd", rdo_cbf=True, rdoq=True),
+    'decision="rd"': EncoderConfig(decision="rd"),
+}
+RD_CROP_CONFIGS = {
+    'mode_set="all", decision="rd" (open loop)': (
+        EncoderConfig(mode_set="all", decision="rd"), False),
+    "rdoq (closed loop)": (EncoderConfig(rdoq=True), True),
+    'decision="rd" (closed loop)': (EncoderConfig(decision="rd"), True),
+}
+# Results of the non-RD sequence runs (4f, 4g), printed beside 7d's.
+SEQ_RESULTS = {}
+
+
+def crop(frame: Frame, h: int, w: int) -> Frame:
+    """The top-left h x w of a 4:2:0 frame (h and w even)."""
+    return Frame(Plane(frame.y.data[:h, :w].copy()),
+                 Plane(frame.u.data[:h // 2, :w // 2].copy()),
+                 Plane(frame.v.data[:h // 2, :w // 2].copy()))
+
+
+def no_launches(what: str) -> None:
+    launches = read_launches()
+    if any(launches.values()):
+        raise SystemExit(f"{what} launched {launches}; the RD stages run "
+                         "on the plain path only")
+
+
+def phase_rd_open(dev, frame: Frame, gpu: str) -> dict:
+    """7a: the open loop's RD stages on the 1080p frame on the card: no
+    kernel launch (RD cbf, RDOQ and the RD decision are plain PyTorch),
+    recon, levels, modes, nnz and bytes == the port on the CPU; the
+    frame call (median of 3) and its device part (3 planes resident)."""
+    mpix = H * W / 1e6
+    planes = [torch.from_numpy(p.data.astype(np.int32)).to(dev)
+              for p in (frame.y, frame.u, frame.v)]
+    out = {}
+    for label, cfg in RD_FRAME_CONFIGS.items():
+        reset_launches()
+        t0 = time.perf_counter()
+        card = encode_frame_full(frame, cfg, device=dev)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        no_launches(f"encode_frame_full ({label})")
+        t0 = time.perf_counter()
+        cpu = encode_frame_full(frame, cfg, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        bits = assemble_frame_bitstream(W, H, cfg, card[1])
+        if not same_encode(card, cpu) or bits != assemble_frame_bitstream(
+                W, H, cfg, cpu[1]):
+            raise SystemExit(f"RD encode ({label}) on the card differs from "
+                             "the port on the CPU")
+        dev_ms = cuda_ms(lambda: [encode_plane_config(p, cfg, i == 0)
+                                  for i, p in enumerate(planes)],
+                         iters=3, warmup=1)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            encode_frame_full(frame, cfg, device=dev)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall_ms = 1e3 * sorted(walls)[1]
+        log(f"[7a] {label}: 1080p 4:2:0 encode_frame_full on the card == "
+            f"the port on the CPU (recon, levels, modes, nnz, {len(bits)} "
+            f"bytes; Y-PSNR {card[1]['psnr_y']:.2f} dB; first call "
+            f"{first_s:.2f} s, CPU {cpu_s:.2f} s); frame call {wall_ms:.2f} "
+            f"ms (median of 3, {mpix / wall_ms * 1e3:.2f} Mpix/s luma), "
+            f"device part {dev_ms:.2f} ms [{gpu}]")
+        out[label] = bits
+    return out
+
+
+def phase_rd_crops(dev, frame: Frame, gpu: str) -> None:
+    """7b: the 35-mode RD decision (open loop) and the closed loop with
+    RDOQ and with decision="rd" on a 256x256 crop and a 138x250 one
+    (not block-aligned): card == CPU, bytes and recon."""
+    for h, w in ((256, 256), (138, 250)):
+        small = crop(frame, h, w)
+        for label, (cfg, closed) in RD_CROP_CONFIGS.items():
+            reset_launches()
+            t0 = time.perf_counter()
+            if closed:
+                card = encode_frame_closed_loop(small, cfg, device=dev)
+                torch.cuda.synchronize()
+                card_s = time.perf_counter() - t0
+                cpu = encode_frame_closed_loop(small, cfg, device="cpu")
+                same = card[1] == cpu[1] and all(
+                    np.array_equal(getattr(card[0], p).data,
+                                   getattr(cpu[0], p).data) for p in "yuv")
+                size = len(card[1])
+            else:
+                card = encode_frame_full(small, cfg, device=dev)
+                torch.cuda.synchronize()
+                card_s = time.perf_counter() - t0
+                cpu = encode_frame_full(small, cfg, device="cpu")
+                size = len(assemble_frame_bitstream(w, h, cfg, card[1]))
+                same = same_encode(card, cpu) and size == len(
+                    assemble_frame_bitstream(w, h, cfg, cpu[1]))
+            no_launches(label)
+            if not same:
+                raise SystemExit(f"{label} on a {h}x{w} crop: the card "
+                                 "differs from the CPU")
+            log(f"[7b] {label}, {h}x{w} crop: card == CPU ({size} bytes; "
+                f"{card_s:.2f} s on the card) [{gpu}]")
+
+
+def phase_rd_closed_full(dev, frame: Frame, gpu: str) -> None:
+    """7c: the closed loop with RDOQ and with decision="rd" on the 1080p
+    frame on the card (no kernel launch); each stream decodes on the
+    card to the recon pixel for pixel."""
+    for label, cfg in (("rdoq", EncoderConfig(rdoq=True)),
+                       ('decision="rd"', EncoderConfig(decision="rd"))):
+        reset_launches()
+        t0 = time.perf_counter()
+        recon, bits = encode_frame_closed_loop(frame, cfg, device=dev)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        no_launches(f"closed loop ({label})")
+        t0 = time.perf_counter()
+        decoded = decode_frame(bits, device=dev)
+        dec_s = time.perf_counter() - t0
+        if not all(np.array_equal(getattr(recon, p).data,
+                                  getattr(decoded, p).data) for p in "yuv"):
+            raise SystemExit(f"closed loop ({label}): decode_frame differs "
+                             "from the recon")
+        y_psnr = oracle.psnr(frame.y.data.astype(np.uint8),
+                             recon.y.data.astype(np.uint8))
+        log(f"[7c] closed loop {label}, 1080p 4:2:0 on the card: "
+            f"{len(bits)} bytes, Y-PSNR {y_psnr:.2f} dB, encode "
+            f"{enc_s:.2f} s (first call), decode_frame {dec_s:.2f} s, "
+            f"decoded == recon pixel for pixel [{gpu}]")
+
+
+def phase_rd_sequences(dev, tmp: str, src: str, frames: list,
+                       gpu: str) -> dict:
+    """7d: encode_sequence of the 16-frame 1080p file at batch 8 with
+    rdo_cbf+rdoq (open loop) and rdoq (closed loop): every frame parses
+    back to its single-frame encode on the card; bytes and mean Y-PSNR
+    beside the same runs without RD (4f, 4g)."""
+    out = {}
+    for label, cfg, closed, base in (
+            ("open loop, rdo_cbf+rdoq", EncoderConfig(rdo_cbf=True, rdoq=True),
+             False, "default"),
+            ("closed loop, rdoq", EncoderConfig(rdoq=True), True,
+             "closed loop default")):
+        bits = os.path.join(tmp, f"rd_{int(closed)}.bin")
+        reset_launches()
+        t0 = time.perf_counter()
+        res = run_sequence(dev, src, bits, cfg, closed)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        no_launches(f"sequence ({label})")
+        parsed = seq.decode_sequence_levels(bits)
+        for i, fr in enumerate(frames):
+            if closed:
+                want = parse_bitstream(encode_frame_closed_loop(
+                    fr, cfg, device=dev)[1])
+            else:
+                want = encode_frame_full(fr, cfg, device=dev)[1]["planes"]
+            if not same_planes(parsed[i], want):
+                raise SystemExit(f"RD sequence ({label}) frame {i} differs "
+                                 "from its single-frame encode")
+        plain = SEQ_RESULTS[base]
+        log(f"[7d] encode_sequence {label}, 16 1080p frames, batch 8: "
+            f"{run_s:.3f} s, {res.bytes_written} bytes, mean Y-PSNR "
+            f"{res.mean_psnr_y:.2f} dB; without RD {plain.bytes_written} "
+            f"bytes, {plain.mean_psnr_y:.2f} dB; each frame == its "
+            f"single-frame encode [{gpu}]")
+        out[label] = bits
+    return out
+
+
+def phase_rd(dev, tmp: str, src: str, frame: Frame, frames: list,
+             gpu: str) -> None:
+    """7: the RD stages (7a-7d), then 7e: the CLI's `encode --rdo --rdoq`
+    and `encode --decision rd` write the API's bytes."""
+    t0 = time.perf_counter()
+    bits = phase_rd_open(dev, frame, gpu)
+    phase_rd_crops(dev, frame, gpu)
+    phase_rd_closed_full(dev, frame, gpu)
+    phase_rd_sequences(dev, tmp, src, frames, gpu)
+    phase_cli(frame, bits["rdo_cbf+rdoq"], ["--rdo", "--rdoq"], "7e")
+    phase_cli(frame, bits['decision="rd"'], ["--decision", "rd"], "7e")
+    log(f"[7] RD phase: {time.perf_counter() - t0:.1f} s [{gpu}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -1698,6 +1903,7 @@ def main() -> int:
     closed_loop_times(dev, frame, MODE_SEARCH, "mode search:", gpu)
     times["fused_encode_blocks"] = fused_times(dev, planes8, gpu)
     sequence_times(dev, tmp, src, frames, seq_bits["closed loop default"], gpu)
+    phase_rd(dev, tmp, src, frame, frames, gpu)
     tmp_dir.cleanup()
 
     # ms and bounds at the main path's shape, a 1080p luma plane at N = 8;

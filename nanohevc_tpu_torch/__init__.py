@@ -3,13 +3,14 @@
 The JAX package `nanohevc_tpu` stays the reference.  This package
 imports `torch` and numpy, never `jax` and nothing of `nanohevc_tpu`:
 it keeps its own copies of the host modules it needs (`tables`,
-`config`, `frame`, `ref` and `runtime`, each headed by the file it
-copies).
+`config`, `frame`, `ref`, `runtime` and `ops/rate_tables.py`, each
+headed by the file it copies).
 
 Layout mirrors the JAX package so each counterpart is easy to find:
 
 - `params`: spec tables and per-QP scalars as int32 tensors;
-- `ops`: plain PyTorch formulations of the block ops (CPU and CUDA);
+- `ops`: plain PyTorch formulations of the block ops (CPU and CUDA),
+  the rate models (`ops.rate`, `ops.mode_rate`) and RDOQ (`ops.rdoq`);
 - `kernels`: hand-written CUDA kernels and their wrappers, the blocks
   API `fused_encode_blocks` / `fused_encode_planes` among them;
 - `models.all_intra`: the open-loop all-intra frame encoder;

@@ -4,11 +4,12 @@ demo|encode|encode-seq|decode`.
 Output text and files equal those of `python -m nanohevc_tpu` for the
 same arguments.  Ported: the open-loop slice (DC/planar, the 35-mode
 search, reference smoothing), the closed loop (`encode --pipeline
-closed-loop`), the rate search (`encode --target-bytes`), the sequence
-runner (`encode-seq`, with resume and `--target-bpp` rate control) and
+closed-loop`), the RD tools (`--rdo`, `--rdoq`, `--decision rd`), the
+rate search (`encode --target-bytes`), the sequence runner
+(`encode-seq`, with resume and `--target-bpp` rate control) and
 `decode` of single-frame and sequence streams.  The flags of the JAX
-CLI that need anything else (RD tools, in-loop filters, the standard
-HEVC export, fixed chroma modes) exit with rc 2 and a "not yet ported"
+CLI that need anything else (in-loop filters, the standard HEVC
+export, fixed chroma modes) exit with rc 2 and a "not yet ported"
 message; nothing runs in their place.
 """
 
@@ -21,9 +22,7 @@ import numpy as np
 
 # JAX-CLI flags of `encode` and `encode-seq` that need code not ported
 # yet, by dest.
-_REFUSED_ENCODE_SWITCHES = (
-    "rdo", "rdoq", "deblock", "sao", "sao_ctb", "hevc_mono",
-)
+_REFUSED_ENCODE_SWITCHES = ("deblock", "sao", "sao_ctb", "hevc_mono")
 _REFUSED_ENCODE_VALUES = (
     "sao_tile", "hevc_export", "chroma_mode",
 )
@@ -109,6 +108,14 @@ def cmd_encode(args: argparse.Namespace) -> None:
         )
         sys.exit(1)
 
+    if args.rdoq and args.pipeline == "predict":
+        print(
+            "Error: --rdoq adjusts quantized levels; use --pipeline "
+            "full or closed-loop",
+            file=sys.stderr,
+        )
+        sys.exit(1)
+
     if args.pipeline == "predict":
         recon, stats = encode_frame_intra(
             frame, args.block_size, args.output, device=args.device
@@ -133,6 +140,9 @@ def cmd_encode(args: argparse.Namespace) -> None:
         decision=args.decision or ("satd" if args.mode_search else "energy"),
         scan=args.scan,
         entropy_coder=args.entropy,
+        # RD cbf is an open-loop stage; the closed loop takes RDOQ only
+        rdo_cbf=args.rdo and args.pipeline == "full",
+        rdoq=args.rdoq,
         dequant_rescale=args.dequant_rescale,
         intra_smoothing=args.intra_smoothing,
     )
@@ -214,6 +224,8 @@ def cmd_encode_seq(args: argparse.Namespace) -> None:
         decision=args.decision or ("satd" if args.mode_search else "energy"),
         scan=args.scan,
         entropy_coder=args.entropy,
+        rdo_cbf=args.rdo,
+        rdoq=args.rdoq,
         dequant_rescale=args.dequant_rescale,
         intra_smoothing=args.intra_smoothing,
     )
@@ -346,8 +358,7 @@ def main(argv: list[str] | None = None) -> None:
     )
     enc.add_argument(
         "--decision", choices=("energy", "satd", "sad", "rd"), default=None,
-        help="mode-decision cost override; default follows --mode-search "
-        "(rd is not ported yet)",
+        help="mode-decision cost override; default follows --mode-search",
     )
     enc.add_argument(
         "--entropy", choices=("range", "cabac", "hevc-slice"),
@@ -380,6 +391,17 @@ def main(argv: list[str] | None = None) -> None:
         "(luma, N>=8); carried in the PPS",
     )
     enc.add_argument(
+        "--rdo", action="store_true",
+        help="RD-optimized coded-block-flag decision (full pipeline)",
+    )
+    enc.add_argument(
+        "--rdoq", action="store_true",
+        help="rate-distortion optimized quantization: re-decide levels "
+        "under D + lambda*R (full and closed-loop pipelines; the closed "
+        "loop reconstructs from the adjusted levels, so decode stays "
+        "pixel-exact)",
+    )
+    enc.add_argument(
         "--target-bytes", type=int, default=None,
         help="rate search: pick the lowest QP whose coded frame fits "
         "this many bytes (bisection over real coder sizes; full and "
@@ -405,14 +427,18 @@ def main(argv: list[str] | None = None) -> None:
     )
     seq.add_argument(
         "--decision", choices=("energy", "satd", "sad", "rd"), default=None,
-        help="mode-decision cost override (see encode --decision; rd is "
-        "not ported yet)",
+        help="mode-decision cost override (see encode --decision)",
     )
     seq.add_argument(
         "--entropy", choices=("range", "cabac", "hevc-slice"),
         default="range", help="slice entropy engine (see encode --entropy)",
     )
     seq.add_argument("--mode-search", action="store_true")
+    seq.add_argument("--rdo", action="store_true",
+                     help="RD-optimized coded-block-flag decision")
+    seq.add_argument("--rdoq", action="store_true",
+                     help="rate-distortion optimized quantization "
+                     "(open- and closed-loop; see encode --rdoq)")
     seq.add_argument("--entropy-tiles", type=int, default=1,
                      help="parallel host entropy: split each plane's "
                      "levels into N independent context chunks coded "
@@ -449,8 +475,6 @@ def main(argv: list[str] | None = None) -> None:
         for dest in _REFUSED_ENCODE_SWITCHES + _REFUSED_ENCODE_VALUES:
             if getattr(args, dest) not in (None, False):
                 _not_ported(parser, "--" + dest.replace("_", "-"))
-        if args.decision == "rd":
-            _not_ported(parser, "--decision rd")
     if args.command in ("demo", "encode", "encode-seq", "decode"):
         from nanohevc_tpu_torch import resolve_device
 

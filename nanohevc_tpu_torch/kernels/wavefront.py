@@ -63,20 +63,53 @@ def diagonal_blocks(d: int, nby: int, nbx: int, device) -> tuple:
     return by, d - by
 
 
+def code_residual(blocks: torch.Tensor, pred: torch.Tensor, qp: int, n: int,
+                  *, use_dst: bool = False, bit_depth: int = 8,
+                  dequant_rescale: bool = False, rdoq: bool = False,
+                  scan: str = "diag", modes: torch.Tensor | None = None,
+                  rd_lambda_scale: float = 1.0) -> tuple:
+    """The closed loop's encode tail of (m, N, N) blocks and their
+    predictions: forward transform, deadzone quantization (then RDOQ in
+    the stream's scan order when `rdoq` is set, so that the recon, and
+    the neighbours' references, come from the levels the stream
+    carries), dequantization, inverse transform, clip.  Returns
+    (levels (m, N, N) raster int32, recon (m, N, N) int32)."""
+    coeff = ops.forward_transform(blocks - pred, use_dst)
+    levels = ops.quantize(coeff, qp, n)
+    if rdoq:
+        from nanohevc_tpu_torch.ops.rdoq import rd_lambda_calibrated
+
+        lam = rd_lambda_calibrated(qp, n, use_dst, dequant_rescale,
+                                   rd_lambda_scale)
+        gain = ops.rdoq_gain(n, use_dst, coeff.device).expand(coeff.shape)
+        packed = ops.rdoq_levels(
+            ops.scan_pack(coeff, scan, modes=modes),
+            ops.scan_pack(levels, scan, modes=modes),
+            ops.scan_pack(gain, scan, modes=modes),
+            qp, n, lam, dequant_rescale=dequant_rescale)
+        levels = ops.scan_unpack(packed, scan, modes=modes)
+    res = ops.inverse_transform(
+        ops.dequantize(levels, qp, n, rescale=dequant_rescale), use_dst)
+    return levels, (pred + res).clamp(0, (1 << bit_depth) - 1)
+
+
 def wavefront_encode_planes_reference(
         planes: torch.Tensor, qp: int, n: int, *,
         mode_set: str = "dc_planar", decision: str = "energy",
         bit_depth: int = 8, use_dst: bool = False,
         dequant_rescale: bool = False,
-        intra_smoothing: bool = False) -> dict:
+        intra_smoothing: bool = False, rdoq: bool = False,
+        scan: str = "diag", rd_lambda_scale: float = 1.0) -> dict:
     """Plain PyTorch closed loop, on the input's device.
 
     (B, Hp, Wp) block-aligned int32 planes -> dict(recon (B, Hp, Wp)
     int32, levels (B, nb, N, N) int32 raster blocks, modes (B, nb)
     int32).  A loop over anti-diagonals on a zero-filled recon plane:
     `extract_refs_at` for the diagonal's blocks, `decide_modes` (any
-    mode set and decision it takes, smoothing included), the
-    transform-quantize tail, then the blocks written back.
+    mode set and per-block decision it takes, smoothing included),
+    `code_residual` (RDOQ included, in `scan` order, lambda scaled by
+    rd_lambda_scale), then the blocks written back.  The RD decision,
+    which prices a batch, runs in `models.wavefront` instead.
     """
     # models.all_intra imports the kernels' modules, so its mode
     # decision is imported at call time.
@@ -99,10 +132,10 @@ def wavefront_encode_planes_reference(
         pred, mode = decide_modes(blk, refs.reshape(b * m, 4 * n + 2), n,
                                   mode_set, decision, smoothing=intra_smoothing,
                                   bit_depth=bit_depth)
-        lev = ops.quantize(ops.forward_transform(blk - pred, use_dst), qp, n)
-        res = ops.inverse_transform(
-            ops.dequantize(lev, qp, n, rescale=dequant_rescale), use_dst)
-        rec = (pred + res).clamp(0, (1 << bit_depth) - 1)
+        lev, rec = code_residual(
+            blk, pred, qp, n, use_dst=use_dst, bit_depth=bit_depth,
+            dequant_rescale=dequant_rescale, rdoq=rdoq, scan=scan,
+            modes=mode, rd_lambda_scale=rd_lambda_scale)
         rec_blocks[:, by, bx] = rec.reshape(b, m, n, n)
         levels[:, by, bx] = lev.reshape(b, m, n, n)
         modes[:, by, bx] = mode.reshape(b, m)

@@ -4,9 +4,10 @@
 - `encode_plane_parity`: the reference CLI's predict-only encode (DC
   vs planar by residual energy, best prediction as the recon).
 - `encode_plane_full`: the plain PyTorch front half: mode decision
-  (DC/planar or all 35 modes, optional reference smoothing), residual,
-  forward transform, quantize, scan-pack, dequantize, inverse
-  transform, reconstruct, clip.
+  (DC/planar or all 35 modes, by energy, SAD, SATD or RD cost, optional
+  reference smoothing), residual, forward transform, quantize (with
+  optional RDOQ), scan-pack, dequantize, inverse transform,
+  reconstruct, clip, optional RD coded-block decision.
 - `encode_plane_fast`: DC/planar by energy through the hand-written
   CUDA kernel `kernels.slab_pipeline.slab_encode_plane`.
 - `encode_plane_fast_modes`: the 35-mode SATD search through the
@@ -15,8 +16,9 @@
 `encode_frame_full` routes each plane exactly as the JAX package does:
 to the slab kernel where `supports_fast_path` holds, to the mode-search
 kernel where `supports_mode_search_fast_path` holds, to the plain path
-otherwise.  RD decisions, RD cbf and RDOQ are not ported yet and raise
-NotImplementedError.
+otherwise; RD cbf and RDOQ (`rdo_cbf`, `rdoq`) always take the plain
+path, and so does `decision="rd"`, whose costs go through the real
+transform chain and the rate models of `ops.rate` (see `decide_modes`).
 
 Mode numbering: 0 planar, 1 DC, 2..34 angular.
 """
@@ -41,7 +43,10 @@ from nanohevc_tpu_torch.kernels.slab_pipeline import (
     slab_encode_plane,
     slab_supported,
 )
+from nanohevc_tpu_torch.ops import rate
 from nanohevc_tpu_torch.ops.intra import DC_MODE, PLANAR_MODE
+from nanohevc_tpu_torch.ops.mode_rate import mode_bits_for_grid
+from nanohevc_tpu_torch.ops.rdoq import rd_lambda_calibrated
 
 
 # ---------------------------------------------------------------------------
@@ -61,26 +66,139 @@ def _cost(blocks: torch.Tensor, pred: torch.Tensor, decision: str) -> torch.Tens
 # values whatever the plane size.
 _SEARCH_CHUNK_ELEMS = 1 << 23
 
+# float32 bit patterns of JAX's exp2((qp - 12) / 3) at QP 0..51 (XLA's
+# float32 exp2, which is not the correctly rounded value at every QP:
+# at QP 51 it is 2^13 plus 4 ulps).
+_RD_EXP2_BITS = np.array([
+    0x3d800000, 0x3da14518, 0x3dcb2ff5, 0x3e000000, 0x3e214518, 0x3e4b2ff5,
+    0x3e800000, 0x3ea14518, 0x3ecb2ff5, 0x3f000000, 0x3f214518, 0x3f4b2ff5,
+    0x3f800000, 0x3fa14518, 0x3fcb2ff5, 0x40000000, 0x40214518, 0x404b2ff5,
+    0x40800000, 0x40a14518, 0x40cb2ff5, 0x41000000, 0x41214518, 0x414b2ff5,
+    0x41800000, 0x41a14518, 0x41cb2ff5, 0x42000000, 0x42214518, 0x424b2ff5,
+    0x42800000, 0x42a14518, 0x42cb2ff5, 0x43000000, 0x43214518, 0x434b2ff5,
+    0x43800000, 0x43a14518, 0x43cb2ff5, 0x44000000, 0x44214518, 0x444b2ff5,
+    0x44800000, 0x44a14518, 0x44cb2ff5, 0x45000000, 0x45214518, 0x454b2ffc,
+    0x45800000, 0x45a14513, 0x45cb2ff6, 0x46000004,
+], dtype=np.uint32).view(np.float32)
+
+
+def _rd_lambda(qp: int, rd_lambda_scale: float) -> np.float32:
+    """HEVC-style lambda(QP) = 0.57 * 2^((QP-12)/3), scaled, as JAX's
+    float32 product gives it: float32(scale * 0.57) * exp2 from the
+    table above (QP outside 0..51: exp2 in float64, rounded once).
+
+    One definition for the mode decision, the cbf decision and the
+    mode-rate term, so every RD mechanism prices bits alike.
+    """
+    qp = int(qp)
+    e = (_RD_EXP2_BITS[qp] if 0 <= qp < len(_RD_EXP2_BITS)
+         else np.float32(2.0 ** ((qp - 12) / 3)))
+    return np.float32(np.float32(rd_lambda_scale * 0.57) * e)
+
+
+def _rd_parts(blocks: torch.Tensor, preds: torch.Tensor, n: int, qp: int,
+              use_dst: bool, bit_depth: int, dequant_rescale: bool):
+    """Each candidate's residual through the real chain: blocks
+    (nb, N, N), preds (nb, M, N, N) -> (sse (nb*M,) float32, diag-packed
+    levels (nb*M, N*N)), candidate-major within a block."""
+    nb, m = preds.shape[:2]
+    flat_pred = preds.reshape(nb * m, n, n)
+    blk = blocks[:, None].expand(preds.shape).reshape(nb * m, n, n)
+    levels = ops.quantize(ops.forward_transform(blk - flat_pred, use_dst),
+                          qp, n, True)
+    rec_res = ops.inverse_transform(
+        ops.dequantize(levels, qp, n, rescale=dequant_rescale), use_dst)
+    recon = _clip(flat_pred + rec_res, bit_depth)
+    diff = (blk - recon).to(torch.int64)
+    # exact integer SSE, rounded once (JAX's float32 sum is exact below 2^24)
+    sse = (diff * diff).sum(dim=(1, 2)).to(torch.float32)
+    return sse, ops.scan_pack(levels, "diag")
+
+
+def _rd_costs(blocks: torch.Tensor, preds: torch.Tensor, n: int, qp: int,
+              use_dst: bool, bit_depth: int, dequant_rescale: bool,
+              rd_lambda_scale: float) -> torch.Tensor:
+    """True rate-distortion cost per (block, candidate): blocks
+    (nb, N, N), preds (nb, M, N, N) -> (nb, M) float32 SSE + lambda *
+    bits, the bits from the adaptive rate model over these nb*M rows."""
+    nb, m = preds.shape[:2]
+    sse, packed = _rd_parts(blocks, preds, n, qp, use_dst, bit_depth,
+                            dequant_rescale)
+    bits = rate.model_bits_adaptive(packed)
+    lam = float(_rd_lambda(qp, rd_lambda_scale))
+    return (sse + lam * bits).reshape(nb, m)
+
+
+def _rd_angular_costs(blocks: torch.Tensor, refs_in: torch.Tensor, n: int,
+                      routed: bool, qp: int, use_dst: bool, bit_depth: int,
+                      dequant_rescale: bool, rd_lambda_scale: float
+                      ) -> torch.Tensor:
+    """`_rd_costs` of the 33 angular modes, (nb, 33), in chunks of modes.
+
+    The adaptive model prices from the whole nb x 33 batch, as JAX's one
+    call does: every chunk's bins are counted first (exact integers),
+    the batch is priced once, then each chunk's bits and costs follow.
+    A single chunk keeps its levels between the two passes.
+    """
+    nb = blocks.shape[0]
+    step = max(1, _SEARCH_CHUNK_ELEMS // max(1, nb * n * n))
+    chunks = [ops.ALL_ANGULAR[s:s + step]
+              for s in range(0, len(ops.ALL_ANGULAR), step)]
+
+    def parts(modes):
+        preds = ops.angular_predict_modes(refs_in, n, modes, routed)
+        return _rd_parts(blocks, preds, n, qp, use_dst, bit_depth,
+                         dequant_rescale)
+
+    kept = None
+    counts = 0
+    for modes in chunks:
+        kept = parts(modes)
+        counts = counts + rate.adaptive_counts(kept[1])
+    prices = rate.adaptive_prices(counts, n * n)
+    lam = float(_rd_lambda(qp, rd_lambda_scale))
+    costs = []
+    for modes in chunks:
+        sse, packed = kept if len(chunks) == 1 else parts(modes)
+        costs.append((sse + lam * rate.adaptive_bits(packed, prices))
+                     .reshape(nb, len(modes)))
+    return torch.cat(costs, dim=1)
+
 
 def decide_modes(blocks: torch.Tensor, refs: torch.Tensor, n: int,
                  mode_set: str, decision: str, smoothing: bool = False,
-                 bit_depth: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+                 bit_depth: int = 8, qp: int | None = None,
+                 use_dst: bool = False, dequant_rescale: bool = False,
+                 rd_lambda_scale: float = 1.0,
+                 grid: Tuple[int, int] | None = None,
+                 mode_bits: torch.Tensor | None = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pick the intra mode per block: (pred (nb, N, N), mode (nb,) int32).
 
-    mode_set "dc_planar" decides by `decision` (energy, sad or satd)
-    with ties to DC; "all" searches planar, DC and angular 2..34 with
-    ties to the lowest mode index; "dc" and "planar" fix one mode.
+    mode_set "dc_planar" decides by `decision` (energy, sad, satd or
+    rd) with ties to DC; "all" searches planar, DC and angular 2..34
+    with ties to the lowest mode index; "dc" and "planar" fix one mode.
 
     smoothing applies the [1 2 1] reference filter (spec 8.4.4.2.3) to
     the modes its filter-flag rule selects (DC never, nothing at 4x4).
 
-    The angular modes are evaluated in chunks with a running minimum,
-    so a full-size plane never holds all 33 predictions at once.
+    decision="rd" costs each candidate SSE + lambda(QP) * bits through
+    the real transform/quant/recon chain (`_rd_costs`); it needs qp,
+    and use_dst/dequant_rescale as the pipeline uses them.  With grid
+    (nby, nbx) it adds lambda times each candidate's MPM signalling
+    bits, the MPM lists taken from a first decision without them (two
+    passes); mode_bits (nb, 35) gives those bits directly instead (the
+    closed loop's exact neighbours).
+
+    The angular modes are evaluated in chunks, so a full-size plane
+    never holds all 33 predictions at once.
     """
-    if decision not in ("energy", "sad", "satd"):
-        raise NotImplementedError(f"decision={decision!r} is not ported yet")
+    if decision not in ("energy", "sad", "satd", "rd"):
+        raise ValueError(f"unknown decision: {decision}")
     if mode_set not in ("dc_planar", "all", "dc", "planar"):
         raise ValueError(f"unknown mode_set: {mode_set}")
+    if decision == "rd" and qp is None:
+        raise ValueError("decision='rd' needs qp at decide_modes()")
     flags = ops.mode_filter_flags(n) if smoothing else None
     refs_f = ops.smooth_refs(refs, n, bit_depth) if smoothing and n > 4 else refs
     dc = ops.dc_predict(refs, n)                     # DC always unfiltered
@@ -94,13 +212,49 @@ def decide_modes(blocks: torch.Tensor, refs: torch.Tensor, n: int,
     if mode_set == "planar":
         return pl, torch.full((nb,), PLANAR_MODE, dtype=torch.int32,
                               device=blocks.device)
-    cost_dc = _cost(blocks, dc, decision)
-    cost_pl = _cost(blocks, pl, decision)
+    rd = decision == "rd"
+    if rd:
+        both = _rd_costs(blocks, torch.stack([dc, pl], dim=1), n, qp, use_dst,
+                         bit_depth, dequant_rescale, rd_lambda_scale)
+        cost_dc, cost_pl = both[:, 0], both[:, 1]
+    else:
+        cost_dc = _cost(blocks, dc, decision)
+        cost_pl = _cost(blocks, pl, decision)
+    mode_rate = rd and (grid is not None or mode_bits is not None)
+    if mode_rate:
+        lam = float(_rd_lambda(qp, rd_lambda_scale))
     if mode_set == "dc_planar":
+        if mode_rate:
+            if mode_bits is None:
+                first = torch.where(cost_dc <= cost_pl, DC_MODE, PLANAR_MODE)
+                mode_bits = mode_bits_for_grid(first.reshape(grid))
+            cost_dc = cost_dc + lam * mode_bits[:, DC_MODE]
+            cost_pl = cost_pl + lam * mode_bits[:, PLANAR_MODE]
         dc_wins = cost_dc <= cost_pl
         pred = torch.where(dc_wins[:, None, None], dc, pl)
         mode = torch.where(dc_wins, DC_MODE, PLANAR_MODE).to(torch.int32)
         return pred, mode
+
+    routed = smoothing and n > 4
+    refs_in = torch.cat([refs, refs_f], dim=1) if routed else refs
+    if rd:
+        # all 35 costs, [planar, DC, 2..34]: the mode-rate pass needs them
+        costs = torch.cat([cost_pl[:, None], cost_dc[:, None],
+                           _rd_angular_costs(blocks, refs_in, n, routed, qp,
+                                             use_dst, bit_depth,
+                                             dequant_rescale,
+                                             rd_lambda_scale)], dim=1)
+        if mode_rate:
+            if mode_bits is None:
+                first = costs.argmin(dim=1)
+                mode_bits = mode_bits_for_grid(first.reshape(grid))
+            costs = costs + lam * mode_bits
+        best_mode = costs.argmin(dim=1).to(torch.int32)   # ties -> lowest
+        ang = ops.intra._by_mode(refs_in, n, best_mode, routed)
+        sel = best_mode[:, None, None]
+        best_pred = torch.where(sel == PLANAR_MODE, pl,
+                                torch.where(sel == DC_MODE, dc, ang))
+        return best_pred, best_mode
 
     # 35-mode search: costs over [planar, DC, 2..34], strict < in mode
     # order, so ties go to the lowest index as JAX's argmin does.
@@ -108,8 +262,6 @@ def decide_modes(blocks: torch.Tensor, refs: torch.Tensor, n: int,
     best_cost = torch.where(dc_wins, cost_dc, cost_pl)
     best_mode = torch.where(dc_wins, DC_MODE, PLANAR_MODE).to(torch.int32)
     best_pred = torch.where(dc_wins[:, None, None], dc, pl)
-    routed = smoothing and n > 4
-    refs_in = torch.cat([refs, refs_f], dim=1) if routed else refs
     chunk = max(1, _SEARCH_CHUNK_ELEMS // max(1, nb * n * n))
     for start in range(0, len(ops.ALL_ANGULAR), chunk):
         modes = ops.ALL_ANGULAR[start:start + chunk]
@@ -174,9 +326,19 @@ def encode_plane_full(
     rdo_cbf: bool = False,
     rdoq: bool = False,
     dequant_rescale: bool = False,
+    rate_mode: str = "coder",
+    rd_lambda_scale: float = 1.0,
     intra_smoothing: bool = False,
 ) -> dict:
     """Plain PyTorch front-half encode of one plane.
+
+    rdoq re-decides the levels under D + lambda * R (`ops.rdoq`) before
+    reconstruction, lambda calibrated to the codec's quantization step.
+    rdo_cbf drops a block's residual (levels zeroed, recon = clipped
+    prediction) where SSE(skip) <= SSE(coded) + lambda(QP) * bits, the
+    bits from the adaptive model of the plane's packed levels
+    (rate_mode "coder") or from sum(log2(|l|+1)) + 2 per nonzero (any
+    other rate_mode).  rd_lambda_scale multiplies every lambda.
 
     Returns dict of tensors on the plane's device:
       recon  (H, W)    reconstruction (dropped edges copy the source)
@@ -184,27 +346,55 @@ def encode_plane_full(
       modes  (nb,)     chosen intra mode per block
       nnz    (nb,)     non-zero level count per block
     """
-    for flag, on in (("rdo_cbf", rdo_cbf), ("rdoq", rdoq)):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported yet")
     h, w = plane.shape
     src = plane.to(torch.int32)
     blocks = ops.tile_plane(src, n)
     refs = ops.extract_refs(src, n, boundary=1 << (bit_depth - 1))
-    pred, modes = decide_modes(blocks, refs, n, mode_set, decision,
-                               smoothing=intra_smoothing, bit_depth=bit_depth)
-    levels = ops.quantize(ops.forward_transform(blocks - pred, use_dst),
-                          qp, n, is_intra)
+    pred, modes = decide_modes(
+        blocks, refs, n, mode_set, decision, smoothing=intra_smoothing,
+        bit_depth=bit_depth, qp=qp, use_dst=use_dst,
+        dequant_rescale=dequant_rescale, rd_lambda_scale=rd_lambda_scale,
+        grid=(h // n, w // n))
+    coeff = ops.forward_transform(blocks - pred, use_dst)
+    levels = ops.quantize(coeff, qp, n, is_intra)
+    if rdoq:
+        lam = rd_lambda_calibrated(qp, n, use_dst, dequant_rescale,
+                                   rd_lambda_scale)
+        gain = ops.rdoq_gain(n, use_dst, coeff.device).expand(coeff.shape)
+        packed = ops.rdoq_levels(
+            ops.scan_pack(coeff, scan, modes=modes),
+            ops.scan_pack(levels, scan, modes=modes),
+            ops.scan_pack(gain, scan, modes=modes),
+            qp, n, lam, dequant_rescale=dequant_rescale)
+        levels = ops.scan_unpack(packed, scan, modes=modes)
+    else:
+        packed = ops.scan_pack(levels, scan, modes=modes)
     rec_res = ops.inverse_transform(
         ops.dequantize(levels, qp, n, rescale=dequant_rescale), use_dst
     )
     recon_blocks = _clip(pred + rec_res, bit_depth)
+    if rdo_cbf:
+        pred_clip = _clip(pred, bit_depth)
+        d_coded = ops.residual_energy_blocks(blocks - recon_blocks)
+        d_skip = ops.residual_energy_blocks(blocks - pred_clip)
+        # rates follow the coder's scan-positional contexts
+        bits = (ops.rate_model_bits_adaptive(packed) if rate_mode == "coder"
+                else ops.estimate_bits_blocks(levels))
+        lam = float(_rd_lambda(qp, rd_lambda_scale))
+        skip = d_skip.to(torch.float32) <= d_coded.to(torch.float32) + lam * bits
+        packed = torch.where(skip[:, None], 0, packed)
+        recon_blocks = torch.where(skip[:, None, None], pred_clip, recon_blocks)
     recon = src.clone()
     nby, nbx = h // n, w // n
     recon[: nby * n, : nbx * n] = ops.untile_plane(
         recon_blocks, nby * n, nbx * n
     )
-    return _finish(recon, levels, modes, scan)
+    return {
+        "recon": recon,
+        "levels": packed,
+        "modes": modes,
+        "nnz": (packed != 0).sum(dim=1).to(torch.int32),
+    }
 
 
 def encode_plane_fast(plane: torch.Tensor, qp: int, *, n: int,
@@ -311,16 +501,17 @@ def encode_frame_intra(frame: Frame, block_size: int,
 def encode_plane_config(plane: torch.Tensor, config: EncoderConfig,
                         is_luma: bool) -> dict:
     """One plane under an EncoderConfig, routed like the JAX package:
-    the slab kernel, else the mode-search kernel, where it applies; the
-    plain path otherwise."""
+    the slab kernel, else the mode-search kernel, where it applies and
+    the config asks for neither RD cbf nor RDOQ; the plain path
+    otherwise."""
     bs = config.block_size if is_luma else config.chroma_block_size()
-    if config.rdo_cbf or config.rdoq:
-        raise NotImplementedError("rdo_cbf / rdoq are not ported yet")
     width = plane.shape[1]
+    # RD cbf and RDOQ are stages of the plain path only
+    rd_stages = config.rdo_cbf or config.rdoq
     for applies, fast in ((supports_fast_path, encode_plane_fast),
                           (supports_mode_search_fast_path,
                            encode_plane_fast_modes)):
-        if applies(config, bs, width, is_luma):
+        if not rd_stages and applies(config, bs, width, is_luma):
             return fast(
                 plane, config.qp, n=bs, bit_depth=config.bit_depth,
                 scan=config.scan, use_dst=config.use_dst(bs, is_luma),
@@ -334,6 +525,8 @@ def encode_plane_config(plane: torch.Tensor, config: EncoderConfig,
         is_intra=config.is_intra,
         bit_depth=config.bit_depth,
         scan=config.scan,
+        rdo_cbf=config.rdo_cbf,
+        rdoq=config.rdoq,
         dequant_rescale=config.dequant_rescale,
         intra_smoothing=config.intra_smoothing and is_luma,
     )

@@ -34,10 +34,12 @@ What carries over from the JAX runner, and how it looks on a card:
 - Resume truncates the bitstream to the sidecar's byte count; a
   corrupt sidecar restarts from frame 0.
 
-Not ported yet: a device mesh (`mesh` raises NotImplementedError), and
-the in-loop filters and RD tools: deblocking, SAO and SAO-CTB raise
-ValueError on the open loop (as in the JAX package) and, with RDOQ and
-`decision="rd"`, NotImplementedError on the closed loop.
+The RD tools run on both loops as in the JAX package (`rdo_cbf`,
+`rdoq` and `decision="rd"` open loop; `rdoq` and `decision="rd"`
+closed loop), with resume and rate control.  Not ported yet: a device
+mesh (`mesh` raises NotImplementedError) and the in-loop filters:
+deblocking, SAO and SAO-CTB raise ValueError on the open loop (as in
+the JAX package) and NotImplementedError on the closed loop.
 `decode_sequence` refuses streams that carry deblocking or SAO.
 """
 

@@ -21,15 +21,19 @@ Routing (`encode_planes_closed_loop`):
   package sends DC/planar at batch >= 2 to its XLA scan instead
   (models/wavefront.py:307-321 there), a TPU timing choice: both of
   its paths give the same outputs bit for bit, and so does this one.
-- Other mode sets and decisions, luma reference smoothing, and
+- Other mode sets and decisions, luma reference smoothing, RDOQ and
   `allow_fast=False` run the plain loop
-  `kernels.wavefront.wavefront_encode_planes_reference`.
-- The JAX package's skew tables and skewed boundary buffers are a TPU
-  device for avoiding gathers and scatters; the plain loop gathers and
-  scatters the diagonal's blocks directly.  `kernel_split` and
-  `unroll` are TPU layout knobs and are not taken.
-- `decision="rd"`, RDOQ, deblocking and SAO are not ported yet and
-  raise NotImplementedError.
+  `kernels.wavefront.wavefront_encode_planes_reference`, which gathers
+  and scatters each diagonal's blocks directly (RDOQ prices each block
+  with the static table, so its batch does not matter); `rdoq` with
+  `allow_fast=True` raises ValueError, as in JAX.
+- `decision="rd"` prices its candidates with the adaptive rate model,
+  over the batch it is given, so it runs JAX's own batches: frame by
+  frame, each diagonal on all nby slots of the JAX package's skewed
+  layout, invalid slots included, with the skew tables and skewed
+  boundary buffers ported for it (`_encode_planes_rd`).
+- `kernel_split` and `unroll` are TPU layout knobs and are not taken.
+- Deblocking and SAO are not ported yet and raise NotImplementedError.
 
 Non-block-aligned planes are padded by edge replication and the recon
 cropped back (the conformance window), so `decode_plane` reproduces
@@ -47,22 +51,169 @@ import torch
 from nanohevc_tpu_torch import ops, resolve_device
 from nanohevc_tpu_torch.frame import Frame
 from nanohevc_tpu_torch.kernels.wavefront import (
+    code_residual,
     diagonal_blocks,
     wavefront_encode_planes,
     wavefront_encode_planes_reference,
     wavefront_supported,
 )
+from nanohevc_tpu_torch.ops.mode_rate import mpm_mode_bits
 
 
-def _refuse(decision: str = "energy", rdoq: bool = False,
-            deblock: bool = False, sao: bool = False,
+def _refuse(deblock: bool = False, sao: bool = False,
             sao_ctb: bool = False) -> None:
-    for flag, on in (('decision="rd"', decision == "rd"), ("rdoq", rdoq),
-                     ("deblock", deblock), ("sao", sao),
-                     ("sao_ctb", sao_ctb)):
+    for flag, on in (("deblock", deblock), ("sao", sao), ("sao_ctb", sao_ctb)):
         if on:
             raise NotImplementedError(
                 f"{flag} is not ported to the closed loop yet")
+
+
+# --- the RD decision's slot batches -------------------------------------------
+#
+# The RD decision prices candidates with the adaptive rate model, whose
+# statistics come from the whole batch it is given.  JAX decides each
+# diagonal of a frame on all nby slots of its skewed layout, the slots
+# off the plane included (they hold neighbouring rows' blocks and read
+# references from the skewed buffers); these helpers rebuild that
+# layout, so that every batch holds the same rows as JAX's.
+
+def _skew_tables(nby: int, nbx: int) -> tuple:
+    """(bx (ndiag, nby), valid (ndiag, nby)) of the skewed wavefront:
+    slot by of diagonal d holds block (by, d - by)."""
+    ndiag = nby + nbx - 1
+    bx = np.arange(ndiag)[:, None] - np.arange(nby)[None, :]
+    return bx, (bx >= 0) & (bx < nbx)
+
+
+def _skew_blocks(raster: torch.Tensor, nby: int, nbx: int) -> torch.Tensor:
+    """Raster (B, nby*nbx, ...) -> skewed (B, ndiag, nby, ...) by one pad
+    and reshape: skewed[d, by] = raster[by, d - by] where valid, and the
+    pad or a neighbouring row's block where not."""
+    b = raster.shape[0]
+    rest = tuple(raster.shape[2:])
+    ndiag = nby + nbx - 1
+    x = raster.reshape(b, nby, nbx, *rest)
+    pad = x.new_zeros((b, nby, ndiag + 1 - nbx, *rest))
+    x = torch.cat([x, pad], dim=2).reshape(b, nby * (ndiag + 1), *rest)
+    return x[:, :nby * ndiag].reshape(b, nby, ndiag, *rest).transpose(1, 2)
+
+
+def _deskew_blocks(skewed: torch.Tensor, nby: int, nbx: int) -> torch.Tensor:
+    """Skewed (B, ndiag, nby, ...) -> raster (B, nby*nbx, ...), the
+    inverse shear of `_skew_blocks`."""
+    b, ndiag = skewed.shape[:2]
+    rest = tuple(skewed.shape[3:])
+    x = skewed.transpose(1, 2).reshape(b, nby * ndiag, *rest)
+    x = torch.cat([x, x.new_zeros((b, nby, *rest))], dim=1)
+    return x.reshape(b, nby, ndiag + 1, *rest)[:, :, :nbx].reshape(
+        b, nby * nbx, *rest)
+
+
+def _skew_buffers(nby: int, nbx: int, n: int, device) -> tuple:
+    """Zero skewed boundary buffers (bottom rows, right columns): row by
+    of the first holds recon row (by+1)*N-1 from column by*N+N+1; row
+    bx+nby of the second holds recon column (bx+1)*N-1 from row
+    bx*N+N+1.  Diagonal d then reads at offset d*N and writes at
+    d*N+N+1 in every slot."""
+    ndiag = nby + nbx - 1
+    width = (ndiag + 2) * n + 2
+    return (torch.zeros((nby, width), dtype=torch.int32, device=device),
+            torch.zeros((ndiag + nby, width), dtype=torch.int32, device=device))
+
+
+def _read_refs_skewed(s_bot: torch.Tensor, r_sp: torch.Tensor, d: int, n: int,
+                      nby: int, boundary: int, bx: torch.Tensor) -> torch.Tensor:
+    """(nby, 4N+2) references of diagonal d's slots from the skewed
+    buffers, laid out as `ops.extract_refs_at` lays them out."""
+    top_rows = s_bot[:, d * n:d * n + 2 * n + 1]
+    top = torch.cat([torch.full_like(top_rows[:1], boundary), top_rows[:-1]])
+    left = r_sp[d:d + nby, d * n:d * n + 2 * n + 1].flip(0)
+    left = torch.where((bx == 0)[:, None], boundary, left)
+    by = torch.arange(nby, device=bx.device)
+    corner_edge = ((by == 0) | (bx == 0))[:, None]
+    top = torch.cat([torch.where(corner_edge, boundary, top[:, :1]),
+                     top[:, 1:]], dim=1)
+    left = torch.cat([torch.where(corner_edge, boundary, left[:, :1]),
+                      left[:, 1:]], dim=1)
+    return torch.cat([top, left], dim=-1)
+
+
+def _write_bufs_skewed(s_bot: torch.Tensor, r_sp: torch.Tensor,
+                       rec: torch.Tensor, d: int, ok: torch.Tensor,
+                       bx: torch.Tensor, n: int, nby: int, nbx: int) -> None:
+    """Blend diagonal d's bottom rows and right columns into the buffers
+    in place; valid slots write, with the N-wide tail replicating the
+    last pixel at the plane's last block column (row), invalid slots
+    keep the old contents.  The padded planes are block-aligned."""
+    c0 = d * n + n + 1
+    okc = ok[:, None]
+    last_pix = rec[:, n - 1, n - 1:n]
+    old_b = s_bot[:, c0:c0 + 2 * n]
+    head = torch.where(okc, rec[:, n - 1, :], old_b[:, :n])
+    tail = torch.where(okc & (bx == nbx - 1)[:, None], last_pix, old_b[:, n:])
+    s_bot[:, c0:c0 + 2 * n] = torch.cat([head, tail], dim=1)
+    old_r = r_sp[d + 1:d + 1 + nby, c0:c0 + 2 * n].flip(0)
+    by = torch.arange(nby, device=rec.device)
+    head = torch.where(okc, rec[:, :, n - 1], old_r[:, :n])
+    tail = torch.where(okc & (by == nby - 1)[:, None], last_pix, old_r[:, n:])
+    r_sp[d + 1:d + 1 + nby, c0:c0 + 2 * n] = torch.cat([head, tail], 1).flip(0)
+
+
+def _encode_planes_rd(planes: torch.Tensor, qp: int, n: int, *,
+                      mode_set: str, use_dst: bool, bit_depth: int,
+                      scan: str, dequant_rescale: bool,
+                      intra_smoothing: bool, rdoq: bool,
+                      rd_lambda_scale: float) -> dict:
+    """The closed loop under decision="rd", frame by frame on JAX's
+    slot batches: (B, Hp, Wp) block-aligned planes -> the dict of
+    `wavefront_encode_planes_reference`.
+
+    Each diagonal decides all nby slots in one `decide_modes` call, with
+    the exact MPM bits of the slots' left and above neighbours (the
+    previous diagonal's modes, DC where unavailable); the lambda of the
+    decision is unscaled and rd_lambda_scale reaches RDOQ only, as in
+    JAX.
+    """
+    from nanohevc_tpu_torch.models.all_intra import decide_modes
+
+    b, hp, wp = planes.shape
+    nby, nbx = hp // n, wp // n
+    ndiag = nby + nbx - 1
+    dev = planes.device
+    blocks = planes.reshape(b, nby, n, nbx, n).permute(0, 1, 3, 2, 4)
+    blocks_sk = _skew_blocks(blocks.reshape(b, nby * nbx, n, n), nby, nbx)
+    bx_t, ok_t = (torch.from_numpy(t).to(dev) for t in _skew_tables(nby, nbx))
+    boundary = 1 << (bit_depth - 1)
+    slot = torch.arange(nby, device=dev)
+    dc = torch.ones(1, dtype=torch.int32, device=dev)
+    frames = []
+    for f in range(b):
+        s_bot, r_sp = _skew_buffers(nby, nbx, n, dev)
+        prev = dc.expand(nby)
+        steps = []
+        for d in range(ndiag):
+            refs = _read_refs_skewed(s_bot, r_sp, d, n, nby, boundary, bx_t[d])
+            mode_bits = mpm_mode_bits(torch.where(slot == d, 1, prev),
+                                      torch.cat([dc, prev[:-1]]))
+            pred, prev = decide_modes(
+                blocks_sk[f, d], refs, n, mode_set, "rd",
+                smoothing=intra_smoothing, bit_depth=bit_depth, qp=qp,
+                use_dst=use_dst, dequant_rescale=dequant_rescale,
+                mode_bits=mode_bits)
+            levels, rec = code_residual(
+                blocks_sk[f, d], pred, qp, n, use_dst=use_dst,
+                bit_depth=bit_depth, dequant_rescale=dequant_rescale,
+                rdoq=rdoq, scan=scan, modes=prev,
+                rd_lambda_scale=rd_lambda_scale)
+            _write_bufs_skewed(s_bot, r_sp, rec, d, ok_t[d], bx_t[d], n, nby,
+                               nbx)
+            steps.append((rec, levels, prev))
+        frames.append([torch.stack(x) for x in zip(*steps)])
+    rec, levels, modes = (_deskew_blocks(torch.stack(x), nby, nbx)
+                          for x in zip(*frames))
+    recon = rec.reshape(b, nby, nbx, n, n).permute(0, 1, 3, 2, 4).reshape(
+        b, hp, wp)
+    return {"recon": recon, "levels": levels, "modes": modes}
 
 
 def pad_to_blocks(planes: torch.Tensor, n: int) -> torch.Tensor:
@@ -94,6 +245,7 @@ def encode_planes_closed_loop(
     sao: bool = False,
     sao_ctb: bool = False,
     rdoq: bool = False,
+    rd_lambda_scale: float = 1.0,
     allow_fast: bool | None = None,
 ) -> dict:
     """Batched wavefront encode of (B, H, W) planes, reconstruction-fed.
@@ -103,14 +255,20 @@ def encode_planes_closed_loop(
     planes' device; nb counts the blocks of the padded geometry.  qp is
     a Python int.  allow_fast=None takes the kernel where it applies
     (see the module docstring); False forces the plain loop; True
-    requires the kernel.
+    requires the kernel.  rdoq re-decides each block's levels inside
+    the loop (plain loop only), its lambda scaled by rd_lambda_scale.
     """
-    _refuse(decision, rdoq, deblock, sao, sao_ctb)
+    _refuse(deblock, sao, sao_ctb)
+    if rdoq and allow_fast:
+        raise ValueError(
+            "rdoq runs on the closed loop's plain path (the wavefront "
+            "kernel quantizes with plain deadzone); pass allow_fast=False "
+            "or None")
     b, h, w = planes.shape
     src = pad_to_blocks(planes.to(torch.int32), n)
     fits = wavefront_supported(n, mode_set, decision, use_dst)
     if allow_fast is None:
-        allow_fast = fits and not intra_smoothing
+        allow_fast = fits and not intra_smoothing and not rdoq
     elif allow_fast and (not fits or intra_smoothing):
         raise ValueError(
             f"the wavefront kernel does not cover n={n}, mode_set="
@@ -118,11 +276,16 @@ def encode_planes_closed_loop(
             f"intra_smoothing={intra_smoothing}")
     kw = dict(mode_set=mode_set, decision=decision, bit_depth=bit_depth,
               use_dst=use_dst, dequant_rescale=dequant_rescale)
+    plain = dict(intra_smoothing=intra_smoothing, rdoq=rdoq, scan=scan,
+                 rd_lambda_scale=rd_lambda_scale)
     if allow_fast:
         out = wavefront_encode_planes(src, int(qp), n, **kw)
+    elif decision == "rd":
+        out = _encode_planes_rd(src, int(qp), n, mode_set=mode_set,
+                                use_dst=use_dst, bit_depth=bit_depth,
+                                dequant_rescale=dequant_rescale, **plain)
     else:
-        out = wavefront_encode_planes_reference(
-            src, int(qp), n, intra_smoothing=intra_smoothing, **kw)
+        out = wavefront_encode_planes_reference(src, int(qp), n, **plain, **kw)
     nb = out["modes"].shape[1]
     levels = ops.scan_pack(out["levels"].reshape(b * nb, n, n), scan,
                            modes=out["modes"].reshape(b * nb))
@@ -149,7 +312,7 @@ def plane_args(config, is_luma: bool) -> dict:
     """`encode_planes_closed_loop` keywords of one plane of a frame
     under `config` (an `EncoderConfig`), as the JAX package derives
     them: chroma at half the block size (at least 4), with its own mode
-    set, DST at 4x4 luma, smoothing on luma only."""
+    set, DST at 4x4 luma, smoothing on luma only, RDOQ as configured."""
     bs = config.block_size if is_luma else config.chroma_block_size()
     return dict(
         n=bs,
@@ -160,6 +323,7 @@ def plane_args(config, is_luma: bool) -> dict:
         scan=config.scan,
         dequant_rescale=config.dequant_rescale,
         intra_smoothing=config.intra_smoothing and is_luma,
+        rdoq=config.rdoq,
     )
 
 
@@ -172,8 +336,7 @@ def encode_frame_closed_loop(frame: Frame, config, *,
     """
     from nanohevc_tpu_torch.runtime.bitstream import assemble_bitstream
 
-    _refuse(config.decision, config.rdoq, config.deblock, config.sao,
-            config.sao_ctb)
+    _refuse(config.deblock, config.sao, config.sao_ctb)
     dev = resolve_device(device)
     recon = Frame.zeros(frame.height, frame.width, dtype=np.int16)
     plane_levels, plane_modes = {}, {}

@@ -1,5 +1,6 @@
 """Plain PyTorch block ops: the port of `nanohevc_tpu.ops` for the
-open-loop slice (DC/planar and the 35-mode search) and the closed loop.
+open-loop slice (DC/planar and the 35-mode search), the closed loop and
+the RD stages (rate models, RDOQ).
 
 Everything operates on a `(num_blocks, N, N)` int32 block tensor on
 whatever device the input lies on (CPU or CUDA), integer-exact and
@@ -29,12 +30,21 @@ from nanohevc_tpu_torch.ops.transform import forward_transform, inverse_transfor
 from nanohevc_tpu_torch.ops.quant import dequantize, quantize
 from nanohevc_tpu_torch.ops.scan import mode_scan_idx, scan_pack, scan_unpack
 from nanohevc_tpu_torch.ops.metrics import (
+    count_nonzero_blocks,
+    estimate_bits_blocks,
     mse,
     psnr,
     residual_energy_blocks,
     sad_blocks,
     satd_blocks,
 )
+from nanohevc_tpu_torch.ops.rate import (
+    RateTable,
+    calibrate_rate_table,
+    model_bits as rate_model_bits,
+    model_bits_adaptive as rate_model_bits_adaptive,
+)
+from nanohevc_tpu_torch.ops.rdoq import rdoq_gain, rdoq_levels
 
 __all__ = [
     "tile_plane",
@@ -64,4 +74,12 @@ __all__ = [
     "sad_blocks",
     "satd_blocks",
     "residual_energy_blocks",
+    "estimate_bits_blocks",
+    "count_nonzero_blocks",
+    "RateTable",
+    "calibrate_rate_table",
+    "rate_model_bits",
+    "rate_model_bits_adaptive",
+    "rdoq_levels",
+    "rdoq_gain",
 ]

@@ -9,6 +9,9 @@ result is cast back; the sums are exact for 8/10-bit video:
 
 from __future__ import annotations
 
+from functools import lru_cache
+
+import numpy as np
 import torch
 
 from nanohevc_tpu_torch.ref.metrics import hadamard_matrix
@@ -53,3 +56,39 @@ def residual_energy_blocks(residual: torch.Tensor) -> torch.Tensor:
     """Sum of squared residuals per block over the last two axes, int32."""
     r = residual.to(torch.int32)
     return (r * r).sum(dim=(-2, -1)).to(torch.int32)
+
+
+# |level| + 1 covered by the log2 table of estimate_bits_blocks; the
+# int32 quantizer keeps levels below 2^15.
+_LOG2_TABLE_SIZE = 1 << 16
+
+
+@lru_cache(maxsize=None)
+def _log2_table(device: torch.device) -> torch.Tensor:
+    """float32 log2(k) of k = 1.._LOG2_TABLE_SIZE at index k - 1, taken
+    in float64 on the host and rounded once, so that CPU and card read
+    the same bits."""
+    k = np.arange(1, _LOG2_TABLE_SIZE + 1, dtype=np.float64)
+    return torch.from_numpy(np.log2(k).astype(np.float32)).to(device)
+
+
+def estimate_bits_blocks(levels: torch.Tensor) -> torch.Tensor:
+    """Per-block rate estimate: sum(log2(|l|+1)) + 2 per nonzero, over
+    all axes but the first, float32 (the reference's estimate_bits).
+
+    log2 comes from a host table (`_log2_table`), which can differ from
+    XLA's float32 log2 in the last place; the sum takes XLA's order
+    (`ops.rate.ordered_sum`) over the flattened block.
+    """
+    from nanohevc_tpu_torch.ops.rate import ordered_sum
+
+    a = levels.to(torch.int64).abs().reshape(levels.shape[0], -1)
+    table = _log2_table(levels.device)
+    idx = a.clamp(max=_LOG2_TABLE_SIZE - 1)
+    bits = table[idx] + torch.where(a > 0, 2.0, 0.0)
+    return ordered_sum(bits)
+
+
+def count_nonzero_blocks(levels: torch.Tensor) -> torch.Tensor:
+    """Per-block non-zero level count, int32."""
+    return (levels != 0).reshape(levels.shape[0], -1).sum(dim=1).to(torch.int32)

@@ -18,8 +18,11 @@ control) only because a Pallas kernel bakes its QP at compile time;
 the port's kernels take the QP at each launch and give the XLA path's
 outputs bit for bit, so they stay on the path and receive the runtime
 QP.  Without `honor_runtime_qp` the kernels take `config.qp`, as in
-the JAX package.  The closed loop runs `encode_planes_closed_loop`
-over the whole batch: one launch of the wavefront kernel per call.
+the JAX package.  RD cbf and RDOQ take the plain pipeline, plane by
+plane: the adaptive rate model prices each plane from its own
+statistics, as JAX's per-frame vmap does.  The closed loop runs
+`encode_planes_closed_loop` over the whole batch: one launch of the
+wavefront kernel per call.
 """
 
 from __future__ import annotations
@@ -122,10 +125,6 @@ def make_batch_encoder(config: EncoderConfig, mesh=None, is_luma: bool = True,
     pipeline always takes the qp argument.
     """
     _refuse_mesh(mesh)
-    if config.rdo_cbf or config.rdoq:
-        raise NotImplementedError("rdo_cbf / rdoq are not ported yet")
-    if config.decision == "rd":
-        raise NotImplementedError('decision="rd" is not ported yet')
     return partial(_batch_step, config=config, is_luma=is_luma,
                    honor_runtime_qp=honor_runtime_qp)
 
@@ -136,12 +135,12 @@ def make_closed_loop_encoder(config: EncoderConfig, mesh=None,
 
     Returns fn(planes (F, H, W) int32, qp int) -> dict(recon, levels
     (F, nb, N*N) scan-packed, modes (F, nb), psnr (F,), mean_psnr).
-    The F frames' same-index diagonals are coded together.  Deblocking,
-    SAO, RDOQ and RD decisions raise NotImplementedError.
+    The F frames' same-index diagonals are coded together (under
+    decision="rd" each frame is decided on its own slot batches, as in
+    JAX).  Deblocking and SAO raise NotImplementedError.
     """
     _refuse_mesh(mesh)
-    _refuse(config.decision, config.rdoq, config.deblock, config.sao,
-            config.sao_ctb)
+    _refuse(config.deblock, config.sao, config.sao_ctb)
     args = plane_args(config, is_luma)
 
     def run(planes: torch.Tensor, qp: int) -> dict:

@@ -177,12 +177,12 @@ def test_predict_pipeline_ignores_search_flags(capsys, yuv_input, flag):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--rdo"], ["--rdoq"],
+    ["--rdo", "--deblock"], ["--rdoq", "--sao"],
     ["--deblock"], ["--sao"], ["--sao-ctb"], ["--sao-tile", "32"],
     ["--hevc-export", "x.hevc"], ["--hevc-mono"], ["--chroma-mode", "dc"],
-    ["--pipeline", "closed-loop", "--rdoq"],
+    ["--pipeline", "closed-loop", "--rdoq", "--sao-ctb"],
     ["--pipeline", "closed-loop", "--deblock"],
-    ["--decision", "rd"],
+    ["--decision", "rd", "--hevc-mono"],
 ])
 def test_unported_encode_flags_exit_2(capsys, yuv_input, argv):
     _, src = yuv_input
@@ -208,10 +208,10 @@ def _sequence_stream(frame) -> bytes:
 
 @pytest.mark.parametrize("argv", [
     ["encode-seq", "{sequence}", "--width", "64", "--height", "48",
-     "--frames", "2", "--bitstream", "{out}", "--rdo"],
+     "--frames", "2", "--bitstream", "{out}", "--rdo", "--deblock"],
     ["--device", "cpu", "encode-seq", "{sequence}", "--width", "64",
      "--height", "48", "--frames", "2", "--bitstream", "{out}",
-     "--decision", "rd"],
+     "--decision", "rd", "--sao"],
     ["--platform", "cpu", "demo"],
 ])
 def test_unported_commands_exit_2(capsys, tmp_path, argv):
@@ -432,9 +432,10 @@ def test_target_bytes_needs_a_bitstream(capsys, yuv_input):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--rdo"], ["--rdoq"], ["--deblock"], ["--sao"], ["--sao-ctb"],
-    ["--sao-tile", "32"], ["--hevc-export", "x.hevc"], ["--hevc-mono"],
-    ["--chroma-mode", "dc"], ["--decision", "rd"],
+    ["--rdo", "--sao-ctb"], ["--rdoq", "--deblock"], ["--deblock"], ["--sao"],
+    ["--sao-ctb"], ["--sao-tile", "32"], ["--hevc-export", "x.hevc"],
+    ["--hevc-mono"], ["--chroma-mode", "dc"],
+    ["--decision", "rd", "--chroma-mode", "dc"],
 ])
 def test_unported_encode_seq_flags_exit_2(capsys, yuv_sequence, argv):
     tmp, src = yuv_sequence

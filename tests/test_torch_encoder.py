@@ -217,19 +217,6 @@ def test_create_test_frame_matches_jax():
     assert j.to_yuv420p() == t.to_yuv420p()
 
 
-@pytest.mark.parametrize("kw", [
-    dict(mode_set="all", decision="rd"),
-    dict(decision="rd"),
-    dict(rdo_cbf=True),
-    dict(rdoq=True),
-    dict(mode_set="all", decision="satd", intra_smoothing=True, rdoq=True),
-])
-def test_unported_configs_raise(kw):
-    cfg = EncoderConfig(block_size=8, qp=22, **kw)
-    with pytest.raises(NotImplementedError):
-        torch_frame_full(make_frame(16, 16, 1), cfg)
-
-
 MODE_SEARCH = dict(mode_set="all", decision="satd")
 
 

@@ -1,8 +1,9 @@
 """The port's copies of the host modules are still the originals.
 
 `nanohevc_tpu_torch` keeps its own copies of `tables`, `config`,
-`frame`, `ref` and `runtime` of `nanohevc_tpu`, so that it imports
-nothing of the JAX package.  Each copy is held to its original: the
+`frame`, `ref`, `runtime` and `ops/rate_tables` of `nanohevc_tpu`, so
+that it imports nothing of the JAX package.  Each copy is held to its
+original: the
 source text (apart from the header line, the import lines, paths into
 the upstream reference project, which the copies give from its root,
 and, for the native runtime's build, where the libraries go), and the
@@ -39,6 +40,7 @@ COPIES = [
     "ref/metrics.py", "ref/sao.py",
     "runtime/__init__.py", "runtime/entropy.py", "runtime/bitstream.py",
     "runtime/native/nanohevc_runtime.cpp", "runtime/native/hevc_cabac.cpp",
+    "ops/rate_tables.py",
 ]
 # Copies whose native-library build moved out of the source tree.
 BUILD_COPIES = ["runtime/build.py", "runtime/hevc.py"]
@@ -78,6 +80,17 @@ def test_native_runtime_builds_outside_the_sources():
     native = REPO / "nanohevc_tpu_torch" / "runtime" / "native"
     assert sorted(p.name for p in native.iterdir()) == [
         "hevc_cabac.cpp", "nanohevc_runtime.cpp"]
+
+
+# --- ops/rate_tables -------------------------------------------------------
+
+@pytest.mark.parametrize("ncoef", [16, 64, 256, 1024])
+def test_rate_tables_equal(ncoef):
+    from nanohevc_tpu.ops.rate_tables import DEFAULT_TABLES as want
+    from nanohevc_tpu_torch.ops.rate_tables import DEFAULT_TABLES as got
+
+    assert sorted(got) == sorted(want)
+    assert dataclasses.asdict(got[ncoef]) == dataclasses.asdict(want[ncoef])
 
 
 # --- tables -----------------------------------------------------------------

@@ -194,8 +194,9 @@ class TestDecideModes:
         assert torch.equal(whole[0], chunked[0])
         assert torch.equal(whole[1], chunked[1])
 
-    def test_rd_still_refused(self):
+    def test_rd_needs_qp(self):
+        """As in JAX: decision="rd" without a QP raises ValueError."""
         x, _, tr = _refs(91, 8)
         tb = tops.tile_plane(torch.from_numpy(x), 8)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="needs qp"):
             torch_ai.decide_modes(tb, tr, 8, "all", "rd")

@@ -6,8 +6,9 @@ import nothing from `nanohevc_tpu`, not even a module that imports no
 JAX.  Checked twice: statically over the sources (every module of the
 package, the sequence runner's included, and `chip_smoke.py`), and by
 running the port in a process where importing jax or `nanohevc_tpu`
-raises: an open-loop and a closed-loop frame, the CLI's demo, and a
-2-frame closed-loop sequence encoded and decoded.
+raises: an open-loop and a closed-loop frame, the CLI's demo and an
+`encode --rdo --rdoq`, and a 2-frame closed-loop sequence encoded and
+decoded.
 """
 
 import ast
@@ -108,6 +109,16 @@ JAX_BLOCKED = textwrap.dedent("""
         for p in ("y", "u", "v"):
             assert np.array_equal(getattr(decoded, p).data, getattr(recon, p).data)
     main(["--device", "cpu", "demo", "--width", "16", "--height", "16"])
+
+    import os
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = os.path.join(tmp, "f.yuv"), os.path.join(tmp, "f.bin")
+        with open(src, "wb") as f:
+            f.write(create_test_frame(16, 32).to_yuv420p())
+        main(["--device", "cpu", "encode", src, "--width", "32", "--height",
+              "16", "--pipeline", "full", "--rdo", "--rdoq", "--bitstream", out])
+        assert os.path.getsize(out) > 0
 
     import os
     import tempfile

@@ -306,9 +306,6 @@ def test_decode_refuses_deblocked_streams(tmp_path, seq32):
     (dict(deblock=True), True, NotImplementedError),
     (dict(sao=True), True, NotImplementedError),
     (dict(sao_ctb=True), True, NotImplementedError),
-    (dict(rdoq=True), True, NotImplementedError),
-    (dict(decision="rd"), True, NotImplementedError),
-    (dict(rdoq=True), False, NotImplementedError),
 ])
 def test_refusals(tmp_path, seq32, cfg, closed, exc):
     bits = tmp_path / "never.bin"

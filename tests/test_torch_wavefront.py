@@ -310,8 +310,8 @@ def test_decode_frame_rejects_corrupt_streams(cut):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(decision="rd"), dict(rdoq=True), dict(deblock=True), dict(sao=True),
-    dict(sao_ctb=True),
+    dict(decision="rd", deblock=True), dict(rdoq=True, sao=True),
+    dict(deblock=True), dict(sao=True), dict(sao_ctb=True),
 ])
 def test_unported_closed_loop_options_raise(kw):
     cfg = port_config.EncoderConfig(**kw)
