@@ -4,10 +4,10 @@
 
 Drives the port's main paths on seeded 1080p 4:2:0 input: the open-loop
 all-intra encode and the closed-loop (wavefront) encode with its
-decoder, each with the default EncoderConfig (8x8 luma, 4x4 chroma, QP
-22, DC/planar by energy) and with the 35-mode SATD search
-(mode_set="all", decision="satd", what the CLI's --mode-search
-selects); the blocks API `fused_encode_planes`; and the sequence runner
+decoder and its in-loop filters, each with the default EncoderConfig
+(8x8 luma, 4x4 chroma, QP 22, DC/planar by energy) and with the
+35-mode SATD search (mode_set="all", decision="satd", what the CLI's
+--mode-search selects); the blocks API `fused_encode_planes`; and the sequence runner
 over a 16-frame file at batch 8.  It checks them end to end:
 
 1. the card, its power limit, and the PyTorch and CUDA versions;
@@ -81,7 +81,26 @@ over a 16-frame file at batch 8.  It checks them end to end:
    loop) and rdoq (closed loop), every frame equal to its single-frame
    encode, bytes and mean Y-PSNR beside the runs without RD; 7e the
    CLI's `encode --rdo --rdoq` and `encode --decision rd`, bytes equal
-   to the API's.
+   to the API's;
+8. runs the in-loop filters, which launch no kernel of their own (plain
+   PyTorch on the card, as the JAX package runs them on XLA) after the
+   wavefront kernel: 8a the closed loop with deblock, sao, sao_ctb
+   (tiles of 32 and 64), deblock+sao and deblock+sao_ctb under the
+   default config and the mode search, and deblock+sao_ctb at 10 bits,
+   on a 256x256 and a 138x250 crop, and deblock+sao_ctb with RDOQ and
+   with decision="rd" on the 138x250 crop: card == CPU in recon and
+   bytes, each stream decoded on the card to its recon; 8b the 1080p frame with deblock+sao and deblock+sao_ctb
+   under both configs: the wavefront kernel launches once a plane and
+   nothing else launches, the stream decodes on the card to the recon,
+   bytes and Y-PSNR beside the unfiltered encode, the frame call and
+   its device part, and each filter stage's time a plane; 8c 16-frame
+   sequences at batch 8 with deblock+sao_ctb and with deblock+sao under
+   target_bpp: each frame == its single-frame encode at its slice QP
+   (levels, modes, SAO parameters), decode_sequence on the card == the
+   recon; 8d, in one CLI process, `encode --pipeline closed-loop
+   --deblock --sao-ctb` and `decode` (the API's bytes and recon), and
+   `--hevc-export` (4:2:0, `--hevc-mono`, `encode-seq`) on a crop, the
+   card's streams == the CPU's.
 
 Prints one JSON line of kernel results before the last line (the
 wavefront kernel has an entry per body, each with its launches), and
@@ -97,6 +116,7 @@ for the fused blocks kernel) says.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -1806,6 +1826,348 @@ def phase_rd(dev, tmp: str, src: str, frame: Frame, frames: list,
     log(f"[7] RD phase: {time.perf_counter() - t0:.1f} s [{gpu}]")
 
 
+# --- the loop filters and the standard export (8a-8d) -----------------------
+
+FILTER_CONFIGS = {
+    "deblock": dict(deblock=True),
+    "sao": dict(sao=True),
+    "sao_ctb (tile 32)": dict(sao_ctb=True, sao_tile=32),
+    "sao_ctb (tile 64)": dict(sao_ctb=True),
+    "deblock+sao": dict(deblock=True, sao=True),
+    "deblock+sao_ctb": dict(deblock=True, sao_ctb=True),
+}
+
+
+def filtered(base: EncoderConfig, **kw) -> EncoderConfig:
+    return dataclasses.replace(base, **kw)
+
+
+def same_frames(a: Frame, b: Frame) -> bool:
+    return all(np.array_equal(getattr(a, p).data, getattr(b, p).data)
+               for p in "yuv")
+
+
+def same_sao(a: dict, b: dict) -> bool:
+    """The per-plane SAO and CTB-SAO parameters of two parsed frames."""
+    pa, pb = a.get("params", {}), b.get("params", {})
+    for kind in ("sao", "sao_ctb"):
+        da, db = pa.get(kind) or {}, pb.get(kind) or {}
+        if da.keys() != db.keys() or not all(
+                np.array_equal(np.asarray(x), np.asarray(y))
+                for k in da for x, y in zip(da[k], db[k])):
+            return False
+    return True
+
+
+def ten_bit(frame: Frame, rng) -> Frame:
+    """The 8-bit frame scaled to 10 bits with noise in the low bits."""
+    return Frame(*(Plane(np.clip(p.data.astype(np.int32) * 4
+                                 + rng.integers(0, 4, p.data.shape), 0, 1023)
+                         .astype(np.int16)) for p in (frame.y, frame.u, frame.v)))
+
+
+def phase_filters_crops(dev, frame: Frame, gpu: str) -> None:
+    """8a: the closed loop with each filter config, on a 256x256 and a
+    138x250 crop, under the default config and the mode search, and at
+    10 bits (deblock+sao_ctb); with RDOQ and decision="rd"
+    (deblock+sao_ctb) on the 138x250 crop: card == CPU in recon and
+    bytes (levels, modes and every SAO parameter ride the bytes)."""
+    t0 = time.perf_counter()
+    cases = []
+    for h, w in ((256, 256), (138, 250)):
+        small = crop(frame, h, w)
+        for base_label, base in (("default", EncoderConfig()),
+                                 ("mode search", MODE_SEARCH)):
+            for label, kw in FILTER_CONFIGS.items():
+                cases.append((f"{label}, {base_label}", small,
+                              filtered(base, **kw)))
+        cases.append(("deblock+sao_ctb, 10-bit", ten_bit(small, np.random
+                                                         .default_rng(h)),
+                      EncoderConfig(deblock=True, sao_ctb=True, bit_depth=10)))
+    # The RD routes (seconds a crop on each device) on the unaligned crop.
+    unaligned = crop(frame, 138, 250)
+    cases.append(("deblock+sao_ctb, rdoq", unaligned,
+                  EncoderConfig(deblock=True, sao_ctb=True, rdoq=True)))
+    cases.append(('deblock+sao_ctb, decision="rd"', unaligned,
+                  EncoderConfig(deblock=True, sao_ctb=True, decision="rd")))
+    sizes = {}
+    for label, small, cfg in cases:
+        card = encode_frame_closed_loop(small, cfg, device=dev)
+        cpu = encode_frame_closed_loop(small, cfg, device="cpu")
+        if card[1] != cpu[1] or not same_frames(card[0], cpu[0]):
+            raise SystemExit(f"8a: {label} on a {small.height}x{small.width} "
+                             "crop: the card differs from the CPU")
+        decoded = decode_frame(card[1], device=dev)
+        if not same_frames(decoded, card[0]):
+            raise SystemExit(f"8a: {label}: decode_frame != recon")
+        sizes.setdefault(small.height, []).append(len(card[1]))
+    log(f"[8a] {len(cases)} filtered closed-loop encodes (6 filter configs x "
+        f"default and mode search, 10-bit; 256x256 and 138x250 crops; RDOQ "
+        f"and decision=\"rd\" on the 138x250 crop): card == CPU in recon and bytes, each stream "
+        f"decoded on the card to its recon; bytes 256x256 "
+        f"{min(sizes[256])}-{max(sizes[256])}, 138x250 "
+        f"{min(sizes[138])}-{max(sizes[138])} "
+        f"({time.perf_counter() - t0:.1f} s) [{gpu}]")
+
+
+def filter_stage_times(dev, frame: Frame, gpu: str) -> None:
+    """Each filter stage a padded 1080p plane (Y, U, V of the default
+    config's closed-loop recon): the stream's time a call between CUDA
+    events over 10 back-to-back calls (host dispatch gaps included),
+    and the device time a call through a CUDA graph (`graph_ms`)."""
+    from nanohevc_tpu_torch.ops import sao, sao_ctb
+    from nanohevc_tpu_torch.ops.deblock import deblock_plane
+
+    config = EncoderConfig()
+    parts = []
+    for name, p in (("Y", frame.y), ("U", frame.u), ("V", frame.v)):
+        args = plane_args(config, name == "Y")
+        src = pad_to_blocks(torch.from_numpy(p.data.astype(np.int32))[None]
+                            .to(dev), args["n"])
+        rec = encode_planes_closed_loop(src, config.qp, **args)["recon"]
+        chroma = name != "Y"
+        sao_params = sao.estimate_sao(src, rec)
+        maps = sao_ctb.estimate_sao_ctb(src, rec, 64, 22)
+        stages = {
+            "deblock": lambda: deblock_plane(rec, 22, 8, chroma),
+            "sao estimate": lambda: sao.estimate_sao(src, rec),
+            "sao apply": lambda: sao.apply_sao(rec, *sao_params),
+            "ctb estimate": lambda: sao_ctb.estimate_sao_ctb(src, rec, 64, 22),
+            "ctb apply": lambda: sao_ctb.apply_sao_ctb(rec, *maps, 64),
+        }
+        parts.append(f"{name} {tuple(src.shape[1:])}: " + ", ".join(
+            f"{k} {cuda_ms(fn, 10):.3f} / {graph_ms(fn, 5):.3f}"
+            for k, fn in stages.items()))
+    log("[8b] filter stages a padded plane, ms a call, stream (CUDA events "
+        "over 10 calls) / device (CUDA graph of 5 calls, median of 5 "
+        f"replays): {'; '.join(parts)} [{gpu}]")
+
+
+def frame_call_ms(dev, frame: Frame, cfg: EncoderConfig) -> tuple:
+    """The closed-loop frame call (median of 3 after the first) and its
+    device part: the three plane calls between CUDA events, host
+    dispatch gaps included (5 calls after 1 warm-up)."""
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        encode_frame_closed_loop(frame, cfg, device=dev)
+        walls.append(time.perf_counter() - t0)
+    planes = [torch.from_numpy(p.data.astype(np.int32))[None].to(dev)
+              for p in (frame.y, frame.u, frame.v)]
+    dev_ms = cuda_ms(lambda: [encode_planes_closed_loop(
+        p, cfg.qp, **plane_args(cfg, i == 0))
+        for i, p in enumerate(planes)], iters=5, warmup=1)
+    return 1e3 * sorted(walls)[1], dev_ms
+
+
+def phase_filters_frame(dev, frame: Frame, base_bits: dict,
+                        gpu: str) -> dict:
+    """8b: the 1080p frame under the default config and the mode search,
+    with deblock+sao and deblock+sao_ctb: the wavefront kernel launches
+    once a plane and no other kernel launches; the stream decodes on the
+    card to the recon; bytes and Y-PSNR beside the unfiltered encode;
+    the frame call and its device part, the unfiltered encode's timed in
+    the same run beside them.  Returns the wavefront launches by body
+    and the deblock+sao_ctb stream."""
+    launches = {"dc_planar": 0, "search": 0}
+    out = {}
+    mpix = H * W / 1e6
+    for base_label, base in (("default", EncoderConfig()),
+                             ("mode search", MODE_SEARCH)):
+        body = "dc_planar" if base.mode_set == "dc_planar" else "search"
+        plain_bits, plain_recon = base_bits[base_label]
+        plain_psnr = oracle.psnr(frame.y.data.astype(np.uint8),
+                                 plain_recon.y.data.astype(np.uint8))
+        plain_wall, plain_dev = frame_call_ms(dev, frame, base)
+        log(f"[8b] no filter, {base_label}, 1080p 4:2:0 closed loop on the "
+            f"card: frame call {plain_wall:.2f} ms (median of 3), device "
+            f"part {plain_dev:.2f} ms [{gpu}]")
+        for label in ("deblock+sao", "deblock+sao_ctb"):
+            cfg = filtered(base, **FILTER_CONFIGS[label])
+            reset_launches()
+            recon, bits = encode_frame_closed_loop(frame, cfg, device=dev)
+            torch.cuda.synchronize()
+            got = read_launches()
+            want = {k: 3 if k == "wavefront_encode_planes" else 0
+                    for k in KERNELS}
+            if got != want:
+                raise SystemExit(f"8b: {label}, {base_label} launched {got}, "
+                                 f"expected {want}")
+            launches[body] += got["wavefront_encode_planes"]
+            t0 = time.perf_counter()
+            decoded = decode_frame(bits, device=dev)
+            dec_s = time.perf_counter() - t0
+            if not same_frames(decoded, recon):
+                raise SystemExit(f"8b: {label}, {base_label}: decode_frame "
+                                 "on the card != recon")
+            wall_ms, dev_ms = frame_call_ms(dev, frame, cfg)
+            psnr = oracle.psnr(frame.y.data.astype(np.uint8),
+                               recon.y.data.astype(np.uint8))
+            log(f"[8b] {label}, {base_label}, 1080p 4:2:0 closed loop on the "
+                f"card: wavefront kernel 3 launches, no other kernel; "
+                f"{len(bits)} bytes, Y-PSNR {psnr:.2f} dB (unfiltered "
+                f"{len(plain_bits)} bytes, {plain_psnr:.2f} dB); decode_frame "
+                f"on the card == recon ({dec_s:.2f} s); frame call "
+                f"{wall_ms:.2f} ms (median of 3, {mpix / wall_ms * 1e3:.2f} "
+                f"Mpix/s luma; unfiltered {plain_wall:.2f}), device part "
+                f"{dev_ms:.2f} ms (unfiltered {plain_dev:.2f}) [{gpu}]")
+            out[label, base_label] = (bits, recon)
+    filter_stage_times(dev, frame, gpu)
+    return launches, out
+
+
+def phase_filters_sequence(dev, tmp: str, src: str, frames: list,
+                           gpu: str) -> int:
+    """8c: encode_sequence of the 16-frame 1080p file at batch 8, closed
+    loop, with deblock+sao_ctb, and with deblock+sao under target_bpp:
+    each frame == its single-frame encode (at its slice QP: levels,
+    modes and SAO parameters), and decode_sequence on the card == the
+    single-frame recons.  Returns the wavefront kernel's launches."""
+    total = 0
+    for label, cfg, kw in (
+            ("deblock+sao_ctb", EncoderConfig(deblock=True, sao_ctb=True), {}),
+            ("deblock+sao, target_bpp 1.0",
+             EncoderConfig(deblock=True, sao=True), dict(target_bpp=1.0))):
+        bits = os.path.join(tmp, f"filters_{len(kw)}.bin")
+        reset_launches()
+        t0 = time.perf_counter()
+        res = run_sequence(dev, src, bits, cfg, True, **kw)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        got = read_launches()
+        batches = -(-SEQ_FRAMES // SEQ_BATCH)
+        if got != {k: 2 * batches if k == "wavefront_encode_planes" else 0
+                   for k in KERNELS}:
+            raise SystemExit(f"8c: sequence {label} launched {got}")
+        total += got["wavefront_encode_planes"]
+        parsed = seq.decode_sequence_levels(bits)
+        recon, qps = [], []
+        for i, fr in enumerate(frames):
+            qp = parsed[i]["Y"].get("qp", cfg.qp)
+            qps.append(qp)
+            rec, fbits = encode_frame_closed_loop(fr, filtered(cfg, qp=qp),
+                                                  device=dev)
+            single = parse_bitstream(fbits)
+            if not (same_planes(parsed[i], single)
+                    and same_sao(parsed[i], single)):
+                raise SystemExit(f"8c: sequence {label} frame {i} differs "
+                                 "from its single-frame encode")
+            recon.append(rec.to_yuv420p())
+        dec = os.path.join(tmp, "filters_dec.yuv")
+        t0 = time.perf_counter()
+        n = seq.decode_sequence(bits, dec, device=dev)
+        dec_s = time.perf_counter() - t0
+        with open(dec, "rb") as f:
+            if n != SEQ_FRAMES or f.read() != b"".join(recon):
+                raise SystemExit(f"8c: decode_sequence ({label}) != recon")
+        log(f"[8c] encode_sequence {label}, 16 1080p frames, batch 8, "
+            f"closed loop: {run_s:.3f} s (first call), {res.bytes_written} "
+            f"bytes, mean Y-PSNR {res.mean_psnr_y:.2f} dB, slice QPs "
+            f"{sorted(set(qps))}; wavefront kernel {got['wavefront_encode_planes']}"
+            f" launches, no other kernel; each frame == its single-frame "
+            f"encode (levels, modes, SAO parameters); decode_sequence on the "
+            f"card == recon ({dec_s:.2f} s) [{gpu}]")
+    return total
+
+
+def run_cli(argv: list) -> str:
+    """The port's CLI on argument lists, in one process; its stdout."""
+    proc = subprocess.run(
+        [sys.executable, "-c", "import json, sys; from nanohevc_tpu_torch"
+         ".cli import main; [main(a) for a in json.loads(sys.argv[1])]",
+         json.dumps(argv)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+    )
+    if proc.returncode != 0:
+        raise SystemExit(f"CLI failed (rc {proc.returncode}):\n{proc.stderr}")
+    return proc.stdout
+
+
+def phase_filters_cli(dev, tmp: str, frame: Frame, frames: list,
+                      ctb: tuple, gpu: str) -> None:
+    """8d, through the CLI in one process: `encode --pipeline closed-loop
+    --deblock --sao-ctb` then `decode` on the card == the API's bytes and
+    recon; `--hevc-export` (4:2:0 with the default DC chroma mode, and
+    --hevc-mono) of a 256x256 crop and `encode-seq --hevc-export` of a
+    4-frame 270x480 file: the card's streams == the CPU's."""
+    t0 = time.perf_counter()
+    full = write_yuv(os.path.join(tmp, "filters_frame.yuv"), [frame])
+    out, rec, dec = (os.path.join(tmp, f"filters_{k}") for k in
+                     ("cli.bin", "rec.yuv", "dec.yuv"))
+    argv = [["encode", full, "--width", str(W), "--height", str(H),
+             "--pipeline", "closed-loop", "--bitstream", out, "-o", rec,
+             "--deblock", "--sao-ctb"], ["decode", out, "-o", dec]]
+    small = crop(frame, 256, 256)
+    one = write_yuv(os.path.join(tmp, "export.yuv"), [small])
+    few = write_yuv(os.path.join(tmp, "export_seq.yuv"),
+                    [crop(f, 270, 480) for f in frames[:4]])
+    exports = {}
+    for device in ("cuda", "cpu"):
+        exports[device] = [os.path.join(tmp, f"{device}_{k}.hevc")
+                           for k in ("420", "mono", "seq")]
+        outs = exports[device]
+        argv += [
+            ["--device", device, "encode", one, "--width", "256", "--height",
+             "256", "--pipeline", "closed-loop", "--hevc-export", outs[0]],
+            ["--device", device, "encode", one, "--width", "256", "--height",
+             "256", "--pipeline", "closed-loop", "--hevc-export", outs[1],
+             "--hevc-mono"],
+            ["--device", device, "encode-seq", few, "--width", "480",
+             "--height", "270", "--frames", "4", "--batch", "2",
+             "--closed-loop", "--no-resume", "--bitstream",
+             os.path.join(tmp, f"{device}_seq.bin"), "--hevc-export", outs[2]],
+        ]
+    run_cli(argv)
+    with open(out, "rb") as f:
+        cli_bits = f.read()
+    with open(rec, "rb") as f:
+        cli_rec = f.read()
+    with open(dec, "rb") as f:
+        cli_dec = f.read()
+    if cli_bits != ctb[0]:
+        raise SystemExit("8d: CLI bitstream differs from the library encode")
+    if not cli_rec == cli_dec == ctb[1].to_yuv420p():
+        raise SystemExit("8d: CLI recon or decoded YUV differs from the recon")
+    streams = {}
+    for device, paths in exports.items():
+        streams[device] = []
+        for path in paths:
+            with open(path, "rb") as f:
+                streams[device].append(f.read())
+    if streams["cuda"] != streams["cpu"]:
+        raise SystemExit("8d: --hevc-export streams on the card != the CPU's")
+    log(f"[8d] CLI encode --pipeline closed-loop --deblock --sao-ctb on the "
+        f"GPU, then decode: bitstream identical ({len(cli_bits)} bytes), "
+        f"decoded YUV == recon YUV; --hevc-export on the card == on the "
+        f"CPU: 256x256 4:2:0 (DC chroma) {len(streams['cuda'][0])} bytes, "
+        f"--hevc-mono {len(streams['cuda'][1])} bytes, encode-seq 4 frames "
+        f"270x480 {len(streams['cuda'][2])} bytes (one process, "
+        f"{time.perf_counter() - t0:.1f} s) [{gpu}]")
+
+
+def phase_filters(dev, tmp: str, src: str, frame: Frame, frames: list,
+                  base_bits: dict, gpu: str) -> dict:
+    """8: the loop filters (8a-8c) and the CLI with the filters and the
+    standard export (8d).  Returns the wavefront kernel's launches by
+    body on the main paths 8b and 8c."""
+    marks = [time.perf_counter()]
+    phase_filters_crops(dev, frame, gpu)
+    marks.append(time.perf_counter())
+    launches, streams = phase_filters_frame(dev, frame, base_bits, gpu)
+    marks.append(time.perf_counter())
+    launches["dc_planar"] += phase_filters_sequence(dev, tmp, src, frames,
+                                                    gpu)
+    marks.append(time.perf_counter())
+    phase_filters_cli(dev, tmp, frame, frames,
+                      streams["deblock+sao_ctb", "default"], gpu)
+    marks.append(time.perf_counter())
+    split = ", ".join(f"8{k} {b - a:.1f} s" for k, a, b
+                      in zip("abcd", marks, marks[1:]))
+    log(f"[8] loop filters and export: {marks[-1] - marks[0]:.1f} s "
+        f"({split}) [{gpu}]")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -1904,6 +2266,10 @@ def main() -> int:
     times["fused_encode_blocks"] = fused_times(dev, planes8, gpu)
     sequence_times(dev, tmp, src, frames, seq_bits["closed loop default"], gpu)
     phase_rd(dev, tmp, src, frame, frames, gpu)
+    for body, n in phase_filters(dev, tmp, src, frame, frames, {
+            "default": (cl_bits, cl_recon),
+            "mode search": (ms_cl_bits, ms_cl_recon)}, gpu).items():
+        wf_launches[body] += n
     tmp_dir.cleanup()
 
     # ms and bounds at the main path's shape, a 1080p luma plane at N = 8;

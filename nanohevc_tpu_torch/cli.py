@@ -2,15 +2,16 @@
 demo|encode|encode-seq|decode`.
 
 Output text and files equal those of `python -m nanohevc_tpu` for the
-same arguments.  Ported: the open-loop slice (DC/planar, the 35-mode
-search, reference smoothing), the closed loop (`encode --pipeline
+same arguments: the open-loop encode (DC/planar, the 35-mode search,
+reference smoothing), the closed loop (`encode --pipeline
 closed-loop`), the RD tools (`--rdo`, `--rdoq`, `--decision rd`), the
-rate search (`encode --target-bytes`), the sequence runner
-(`encode-seq`, with resume and `--target-bpp` rate control) and
-`decode` of single-frame and sequence streams.  The flags of the JAX
-CLI that need anything else (in-loop filters, the standard HEVC
-export, fixed chroma modes) exit with rc 2 and a "not yet ported"
-message; nothing runs in their place.
+in-loop filters (`--deblock`, `--sao`, `--sao-ctb`, `--sao-tile`;
+closed loop only), fixed chroma modes (`--chroma-mode`), the standard
+Annex B export (`--hevc-export`, `--hevc-mono`), the rate search
+(`encode --target-bytes`), the sequence runner (`encode-seq`, with
+resume and `--target-bpp` rate control) and `decode` of single-frame
+and sequence streams.  `--platform` (a JAX backend flag) exits with
+rc 2; `--device` takes its place.
 """
 
 from __future__ import annotations
@@ -19,13 +20,6 @@ import argparse
 import sys
 
 import numpy as np
-
-# JAX-CLI flags of `encode` and `encode-seq` that need code not ported
-# yet, by dest.
-_REFUSED_ENCODE_SWITCHES = ("deblock", "sao", "sao_ctb", "hevc_mono")
-_REFUSED_ENCODE_VALUES = (
-    "sao_tile", "hevc_export", "chroma_mode",
-)
 
 
 def demo_predictions(height: int, width: int, block_size: int, device) -> None:
@@ -116,6 +110,43 @@ def cmd_encode(args: argparse.Namespace) -> None:
         )
         sys.exit(1)
 
+    if (args.deblock or args.sao or args.sao_ctb) and \
+            args.pipeline != "closed-loop":
+        which = ("--deblock" if args.deblock
+                 else "--sao" if args.sao else "--sao-ctb")
+        print(
+            f"Error: {which} is an in-loop filter on the decodable "
+            "reconstruction; use --pipeline closed-loop",
+            file=sys.stderr,
+        )
+        sys.exit(1)
+
+    if args.hevc_export:
+        _check_export(args, "--pipeline closed-loop",
+                      args.pipeline == "closed-loop")
+
+    if args.pipeline == "closed-loop":
+        config = EncoderConfig(
+            block_size=args.block_size,
+            qp=args.qp,
+            mode_set="all" if args.mode_search else "dc_planar",
+            decision=args.decision or ("satd" if args.mode_search else "energy"),
+            chroma_mode_set=args.chroma_mode,
+            scan=args.scan,
+            entropy_coder=args.entropy,
+            rdoq=args.rdoq,
+            dequant_rescale=args.dequant_rescale,
+            intra_smoothing=args.intra_smoothing,
+            deblock=args.deblock,
+            sao=args.sao,
+            sao_ctb=args.sao_ctb,
+            sao_tile=args.sao_tile,
+        )
+        if args.target_bytes:
+            config = _rate_search(frame, config, args)
+        encode_closed_loop(frame, config, args)
+        return
+
     if args.pipeline == "predict":
         recon, stats = encode_frame_intra(
             frame, args.block_size, args.output, device=args.device
@@ -140,17 +171,13 @@ def cmd_encode(args: argparse.Namespace) -> None:
         decision=args.decision or ("satd" if args.mode_search else "energy"),
         scan=args.scan,
         entropy_coder=args.entropy,
-        # RD cbf is an open-loop stage; the closed loop takes RDOQ only
-        rdo_cbf=args.rdo and args.pipeline == "full",
+        rdo_cbf=args.rdo,
         rdoq=args.rdoq,
         dequant_rescale=args.dequant_rescale,
         intra_smoothing=args.intra_smoothing,
     )
     if args.target_bytes:
         config = _rate_search(frame, config, args)
-    if args.pipeline == "closed-loop":
-        encode_closed_loop(frame, config, args)
-        return
     recon, info = encode_frame_full(frame, config, device=args.device)
     if args.output:
         with open(args.output, "wb") as f:
@@ -189,8 +216,78 @@ def _rate_search(frame, config, args: argparse.Namespace):
     return replace(config, qp=qp)
 
 
+def _check_export(args: argparse.Namespace, loop_flag: str,
+                  closed_loop: bool) -> None:
+    """--hevc-export's checks: no filter (the exported SPS/PPS declare
+    them off), the closed loop, and a fixed chroma mode (DC unless
+    --chroma-mode says otherwise) for a 4:2:0 stream."""
+    bad = [f for f, on in (
+        ("--deblock", args.deblock), ("--sao", args.sao),
+        ("--sao-ctb", args.sao_ctb),
+    ) if on]
+    if bad:
+        print(
+            f"Error: {' '.join(bad)} cannot be represented in the "
+            "standard-syntax export (its PPS disables deblocking and "
+            "its SPS has SAO off); drop the flag or the export",
+            file=sys.stderr,
+        )
+        sys.exit(1)
+    if not closed_loop:
+        print(f"Error: --hevc-export requires {loop_flag}", file=sys.stderr)
+        sys.exit(1)
+    if args.chroma_mode is None and not args.hevc_mono:
+        # the spec signals ONE chroma mode per CU for both Cb and Cr
+        args.chroma_mode = "dc"
+        print("HEVC export: chroma planes use fixed DC mode "
+              "(--chroma-mode to override)")
+
+
+def _plane_raster(parsed: dict, name: str, n: int, scan: str):
+    """Container-parsed plane -> (raster levels (nb, n, n), modes)."""
+    from nanohevc_tpu_torch.runtime.bitstream import _np_unpack, _slice_scan_sel
+
+    p = parsed[name]
+    sel = _slice_scan_sel(scan, p["modes"], p["levels"].shape[0], n)
+    return _np_unpack(p["levels"], sel, n), np.asarray(p["modes"])
+
+
+_MODES_DIFFER = ("U and V planes coded different intra modes; the spec "
+                 "signals ONE chroma mode per CU \u2014 encode with "
+                 "--chroma-mode dc|planar")
+
+
+def _export_standard_stream(bitstream: bytes, config, height: int,
+                            width: int, mono: bool = False) -> bytes:
+    """Standard-syntax Annex B stream of an already coded container
+    bitstream (no second encode)."""
+    from nanohevc_tpu_torch.runtime.bitstream import parse_bitstream
+    from nanohevc_tpu_torch.runtime.hevc_stream import (
+        export_hevc_stream,
+        export_hevc_stream_420,
+    )
+
+    parsed = parse_bitstream(bitstream)
+    ly, my = _plane_raster(parsed, "Y", config.block_size, config.scan)
+    if mono:
+        return export_hevc_stream(
+            ly, my, height, width, config.block_size, config.qp,
+            config.bit_depth,
+        )
+    nc = config.chroma_block_size()
+    lu, mu = _plane_raster(parsed, "U", nc, config.scan)
+    lvv, mv = _plane_raster(parsed, "V", nc, config.scan)
+    if not np.array_equal(mu, mv):
+        raise ValueError(_MODES_DIFFER)
+    return export_hevc_stream_420(
+        ly, my, lu, lvv, mu, height, width, config.block_size,
+        config.qp, config.bit_depth,
+    )
+
+
 def encode_closed_loop(frame, config, args: argparse.Namespace) -> None:
-    """`encode --pipeline closed-loop`: the decodable wavefront encode."""
+    """`encode --pipeline closed-loop`: the decodable wavefront encode,
+    and its standard-syntax export with --hevc-export."""
     from nanohevc_tpu_torch.models.wavefront import encode_frame_closed_loop
     from nanohevc_tpu_torch.ref.metrics import psnr
 
@@ -211,23 +308,38 @@ def encode_closed_loop(frame, config, args: argparse.Namespace) -> None:
             f"  Bitstream: {args.bitstream} ({len(bitstream)} bytes, "
             f"{raw / len(bitstream):.1f}x vs raw, decodable)"
         )
+    if args.hevc_export:
+        stream = _export_standard_stream(
+            bitstream, config, args.height, args.width, mono=args.hevc_mono)
+        with open(args.hevc_export, "wb") as f:
+            f.write(stream)
+        kind = "luma, monochrome" if args.hevc_mono else "4:2:0 YUV"
+        print(f"  HEVC export ({kind} Annex B): "
+              f"{args.hevc_export} ({len(stream)} bytes)")
 
 
 def cmd_encode_seq(args: argparse.Namespace) -> None:
     from nanohevc_tpu_torch.config import EncoderConfig
     from nanohevc_tpu_torch.models.sequence import encode_sequence
 
+    if args.hevc_export:
+        _check_export(args, "--closed-loop", args.closed_loop)
     config = EncoderConfig(
         block_size=args.block_size,
         qp=args.qp,
         mode_set="all" if args.mode_search else "dc_planar",
         decision=args.decision or ("satd" if args.mode_search else "energy"),
+        chroma_mode_set=args.chroma_mode,
         scan=args.scan,
         entropy_coder=args.entropy,
         rdo_cbf=args.rdo,
         rdoq=args.rdoq,
         dequant_rescale=args.dequant_rescale,
         intra_smoothing=args.intra_smoothing,
+        deblock=args.deblock,
+        sao=args.sao,
+        sao_ctb=args.sao_ctb,
+        sao_tile=args.sao_tile,
     )
     res = encode_sequence(
         args.input,
@@ -261,6 +373,39 @@ def cmd_encode_seq(args: argparse.Namespace) -> None:
     for stage, s in res.stats.items():
         if stage not in ("throughput", "rate_control"):
             print(f"    {stage:8s} {s['total_s']:8.3f}s over {s['calls']} calls")
+    if args.hevc_export:
+        _export_sequence(args, config)
+
+
+def _export_sequence(args: argparse.Namespace, config) -> None:
+    """The whole sequence as one standard-syntax stream: an IDR access
+    unit a frame, from the container bitstream (no re-encode)."""
+    from nanohevc_tpu_torch.models.sequence import decode_sequence_levels
+    from nanohevc_tpu_torch.runtime.hevc_stream import HevcStreamWriter
+
+    writer = HevcStreamWriter(
+        args.height, args.width, config.block_size, config.qp,
+        bit_depth=config.bit_depth, chroma420=not args.hevc_mono,
+    )
+    nc = config.chroma_block_size()
+    for fr in decode_sequence_levels(args.bitstream):
+        fqp = fr["Y"].get("qp", config.qp)
+        ly, my = _plane_raster(fr, "Y", config.block_size, config.scan)
+        if args.hevc_mono:
+            writer.add_frame(ly, my, qp=fqp)
+            continue
+        lu, mu = _plane_raster(fr, "U", nc, config.scan)
+        lvv, mv = _plane_raster(fr, "V", nc, config.scan)
+        if not np.array_equal(mu, mv):
+            print(f"Error: {_MODES_DIFFER}", file=sys.stderr)
+            sys.exit(1)
+        writer.add_frame(ly, my, lu, lvv, mu, qp=fqp)
+    stream = writer.bytes()
+    with open(args.hevc_export, "wb") as f:
+        f.write(stream)
+    kind = "luma, monochrome" if args.hevc_mono else "4:2:0 YUV"
+    print(f"  HEVC export ({kind} Annex B, {writer.frames} IDR "
+          f"AUs): {args.hevc_export} ({len(stream)} bytes)")
 
 
 def cmd_decode(args: argparse.Namespace) -> None:
@@ -311,18 +456,49 @@ def assemble_frame_bitstream(width: int, height: int, config, info: dict) -> byt
     )
 
 
-def _not_ported(parser: argparse.ArgumentParser, what: str) -> None:
-    parser.error(f"{what} is not yet ported to nanohevc_tpu_torch")
-
-
-def _add_refused(sub: argparse.ArgumentParser) -> None:
-    """The JAX CLI's flags that the port refuses, hidden from --help."""
-    for dest in _REFUSED_ENCODE_SWITCHES:
-        sub.add_argument("--" + dest.replace("_", "-"), action="store_true",
-                         help=argparse.SUPPRESS)
-    for dest in _REFUSED_ENCODE_VALUES:
-        sub.add_argument("--" + dest.replace("_", "-"), default=None,
-                         help=argparse.SUPPRESS)
+def _add_filter_and_export_flags(sub: argparse.ArgumentParser,
+                                 what: str) -> None:
+    """The in-loop filter and standard-export flags of `encode` and
+    `encode-seq` (`what`: "frame" or "sequence")."""
+    sub.add_argument(
+        "--deblock", action="store_true",
+        help="in-loop deblocking filter (spec 8.7.2) on the decodable "
+        "reconstruction (closed loop only); carried in the PPS",
+    )
+    sub.add_argument(
+        "--sao", action="store_true",
+        help="sample adaptive offset (spec 8.7.3) after deblocking: "
+        "per-plane parameters estimated per frame, carried in a SAO NAL "
+        "(closed loop only)",
+    )
+    sub.add_argument(
+        "--sao-ctb", action="store_true",
+        help="CTB-granular SAO: per-tile parameters chosen by RD cost "
+        "with merge flags, in a bit-packed SAO NAL (closed loop only; "
+        "excludes --sao)",
+    )
+    sub.add_argument(
+        "--sao-tile", type=int, default=64,
+        help="CTB tile size in samples for --sao-ctb (power of two, "
+        "default 64)",
+    )
+    sub.add_argument(
+        "--hevc-export", metavar="PATH", default=None,
+        help=f"also export the {what} as a standalone standard-syntax "
+        "HEVC stream (Annex B; 4:2:0 by default, --hevc-mono for luma "
+        "only; closed loop only, block size >= 8, no in-loop filter), "
+        "built from the container bitstream without a second encode",
+    )
+    sub.add_argument(
+        "--hevc-mono", action="store_true",
+        help="--hevc-export writes a monochrome (luma-only) stream",
+    )
+    sub.add_argument(
+        "--chroma-mode", choices=("dc", "planar"), default=None,
+        help="fix the chroma planes' intra mode (no search); dc by "
+        "default under --hevc-export (the spec signals one chroma mode "
+        "per CU)",
+    )
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -407,7 +583,7 @@ def main(argv: list[str] | None = None) -> None:
         "this many bytes (bisection over real coder sizes; full and "
         "closed-loop pipelines)",
     )
-    _add_refused(enc)
+    _add_filter_and_export_flags(enc, "frame")
     enc.set_defaults(func=cmd_encode)
 
     seq = sub.add_parser(
@@ -458,7 +634,7 @@ def main(argv: list[str] | None = None) -> None:
         help="ignore existing progress sidecar and start over",
     )
     seq.add_argument("--report-every", type=int, default=0)
-    _add_refused(seq)
+    _add_filter_and_export_flags(seq, "sequence")
     seq.set_defaults(func=cmd_encode_seq)
 
     dec = sub.add_parser(
@@ -470,11 +646,8 @@ def main(argv: list[str] | None = None) -> None:
 
     args = parser.parse_args(argv)
     if args.platform is not None:
-        _not_ported(parser, "--platform (a JAX backend flag; use --device)")
-    if args.command in ("encode", "encode-seq"):
-        for dest in _REFUSED_ENCODE_SWITCHES + _REFUSED_ENCODE_VALUES:
-            if getattr(args, dest) not in (None, False):
-                _not_ported(parser, "--" + dest.replace("_", "-"))
+        parser.error("--platform chooses a JAX backend, which this package "
+                     "does not use; choose the torch device with --device")
     if args.command in ("demo", "encode", "encode-seq", "decode"):
         from nanohevc_tpu_torch import resolve_device
 

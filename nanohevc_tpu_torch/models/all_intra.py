@@ -46,6 +46,7 @@ from nanohevc_tpu_torch.kernels.slab_pipeline import (
 from nanohevc_tpu_torch.ops import rate
 from nanohevc_tpu_torch.ops.intra import DC_MODE, PLANAR_MODE
 from nanohevc_tpu_torch.ops.mode_rate import mode_bits_for_grid
+from nanohevc_tpu_torch.ops.rate import _rd_lambda
 from nanohevc_tpu_torch.ops.rdoq import rd_lambda_calibrated
 
 
@@ -65,36 +66,6 @@ def _cost(blocks: torch.Tensor, pred: torch.Tensor, decision: str) -> torch.Tens
 # angular modes: bounds its temporaries at about 2^23 int32/float64
 # values whatever the plane size.
 _SEARCH_CHUNK_ELEMS = 1 << 23
-
-# float32 bit patterns of JAX's exp2((qp - 12) / 3) at QP 0..51 (XLA's
-# float32 exp2, which is not the correctly rounded value at every QP:
-# at QP 51 it is 2^13 plus 4 ulps).
-_RD_EXP2_BITS = np.array([
-    0x3d800000, 0x3da14518, 0x3dcb2ff5, 0x3e000000, 0x3e214518, 0x3e4b2ff5,
-    0x3e800000, 0x3ea14518, 0x3ecb2ff5, 0x3f000000, 0x3f214518, 0x3f4b2ff5,
-    0x3f800000, 0x3fa14518, 0x3fcb2ff5, 0x40000000, 0x40214518, 0x404b2ff5,
-    0x40800000, 0x40a14518, 0x40cb2ff5, 0x41000000, 0x41214518, 0x414b2ff5,
-    0x41800000, 0x41a14518, 0x41cb2ff5, 0x42000000, 0x42214518, 0x424b2ff5,
-    0x42800000, 0x42a14518, 0x42cb2ff5, 0x43000000, 0x43214518, 0x434b2ff5,
-    0x43800000, 0x43a14518, 0x43cb2ff5, 0x44000000, 0x44214518, 0x444b2ff5,
-    0x44800000, 0x44a14518, 0x44cb2ff5, 0x45000000, 0x45214518, 0x454b2ffc,
-    0x45800000, 0x45a14513, 0x45cb2ff6, 0x46000004,
-], dtype=np.uint32).view(np.float32)
-
-
-def _rd_lambda(qp: int, rd_lambda_scale: float) -> np.float32:
-    """HEVC-style lambda(QP) = 0.57 * 2^((QP-12)/3), scaled, as JAX's
-    float32 product gives it: float32(scale * 0.57) * exp2 from the
-    table above (QP outside 0..51: exp2 in float64, rounded once).
-
-    One definition for the mode decision, the cbf decision and the
-    mode-rate term, so every RD mechanism prices bits alike.
-    """
-    qp = int(qp)
-    e = (_RD_EXP2_BITS[qp] if 0 <= qp < len(_RD_EXP2_BITS)
-         else np.float32(2.0 ** ((qp - 12) / 3)))
-    return np.float32(np.float32(rd_lambda_scale * 0.57) * e)
-
 
 def _rd_parts(blocks: torch.Tensor, preds: torch.Tensor, n: int, qp: int,
               use_dst: bool, bit_depth: int, dequant_rescale: bool):

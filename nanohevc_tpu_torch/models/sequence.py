@@ -36,11 +36,12 @@ What carries over from the JAX runner, and how it looks on a card:
 
 The RD tools run on both loops as in the JAX package (`rdo_cbf`,
 `rdoq` and `decision="rd"` open loop; `rdoq` and `decision="rd"`
-closed loop), with resume and rate control.  Not ported yet: a device
-mesh (`mesh` raises NotImplementedError) and the in-loop filters:
-deblocking, SAO and SAO-CTB raise ValueError on the open loop (as in
-the JAX package) and NotImplementedError on the closed loop.
-`decode_sequence` refuses streams that carry deblocking or SAO.
+closed loop), with resume and rate control.  The in-loop filters
+(deblocking, SAO, CTB SAO) run on the closed loop: each frame's SAO or
+CTB-SAO parameters ride the batch's fetch and its access unit's SAO
+NAL; the open loop refuses them with ValueError, as in the JAX
+package.  Not ported yet: a device mesh (`mesh` raises
+NotImplementedError).
 """
 
 from __future__ import annotations
@@ -135,6 +136,13 @@ class _BatchFetch:
             "c_modes": c_out["modes"].to(torch.int8),
             "psnr": y_out["psnr"],
         }
+        # The filters' per-frame parameters, as (plane kind, filter, i).
+        self.filters = [(tag, kind, len(o[kind]))
+                        for tag, o in (("y", y_out), ("c", c_out))
+                        for kind in ("sao", "sao_ctb") if kind in o]
+        for tag, kind, count in self.filters:
+            out = y_out if tag == "y" else c_out
+            small.update({(tag, kind, i): out[kind][i] for i in range(count)})
         self.event = None
         if dev.type == "cuda":
             small = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
@@ -144,8 +152,10 @@ class _BatchFetch:
         self.small = small
 
     def fetch(self, copy_stream) -> tuple:
-        """(y_levels, y_modes, c_levels, c_modes, psnr) as host ndarrays,
-        waiting for this batch's event and nothing enqueued after it."""
+        """(y_levels, y_modes, c_levels, c_modes, psnr, filters) as host
+        ndarrays (filters: {("y" or "c", "sao" or "sao_ctb"): tuple of
+        arrays}), waiting for this batch's event and nothing enqueued
+        after it."""
         ctx = contextlib.nullcontext()
         if self.event is not None:
             self.event.synchronize()
@@ -158,9 +168,12 @@ class _BatchFetch:
             y_levels, c_levels = (
                 fetch_levels({"header": self.small[k]}, tuple(d.shape), dense=d)
                 for k, d in zip(("y_header", "c_header"), self.dense))
+        filters = {(tag, kind): tuple(self.small[tag, kind, i].numpy()
+                                      for i in range(count))
+                   for tag, kind, count in self.filters}
         return (y_levels, self.small["y_modes"].numpy().astype(np.int32),
                 c_levels, self.small["c_modes"].numpy().astype(np.int32),
-                self.small["psnr"].numpy())
+                self.small["psnr"].numpy(), filters)
 
 
 def encode_sequence(
@@ -300,8 +313,8 @@ def encode_sequence(
             nonlocal cur_qp
             first, take, batch_qp, fetch = pending
             with sw.time("fetch"):
-                y_levels, y_modes, c_levels, c_modes, psnr = fetch.fetch(
-                    copy_stream)
+                y_levels, y_modes, c_levels, c_modes, psnr, filters = (
+                    fetch.fetch(copy_stream))
                 y_levels, y_modes = y_levels[:take], y_modes[:take]
                 psnrs.extend(float(v) for v in psnr[:take])
             batch_bytes = 0
@@ -309,6 +322,23 @@ def encode_sequence(
                 cb = config.chroma_block_size()
                 for i in range(take):
                     aud = entropy.wrap_nal(NAL_AUD, struct.pack("<I", first + i))
+                    sao_i = sao_ctb_i = None
+                    if config.sao:
+                        y_sao, c_sao = filters["y", "sao"], filters["c", "sao"]
+                        sao_i = {
+                            "Y": tuple(a[i] for a in y_sao),
+                            "U": tuple(a[i] for a in c_sao),
+                            "V": tuple(a[batch + i] for a in c_sao),
+                        }
+                    if config.sao_ctb:
+                        t_ = config.sao_tile
+                        y_ctb = filters["y", "sao_ctb"]
+                        c_ctb = filters["c", "sao_ctb"]
+                        sao_ctb_i = {
+                            "Y": (t_,) + tuple(a[i] for a in y_ctb),
+                            "U": (t_,) + tuple(a[i] for a in c_ctb),
+                            "V": (t_,) + tuple(a[batch + i] for a in c_ctb),
+                        }
                     frame_bs = assemble_bitstream(
                         width,
                         height,
@@ -326,6 +356,8 @@ def encode_sequence(
                         scan=config.scan,
                         entropy_tiles=entropy_tiles,
                         entropy_coder=config.entropy_coder,
+                        sao=sao_i,
+                        sao_ctb=sao_ctb_i,
                     )
                     # assemble_bitstream repeats parameter sets per call;
                     # strip them here (sequence carries one global set)
@@ -407,17 +439,13 @@ def decode_sequence(bitstream_path: str, output_path: str, *,
 
     Geometry and QP come from the stream's parameter sets.  Returns the
     number of frames written.  Frames decode in chunks of 8 through
-    `decode_planes` with per-frame slice QPs, or one by one where a
-    chunk mixes block sizes.  (Streams produced with closed_loop=False
+    `decode_planes` with per-frame slice QPs and SAO or CTB-SAO
+    parameters (identity for a frame without them), or one by one where
+    a chunk mixes block sizes.  (Streams produced with closed_loop=False
     parse but do not decode to the encoder's pixels -- open-loop
     prediction reads source neighbours a decoder does not have.)
-    Streams that carry deblocking or SAO raise NotImplementedError.
     """
-    from nanohevc_tpu_torch.models.wavefront import (
-        _refuse,
-        decode_plane,
-        decode_planes,
-    )
+    from nanohevc_tpu_torch.models.wavefront import decode_plane, decode_planes
     from nanohevc_tpu_torch.runtime import entropy as E
     from nanohevc_tpu_torch.runtime.bitstream import (
         _SCAN_NAME,
@@ -466,10 +494,6 @@ def decode_sequence(bitstream_path: str, output_path: str, *,
                         f"PPS signals SAO but frame {b0 + fi} has no "
                         "SAO NAL (truncated or corrupted stream)"
                     )
-            _refuse(deblock=deblock,
-                    sao=any(fr.get("params", {}).get("sao") for fr in chunk),
-                    sao_ctb=any(fr.get("params", {}).get("sao_ctb")
-                                for fr in chunk))
             planes_out = {}
             for name, (h, w) in (
                 ("Y", (height, width)),
@@ -479,7 +503,9 @@ def decode_sequence(bitstream_path: str, output_path: str, *,
                 sls = [fr[name] for fr in chunk]
                 kw = dict(height=h, width=w, bit_depth=bit_depth, scan=scan,
                           dequant_rescale=rescale,
-                          intra_smoothing=smoothing and name == "Y")
+                          intra_smoothing=smoothing and name == "Y",
+                          deblock=deblock, is_chroma=name != "Y")
+                sao_b, sao_ctb_b = _chunk_sao(chunk, name)
                 bs = sls[0]["block_size"]
                 if any(s["block_size"] != bs for s in sls):
                     # mixed per-slice block sizes: decode singly
@@ -489,15 +515,21 @@ def decode_sequence(bitstream_path: str, output_path: str, *,
                             torch.from_numpy(np.ascontiguousarray(s["modes"])).to(dev),
                             s.get("qp", qp), n=s["block_size"],
                             use_dst=(name == "Y" and s["block_size"] == 4),
+                            sao=None if sao_b is None
+                            else tuple(a[j] for a in sao_b),
+                            sao_ctb=None if sao_ctb_b is None
+                            else (sao_ctb_b[0],) + tuple(
+                                a[j] for a in sao_ctb_b[1:]),
                             **kw,
-                        ).cpu().numpy().astype(dt) for s in sls
+                        ).cpu().numpy().astype(dt) for j, s in enumerate(sls)
                     ]
                     continue
                 recon = decode_planes(
                     torch.from_numpy(np.stack([s["levels"] for s in sls])).to(dev),
                     torch.from_numpy(np.stack([s["modes"] for s in sls])).to(dev),
                     [s.get("qp", qp) for s in sls],
-                    n=bs, use_dst=(name == "Y" and bs == 4), **kw,
+                    n=bs, use_dst=(name == "Y" and bs == 4),
+                    sao=sao_b, sao_ctb=sao_ctb_b, **kw,
                 )
                 planes_out[name] = list(recon.cpu().numpy().astype(dt))
             for i in range(len(chunk)):
@@ -505,6 +537,34 @@ def decode_sequence(bitstream_path: str, output_path: str, *,
                     out.write(np.asarray(planes_out[name][i], dtype=dt).tobytes())
                 n_written += 1
     return n_written
+
+
+def _chunk_sao(chunk: list, name: str) -> tuple:
+    """The chunk's per-frame SAO parameters of plane `name`, stacked:
+    (sao, sao_ctb) as `decode_planes` takes them, None where no frame
+    carries any.  A frame without parameters gets the identity (type 0
+    per frame, all-off maps for CTB SAO), so the chunk still decodes in
+    one call."""
+    saos = [fr.get("params", {}).get("sao", {}).get(name) for fr in chunk]
+    sao_b = None
+    if any(s is not None for s in saos):
+        off = (0, 0, np.zeros(4, np.int32))
+        filled = [s if s is not None else off for s in saos]
+        sao_b = (np.array([s[0] for s in filled], np.int32),
+                 np.array([s[1] for s in filled], np.int32),
+                 np.stack([np.asarray(s[2], np.int32) for s in filled]))
+    ctbs = [fr.get("params", {}).get("sao_ctb", {}).get(name) for fr in chunk]
+    sao_ctb_b = None
+    if any(c is not None for c in ctbs):
+        tile = next(c[0] for c in ctbs if c is not None)
+        shape = next(np.asarray(c[1]).shape for c in ctbs if c is not None)
+        zero = (tile, np.zeros(shape, np.int32), np.zeros(shape, np.int32),
+                np.zeros(shape + (4,), np.int32))
+        filled = [c if c is not None else zero for c in ctbs]
+        sao_ctb_b = (tile,) + tuple(
+            np.stack([np.asarray(c[k], np.int32) for c in filled])
+            for k in (1, 2, 3))
+    return sao_b, sao_ctb_b
 
 
 def decode_sequence_levels(bitstream_path: str) -> List[Dict[str, dict]]:

@@ -33,14 +33,21 @@ Routing (`encode_planes_closed_loop`):
   layout, invalid slots included, with the skew tables and skewed
   boundary buffers ported for it (`_encode_planes_rd`).
 - `kernel_split` and `unroll` are TPU layout knobs and are not taken.
-- Deblocking and SAO are not ported yet and raise NotImplementedError.
+
+The in-loop filters follow every route, on the padded recon and in
+JAX's order: deblocking (`ops.deblock_plane`, chroma's p0/q0 filter
+with `deblock_chroma`), then per-frame SAO (`ops.sao`) or CTB SAO
+(`ops.sao_ctb`, tiles of `sao_tile`), each estimated against the
+padded source.  Intra prediction reads the unfiltered recon, so levels
+and modes do not change; the decoders apply the same filters with the
+parameters the stream carries.
 
 Non-block-aligned planes are padded by edge replication and the recon
 cropped back (the conformance window), so `decode_plane` reproduces
 the encoder's reconstruction pixel for pixel at any geometry.  The
 decoder runs the same diagonal loop with `ops.predict_by_mode_mm`, in
 plain PyTorch on the device of its inputs (the JAX decoder runs no
-Pallas kernel either).
+Pallas kernel either), then the filters.
 """
 
 from __future__ import annotations
@@ -58,14 +65,8 @@ from nanohevc_tpu_torch.kernels.wavefront import (
     wavefront_supported,
 )
 from nanohevc_tpu_torch.ops.mode_rate import mpm_mode_bits
-
-
-def _refuse(deblock: bool = False, sao: bool = False,
-            sao_ctb: bool = False) -> None:
-    for flag, on in (("deblock", deblock), ("sao", sao), ("sao_ctb", sao_ctb)):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported to the closed loop yet")
+from nanohevc_tpu_torch.ops.sao import apply_sao, estimate_sao
+from nanohevc_tpu_torch.ops.sao_ctb import apply_sao_ctb, estimate_sao_ctb
 
 
 # --- the RD decision's slot batches -------------------------------------------
@@ -242,8 +243,10 @@ def encode_planes_closed_loop(
     dequant_rescale: bool = False,
     intra_smoothing: bool = False,
     deblock: bool = False,
+    deblock_chroma: bool = False,
     sao: bool = False,
     sao_ctb: bool = False,
+    sao_tile: int = 64,
     rdoq: bool = False,
     rd_lambda_scale: float = 1.0,
     allow_fast: bool | None = None,
@@ -257,8 +260,13 @@ def encode_planes_closed_loop(
     (see the module docstring); False forces the plain loop; True
     requires the kernel.  rdoq re-decides each block's levels inside
     the loop (plain loop only), its lambda scaled by rd_lambda_scale.
+    The filters (deblock, then sao or sao_ctb) act on the recon; with
+    sao the dict also holds "sao" ((B,) type, (B,) band_pos, (B, 4)
+    offsets), with sao_ctb "sao_ctb" ((B, nty, ntx) type, band and
+    (B, nty, ntx, 4) offset maps over tiles of sao_tile samples).
     """
-    _refuse(deblock, sao, sao_ctb)
+    if sao and sao_ctb:
+        raise ValueError("sao and sao_ctb are mutually exclusive")
     if rdoq and allow_fast:
         raise ValueError(
             "rdoq runs on the closed loop's plain path (the wavefront "
@@ -289,19 +297,36 @@ def encode_planes_closed_loop(
     nb = out["modes"].shape[1]
     levels = ops.scan_pack(out["levels"].reshape(b * nb, n, n), scan,
                            modes=out["modes"].reshape(b * nb))
-    return {"recon": out["recon"][:, :h, :w],
-            "levels": levels.reshape(b, nb, n * n),
-            "modes": out["modes"]}
+    res = {"levels": levels.reshape(b, nb, n * n), "modes": out["modes"]}
+    recon = out["recon"]
+    if deblock:
+        # An output filter on the padded recon: the wavefront predicted
+        # from unfiltered samples, and the decoder filters alike.
+        recon = ops.deblock_plane(recon, int(qp), bit_depth=bit_depth,
+                                  is_chroma=deblock_chroma)
+    if sao:
+        res["sao"] = estimate_sao(src, recon, bit_depth)
+        recon = apply_sao(recon, *res["sao"], bit_depth)
+    if sao_ctb:
+        res["sao_ctb"] = estimate_sao_ctb(src, recon, sao_tile, int(qp),
+                                          bit_depth)
+        recon = apply_sao_ctb(recon, *res["sao_ctb"], sao_tile, bit_depth)
+    # Crop the conformance-window pad; levels and modes keep the padded
+    # block geometry (the decoder derives it from the SPS dimensions).
+    res["recon"] = recon[:, :h, :w]
+    return res
 
 
 def encode_plane_closed_loop(plane: torch.Tensor, qp: int, **kwargs) -> dict:
     """Single-plane wavefront encode; see encode_planes_closed_loop.
 
-    Returns {"recon" (H, W), "levels" (nb, N*N), "modes" (nb,)}: the
-    (modes, levels) pair is all `decode_plane` needs to reconstruct.
+    Returns {"recon" (H, W), "levels" (nb, N*N), "modes" (nb,)}, and
+    the plane's "sao" or "sao_ctb" parameters where asked: the (modes,
+    levels) pair and those are all `decode_plane` needs to reconstruct.
     """
     out = encode_planes_closed_loop(plane[None], qp, **kwargs)
-    return {k: v[0] for k, v in out.items()}
+    return {k: tuple(x[0] for x in v) if isinstance(v, tuple) else v[0]
+            for k, v in out.items()}
 
 
 def _planes_of(frame: Frame):
@@ -312,7 +337,8 @@ def plane_args(config, is_luma: bool) -> dict:
     """`encode_planes_closed_loop` keywords of one plane of a frame
     under `config` (an `EncoderConfig`), as the JAX package derives
     them: chroma at half the block size (at least 4), with its own mode
-    set, DST at 4x4 luma, smoothing on luma only, RDOQ as configured."""
+    set, DST at 4x4 luma, smoothing on luma only, RDOQ and the filters as
+    configured (chroma's deblocking filter on the chroma planes)."""
     bs = config.block_size if is_luma else config.chroma_block_size()
     return dict(
         n=bs,
@@ -323,6 +349,11 @@ def plane_args(config, is_luma: bool) -> dict:
         scan=config.scan,
         dequant_rescale=config.dequant_rescale,
         intra_smoothing=config.intra_smoothing and is_luma,
+        deblock=config.deblock,
+        deblock_chroma=not is_luma,
+        sao=config.sao,
+        sao_ctb=config.sao_ctb,
+        sao_tile=config.sao_tile,
         rdoq=config.rdoq,
     )
 
@@ -332,14 +363,14 @@ def encode_frame_closed_loop(frame: Frame, config, *,
     """Closed-loop encode of a Frame -> (recon Frame, bitstream bytes).
 
     `config` is an `EncoderConfig`.  The bitstream decodes to the recon
-    pixel for pixel through `decode_frame`.
+    pixel for pixel through `decode_frame`; it carries each plane's SAO
+    or CTB-SAO parameters in a SAO NAL.
     """
     from nanohevc_tpu_torch.runtime.bitstream import assemble_bitstream
 
-    _refuse(config.deblock, config.sao, config.sao_ctb)
     dev = resolve_device(device)
     recon = Frame.zeros(frame.height, frame.width, dtype=np.int16)
-    plane_levels, plane_modes = {}, {}
+    plane_levels, plane_modes, sao, sao_ctb = {}, {}, {}, {}
     for (name, src), (_, dst) in zip(_planes_of(frame), _planes_of(recon)):
         args = plane_args(config, name == "Y")
         out = encode_plane_closed_loop(
@@ -348,6 +379,12 @@ def encode_frame_closed_loop(frame: Frame, config, *,
         dst.data[...] = out["recon"].cpu().numpy().astype(np.int16)
         plane_levels[name] = (out["levels"].cpu().numpy(), args["n"])
         plane_modes[name] = out["modes"].cpu().numpy()
+        if config.sao:
+            t, pos, offs = (a.cpu().numpy() for a in out["sao"])
+            sao[name] = (int(t), int(pos), offs)
+        if config.sao_ctb:
+            sao_ctb[name] = (config.sao_tile,) + tuple(
+                a.cpu().numpy() for a in out["sao_ctb"])
     bitstream = assemble_bitstream(
         frame.width, frame.height, config.qp, plane_levels, plane_modes,
         bit_depth=config.bit_depth, scan=config.scan,
@@ -355,6 +392,8 @@ def encode_frame_closed_loop(frame: Frame, config, *,
         intra_smoothing=config.intra_smoothing,
         entropy_coder=config.entropy_coder,
         deblock=config.deblock,
+        sao=sao if config.sao else None,
+        sao_ctb=sao_ctb if config.sao_ctb else None,
     )
     return recon, bitstream
 
@@ -383,8 +422,10 @@ def decode_frame(bitstream: bytes, *,
     scan = _SCAN_NAME[params.get("scan_idx", 0)]
     rescale = params.get("dequant_rescale", False)
     smoothing = params.get("intra_smoothing", False)
-    if params.get("sao_enabled") and not (params.get("sao")
-                                          or params.get("sao_ctb")):
+    deblock = params.get("deblock", False)
+    sao_all = params.get("sao") or {}
+    sao_ctb_all = params.get("sao_ctb") or {}
+    if params.get("sao_enabled") and not (sao_all or sao_ctb_all):
         # The PPS promised per-frame SAO parameters; a stream that lost
         # its SAO NAL must fail loudly, not decode silently unfiltered.
         raise CorruptBitstreamError(
@@ -397,8 +438,6 @@ def decode_frame(bitstream: bytes, *,
             f"stream is missing plane slices: {sorted(missing)} "
             "(truncated, or slice NALs corrupted)"
         )
-    _refuse(deblock=params.get("deblock", False),
-            sao=bool(params.get("sao")), sao_ctb=bool(params.get("sao_ctb")))
     recon = Frame.zeros(height, width, dtype=np.int16)
     for name, dst in _planes_of(recon):
         sl = parsed[name]
@@ -415,6 +454,10 @@ def decode_frame(bitstream: bytes, *,
             scan=scan,
             dequant_rescale=rescale,
             intra_smoothing=smoothing and name == "Y",   # spec: luma only
+            deblock=deblock,
+            is_chroma=name != "Y",
+            sao=sao_all.get(name),
+            sao_ctb=sao_ctb_all.get(name),
         )
         dst.data[...] = plane.cpu().numpy().astype(np.int16)
     return recon
@@ -424,12 +467,20 @@ def decode_planes(levels: torch.Tensor, modes: torch.Tensor, qps, *, n: int,
                   height: int, width: int, use_dst: bool = False,
                   bit_depth: int = 8, scan: str = "diag",
                   dequant_rescale: bool = False, intra_smoothing: bool = False,
-                  deblock: bool = False, sao=None,
+                  deblock: bool = False, is_chroma: bool = False, sao=None,
                   sao_ctb=None) -> torch.Tensor:
     """Batched decode_plane: (B, nb, N*N) levels, (B, nb) modes and B
     per-frame QPs -> (B, H, W) int32 reconstructions, on the device of
-    `levels`.  The B frames' diagonals are decoded together."""
-    _refuse(deblock=deblock, sao=sao is not None, sao_ctb=sao_ctb is not None)
+    `levels`.  The B frames' diagonals are decoded together.
+
+    Then the filters, frame by frame on the padded recon: deblocking at
+    each frame's QP (chroma's filter with is_chroma), and sao, a
+    per-frame ((B,) type, (B,) band_pos, (B, 4) offsets) triple, or
+    sao_ctb, (tile, (B, nty, ntx) type, (B, nty, ntx) band, (B, nty,
+    ntx, 4) offset maps); arrays from the stream or tensors.
+    """
+    if sao is not None and sao_ctb is not None:
+        raise ValueError("pass per-frame sao OR sao_ctb, not both")
     hp, wp = -(-height // n) * n, -(-width // n) * n
     nby, nbx = hp // n, wp // n
     b = levels.shape[0]
@@ -454,6 +505,14 @@ def decode_planes(levels: torch.Tensor, modes: torch.Tensor, qps, *, n: int,
         rec = (pred + res[:, by, bx].reshape(b * m, n, n)).clamp(
             0, (1 << bit_depth) - 1)
         rec_blocks[:, by, bx] = rec.reshape(b, m, n, n)
+    if deblock:
+        recon = ops.deblock_plane(
+            recon, torch.tensor([int(q) for q in qps], device=dev),
+            bit_depth=bit_depth, is_chroma=is_chroma)
+    if sao is not None:
+        recon = apply_sao(recon, *sao, bit_depth)
+    if sao_ctb is not None:
+        recon = apply_sao_ctb(recon, *sao_ctb[1:], sao_ctb[0], bit_depth)
     return recon[:, :height, :width]
 
 
@@ -464,8 +523,16 @@ def decode_plane(levels: torch.Tensor, modes: torch.Tensor, qp: int, *,
     (nb, N*N) scan-packed levels + (nb,) modes -> (H, W) int32 recon,
     by the encoder's wavefront: dequantize and inverse-transform the
     residual, predict each diagonal from the already-reconstructed
-    neighbours, add, clip.  A non-aligned geometry decodes the padded
-    one and crops back.  Keywords as `decode_planes`.
+    neighbours, add, clip, filter.  A non-aligned geometry decodes the
+    padded one and crops back.  Keywords as `decode_planes`, with sao
+    the plane's (type, band_pos, offsets[4]) and sao_ctb its (tile,
+    type map, band map, offset map).
     """
+    sao, sao_ctb = kwargs.pop("sao", None), kwargs.pop("sao_ctb", None)
+    if sao is not None:
+        sao = tuple(torch.as_tensor(a)[None] for a in sao)
+    if sao_ctb is not None:
+        sao_ctb = (sao_ctb[0],) + tuple(torch.as_tensor(a)[None]
+                                        for a in sao_ctb[1:])
     return decode_planes(levels[None], modes[None], [qp], n=n, height=height,
-                         width=width, **kwargs)[0]
+                         width=width, sao=sao, sao_ctb=sao_ctb, **kwargs)[0]

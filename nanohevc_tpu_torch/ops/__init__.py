@@ -1,6 +1,7 @@
 """Plain PyTorch block ops: the port of `nanohevc_tpu.ops` for the
-open-loop slice (DC/planar and the 35-mode search), the closed loop and
-the RD stages (rate models, RDOQ).
+open-loop slice (DC/planar and the 35-mode search), the closed loop,
+the RD stages (rate models, RDOQ) and the in-loop filters (deblocking
+here; SAO in `ops.sao` and `ops.sao_ctb`).
 
 Everything operates on a `(num_blocks, N, N)` int32 block tensor on
 whatever device the input lies on (CPU or CUDA), integer-exact and
@@ -45,6 +46,7 @@ from nanohevc_tpu_torch.ops.rate import (
     model_bits_adaptive as rate_model_bits_adaptive,
 )
 from nanohevc_tpu_torch.ops.rdoq import rdoq_gain, rdoq_levels
+from nanohevc_tpu_torch.ops.deblock import deblock_plane
 
 __all__ = [
     "tile_plane",
@@ -82,4 +84,5 @@ __all__ = [
     "rate_model_bits_adaptive",
     "rdoq_levels",
     "rdoq_gain",
+    "deblock_plane",
 ]

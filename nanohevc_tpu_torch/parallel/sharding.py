@@ -22,7 +22,7 @@ the JAX package.  RD cbf and RDOQ take the plain pipeline, plane by
 plane: the adaptive rate model prices each plane from its own
 statistics, as JAX's per-frame vmap does.  The closed loop runs
 `encode_planes_closed_loop` over the whole batch: one launch of the
-wavefront kernel per call.
+wavefront kernel per call, the in-loop filters after it.
 """
 
 from __future__ import annotations
@@ -41,7 +41,6 @@ from nanohevc_tpu_torch.models.all_intra import (
     supports_mode_search_fast_path,
 )
 from nanohevc_tpu_torch.models.wavefront import (
-    _refuse,
     encode_planes_closed_loop,
     plane_args,
 )
@@ -134,13 +133,13 @@ def make_closed_loop_encoder(config: EncoderConfig, mesh=None,
     """A multi-frame closed-loop (wavefront) encoder.
 
     Returns fn(planes (F, H, W) int32, qp int) -> dict(recon, levels
-    (F, nb, N*N) scan-packed, modes (F, nb), psnr (F,), mean_psnr).
-    The F frames' same-index diagonals are coded together (under
-    decision="rd" each frame is decided on its own slot batches, as in
-    JAX).  Deblocking and SAO raise NotImplementedError.
+    (F, nb, N*N) scan-packed, modes (F, nb), psnr (F,), mean_psnr,
+    and the per-frame "sao" or "sao_ctb" parameters where the config
+    asks for them).  The F frames' same-index diagonals are coded
+    together (under decision="rd" each frame is decided on its own slot
+    batches, as in JAX); the filters act on the whole batch.
     """
     _refuse_mesh(mesh)
-    _refuse(config.deblock, config.sao, config.sao_ctb)
     args = plane_args(config, is_luma)
 
     def run(planes: torch.Tensor, qp: int) -> dict:

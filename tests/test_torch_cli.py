@@ -4,8 +4,9 @@ For the same arguments (the port with --device cpu, the JAX CLI with
 --platform cpu) stdout and the files written must be identical, for
 `demo`, `encode` (predict, full and closed-loop pipelines) and
 `decode`.  `encode-seq`, `decode` of a sequence and `encode --target-bytes` too.
-Flags the port does not cover yet exit with rc 2; a missing card fails
-instead of running on the CPU.
+The in-loop filter and standard-export flags give the JAX CLI's rc,
+stdout, stderr and files, refusals and errors included; a missing card
+fails instead of running on the CPU.
 """
 
 import os
@@ -22,6 +23,38 @@ from nanohevc_tpu_torch.cli import main as torch_main
 from nanohevc_tpu_torch.models.all_intra import create_test_frame
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _outcome(run, argv):
+    """rc of a CLI call: 0, its SystemExit code, or the type and text
+    of the exception it raised."""
+    try:
+        run(argv)
+    except SystemExit as e:
+        return e.code
+    except Exception as e:                 # both CLIs let config errors out
+        return (type(e).__name__, str(e))
+    return 0
+
+
+def _run_both_rc(capsys, args, outputs=(), timing_free=False):
+    """Run both CLIs; return (rc, stdout, stderr, files) of each (files
+    that were not written read as None)."""
+    results = []
+    for run, flag in ((jax_main, ["--platform", "cpu"]),
+                      (torch_main, ["--device", "cpu"])):
+        for path in outputs:
+            if os.path.exists(path):
+                os.remove(path)
+        rc = _outcome(run, flag + args)
+        files = {}
+        for path in outputs:
+            files[path] = (open(path, "rb").read() if os.path.exists(path)
+                           else None)
+        out, err = capsys.readouterr()
+        results.append((rc, _timing_free(out) if timing_free else out, err,
+                        files))
+    return results
 
 
 def _run_both(capsys, args, outputs=()):
@@ -185,44 +218,48 @@ def test_predict_pipeline_ignores_search_flags(capsys, yuv_input, flag):
     ["--decision", "rd", "--hevc-mono"],
 ])
 def test_unported_encode_flags_exit_2(capsys, yuv_input, argv):
-    _, src = yuv_input
-    with pytest.raises(SystemExit) as exc:
-        torch_main(["--device", "cpu", "encode", src, "--width", "64",
-                    "--height", "48", "--pipeline", "full"] + argv)
-    assert exc.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
-
-
-def _sequence_stream(frame) -> bytes:
-    """Two closed-loop frames behind access-unit delimiters (NAL type
-    35), the layout of the JAX package's sequence streams."""
-    import struct
-
-    from nanohevc_tpu_torch.config import EncoderConfig
-    from nanohevc_tpu_torch.models.wavefront import encode_frame_closed_loop
-    from nanohevc_tpu_torch.runtime.entropy import wrap_nal
-
-    _, bits = encode_frame_closed_loop(frame, EncoderConfig(), device="cpu")
-    return b"".join(wrap_nal(35, struct.pack("<I", i)) + bits for i in range(2))
+    """The flags the port once refused with rc 2, after `--pipeline
+    full`: rc, stdout, stderr and files equal the JAX CLI's, whether it
+    refuses (filters and export off the closed loop: rc 1), ignores the
+    flag or encodes."""
+    tmp, src = yuv_input
+    out, bits, hevc = (str(tmp / f) for f in ("out.yuv", "out.bin", "x.hevc"))
+    argv = [hevc if a == "x.hevc" else a for a in argv]
+    jax_run, port_run = _run_both_rc(
+        capsys, ["encode", src, "--width", "64", "--height", "48",
+                 "--pipeline", "full", "-o", out, "--bitstream", bits] + argv,
+        outputs=[out, bits, hevc])
+    assert port_run == jax_run
+    assert "not yet ported" not in port_run[2]
 
 
 @pytest.mark.parametrize("argv", [
-    ["encode-seq", "{sequence}", "--width", "64", "--height", "48",
-     "--frames", "2", "--bitstream", "{out}", "--rdo", "--deblock"],
-    ["--device", "cpu", "encode-seq", "{sequence}", "--width", "64",
-     "--height", "48", "--frames", "2", "--bitstream", "{out}",
-     "--decision", "rd", "--sao"],
     ["--platform", "cpu", "demo"],
 ])
 def test_unported_commands_exit_2(capsys, tmp_path, argv):
-    seq, out = tmp_path / "seq.bin", tmp_path / "d.yuv"
-    seq.write_bytes(_sequence_stream(create_test_frame(16, 32)))
-    argv = [a.format(sequence=seq, out=out) for a in argv]
+    """--platform picks a JAX backend: the port refuses it with rc 2 and
+    points at --device."""
     with pytest.raises(SystemExit) as exc:
         torch_main(argv)
     assert exc.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
-    assert not out.exists()
+    err = capsys.readouterr().err
+    assert "--platform" in err and "--device" in err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--rdo", "--deblock"], ["--decision", "rd", "--sao"],
+])
+def test_open_loop_sequence_filters_raise_as_jax(capsys, yuv_sequence, argv):
+    """`encode-seq` with a filter and without --closed-loop raises the
+    JAX runner's ValueError, and writes no bitstream."""
+    tmp, src = yuv_sequence
+    bits = str(tmp / "never.bin")
+    jax_run, port_run = _run_both_rc(
+        capsys, ["encode-seq", src, "--width", "64", "--height", "32",
+                 "--frames", "2", "--bitstream", bits] + argv,
+        outputs=[bits])
+    assert port_run == jax_run
+    assert port_run[0][0] == "ValueError" and port_run[3][bits] is None
 
 
 @pytest.mark.parametrize("extra", [
@@ -438,15 +475,19 @@ def test_target_bytes_needs_a_bitstream(capsys, yuv_input):
     ["--decision", "rd", "--chroma-mode", "dc"],
 ])
 def test_unported_encode_seq_flags_exit_2(capsys, yuv_sequence, argv):
+    """The `encode-seq --closed-loop` flags the port once refused with
+    rc 2: rc, stdout (without its wall-clock lines), stderr, bitstream,
+    sidecar and export equal the JAX CLI's."""
     tmp, src = yuv_sequence
-    bits = tmp / "never.bin"
-    with pytest.raises(SystemExit) as exc:
-        torch_main(["--device", "cpu", "encode-seq", src, "--width", "64",
-                    "--height", "32", "--frames", "2", "--closed-loop",
-                    "--bitstream", str(bits)] + argv)
-    assert exc.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
-    assert not bits.exists()
+    bits, hevc = str(tmp / "seq.bin"), str(tmp / "x.hevc")
+    argv = [hevc if a == "x.hevc" else a for a in argv]
+    jax_run, port_run = _run_both_rc(
+        capsys, ["encode-seq", src, "--width", "64", "--height", "32",
+                 "--frames", "2", "--batch", "2", "--closed-loop",
+                 "--bitstream", bits] + argv,
+        outputs=[bits, bits + ".progress", hevc], timing_free=True)
+    assert port_run == jax_run
+    assert port_run[0] == 0 and port_run[3][bits]
 
 
 def test_encode_seq_without_card_fails(capsys, monkeypatch, yuv_sequence):

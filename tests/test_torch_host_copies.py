@@ -1,7 +1,9 @@
 """The port's copies of the host modules are still the originals.
 
 `nanohevc_tpu_torch` keeps its own copies of `tables`, `config`,
-`frame`, `ref`, `runtime` and `ops/rate_tables` of `nanohevc_tpu`, so
+`frame`, `ref` (the deblocking oracle included), `runtime` (the
+standard-stream writer `hevc_stream` included) and `ops/rate_tables`
+of `nanohevc_tpu`, so
 that it imports nothing of the JAX package.  Each copy is held to its
 original: the
 source text (apart from the header line, the import lines, paths into
@@ -37,8 +39,9 @@ REPO = Path(__file__).resolve().parent.parent
 COPIES = [
     "tables.py", "config.py", "frame.py",
     "ref/__init__.py", "ref/intra.py", "ref/transform.py", "ref/quant.py",
-    "ref/metrics.py", "ref/sao.py",
+    "ref/metrics.py", "ref/sao.py", "ref/deblock.py",
     "runtime/__init__.py", "runtime/entropy.py", "runtime/bitstream.py",
+    "runtime/hevc_stream.py",
     "runtime/native/nanohevc_runtime.cpp", "runtime/native/hevc_cabac.cpp",
     "ops/rate_tables.py",
 ]
@@ -284,6 +287,22 @@ def test_ref_sao_equal():
                               j_sao.eo_categories(rec, eo))
 
 
+@pytest.mark.parametrize("is_chroma", [False, True], ids=["luma", "chroma"])
+def test_ref_deblock_equal(is_chroma):
+    import nanohevc_tpu.ref.deblock as j_deblock
+    import nanohevc_tpu_torch.ref.deblock as t_deblock
+
+    rng = np.random.default_rng(4 + is_chroma)
+    plane = np.kron(rng.integers(40, 200, (5, 6)), np.ones((8, 8), int))
+    plane = (plane + rng.integers(-3, 4, plane.shape)).astype(np.int32)
+    assert np.array_equal(t_deblock.BETA_TABLE, j_deblock.BETA_TABLE)
+    assert np.array_equal(t_deblock.TC_TABLE, j_deblock.TC_TABLE)
+    for qp in (18, 37, 51):
+        assert np.array_equal(
+            t_deblock.deblock_plane(plane, qp, 8, is_chroma),
+            j_deblock.deblock_plane(plane, qp, 8, is_chroma))
+
+
 # --- runtime ----------------------------------------------------------------
 
 def _planes(n_y, rng, with_modes):
@@ -329,6 +348,33 @@ def test_bitstream_bytes_and_parse_equal(case):
                 assert np.array_equal(tp[key][k], v), (key, k)
             else:
                 assert tp[key][k] == v, (key, k)
+
+
+@pytest.mark.parametrize("chroma420", [False, True], ids=["mono", "420"])
+def test_hevc_stream_bytes_equal(chroma420):
+    import nanohevc_tpu.runtime.hevc_stream as j_hs
+    import nanohevc_tpu_torch.runtime.hevc_stream as t_hs
+
+    rng = np.random.default_rng(8 + chroma420)
+    n, h, w = 8, 16, 32
+    nb = (h // n) * (w // n)
+
+    def levels(count, size):
+        lv = rng.integers(-3, 4, (count, size, size))
+        return (lv * (rng.random(lv.shape) < 0.2)).astype(np.int32)
+
+    ly, my = levels(nb, n), rng.integers(0, 35, nb).astype(np.int32)
+    lu, lv, mc = levels(nb, n // 2), levels(nb, n // 2), np.ones(nb, np.int32)
+    streams = []
+    for mod in (j_hs, t_hs):
+        writer = mod.HevcStreamWriter(h, w, n, 30, chroma420=chroma420)
+        for qp in (30, 33):
+            if chroma420:
+                writer.add_frame(ly, my, lu, lv, mc, qp=qp)
+            else:
+                writer.add_frame(ly, my, qp=qp)
+        streams.append(writer.bytes())
+    assert streams[1] == streams[0] and len(streams[0]) > 0
 
 
 # --- models/rate_control ----------------------------------------------------

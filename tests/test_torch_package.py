@@ -6,8 +6,9 @@ import nothing from `nanohevc_tpu`, not even a module that imports no
 JAX.  Checked twice: statically over the sources (every module of the
 package, the sequence runner's included, and `chip_smoke.py`), and by
 running the port in a process where importing jax or `nanohevc_tpu`
-raises: an open-loop and a closed-loop frame, the CLI's demo and an
-`encode --rdo --rdoq`, and a 2-frame closed-loop sequence encoded and
+raises: an open-loop and a closed-loop frame (one with deblocking and
+CTB SAO), the CLI's demo, an `encode --rdo --rdoq` and an `encode
+--hevc-export`, and a 2-frame closed-loop sequence encoded and
 decoded.
 """
 
@@ -108,6 +109,12 @@ JAX_BLOCKED = textwrap.dedent("""
         decoded = decode_frame(bits, device="cpu")
         for p in ("y", "u", "v"):
             assert np.array_equal(getattr(decoded, p).data, getattr(recon, p).data)
+    cfg = EncoderConfig(deblock=True, sao_ctb=True, sao_tile=16)
+    recon, bits = encode_frame_closed_loop(create_test_frame(24, 40), cfg,
+                                           device="cpu")
+    decoded = decode_frame(bits, device="cpu")
+    for p in ("y", "u", "v"):
+        assert np.array_equal(getattr(decoded, p).data, getattr(recon, p).data)
     main(["--device", "cpu", "demo", "--width", "16", "--height", "16"])
 
     import os
@@ -119,6 +126,10 @@ JAX_BLOCKED = textwrap.dedent("""
         main(["--device", "cpu", "encode", src, "--width", "32", "--height",
               "16", "--pipeline", "full", "--rdo", "--rdoq", "--bitstream", out])
         assert os.path.getsize(out) > 0
+        hevc = os.path.join(tmp, "f.hevc")
+        main(["--device", "cpu", "encode", src, "--width", "32", "--height",
+              "16", "--pipeline", "closed-loop", "--hevc-export", hevc])
+        assert os.path.getsize(hevc) > 0
 
     import os
     import tempfile

@@ -25,7 +25,6 @@ from nanohevc_tpu.ops import metrics as j_metrics
 from nanohevc_tpu.ops import mode_rate as j_mode_rate
 from nanohevc_tpu.ops import rate as j_rate
 from nanohevc_tpu_torch import ops as tops
-from nanohevc_tpu_torch.models import all_intra as torch_ai
 from nanohevc_tpu_torch.ops import mode_rate as t_mode_rate
 from nanohevc_tpu_torch.ops import rate as t_rate
 
@@ -59,7 +58,7 @@ def test_rd_lambda_table_matches_jax(scale):
     f = jax.jit(lambda q: jax_ai._rd_lambda(q, scale))
     want = np.array([np.asarray(f(jnp.int32(q))) for q in range(52)],
                     np.float32)
-    got = np.array([torch_ai._rd_lambda(q, scale) for q in range(52)],
+    got = np.array([t_rate._rd_lambda(q, scale) for q in range(52)],
                    np.float32)
     assert got.view(np.uint32).tolist() == want.view(np.uint32).tolist()
 
@@ -69,8 +68,8 @@ def test_rd_lambda_table_is_jax_exp2():
     QP 51 it is 2^13 plus 4 ulps)."""
     e = jax.jit(lambda q: jnp.exp2((q.astype(jnp.float32) - 12.0) / 3.0))
     want = np.asarray(e(jnp.arange(52, dtype=jnp.int32)))
-    assert torch_ai._RD_EXP2_BITS.tolist() == want.tolist()
-    assert torch_ai._RD_EXP2_BITS[51] != np.float32(8192.0)
+    assert t_rate._RD_EXP2_BITS.tolist() == want.tolist()
+    assert t_rate._RD_EXP2_BITS[51] != np.float32(8192.0)
 
 
 def test_eg0_floor_log2_matches_jax_over_the_domain():

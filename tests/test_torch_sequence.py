@@ -294,25 +294,42 @@ def test_decode_corrupt_streams_raise(tmp_path, seq32):
 
 
 def test_decode_refuses_deblocked_streams(tmp_path, seq32):
-    with pytest.raises(NotImplementedError, match="deblock"):
-        seq.decode_sequence(str(_with_params(tmp_path, seq32, deblock_flag=1)),
-                            str(tmp_path / "d.yuv"), device="cpu")
+    """A stream whose parameter sets switch deblocking on decodes with
+    the filter, as JAX's decoder decodes it (once refused here)."""
+    flagged = _with_params(tmp_path, seq32, deblock_flag=1)
+    dec_j, dec_t = tmp_path / "dj.yuv", tmp_path / "dt.yuv"
+    assert jax_seq.decode_sequence(str(flagged), str(dec_j)) == 2
+    assert seq.decode_sequence(str(flagged), str(dec_t), device="cpu") == 2
+    assert dec_t.read_bytes() == dec_j.read_bytes()
+    plain = tmp_path / "plain.yuv"
+    seq.decode_sequence(str(tmp_path / "base.bin"), str(plain), device="cpu")
+    assert dec_t.read_bytes() != plain.read_bytes()
 
 
-@pytest.mark.parametrize("cfg,closed,exc", [
-    (dict(deblock=True), False, ValueError),
-    (dict(sao=True), False, ValueError),
-    (dict(sao_ctb=True), False, ValueError),
-    (dict(deblock=True), True, NotImplementedError),
-    (dict(sao=True), True, NotImplementedError),
-    (dict(sao_ctb=True), True, NotImplementedError),
+@pytest.mark.parametrize("cfg,closed", [
+    (dict(deblock=True), False),
+    (dict(sao=True), False),
+    (dict(sao_ctb=True), False),
+    (dict(deblock=True), True),
+    (dict(sao=True), True),
+    (dict(sao_ctb=True), True),
 ])
-def test_refusals(tmp_path, seq32, cfg, closed, exc):
-    bits = tmp_path / "never.bin"
-    with pytest.raises(exc):
-        seq.encode_sequence(str(seq32), 32, 32, 2, EncoderConfig(**cfg),
-                            str(bits), closed_loop=closed, device="cpu")
-    assert not bits.exists()
+def test_refusals(tmp_path, seq32, cfg, closed):
+    """The filters need the closed loop: the open loop raises ValueError
+    before writing anything, as in JAX; the closed loop encodes JAX's
+    bytes and sidecar."""
+    if not closed:
+        bits = tmp_path / "never.bin"
+        for mod, config, extra in (
+                (jax_seq, JaxConfig(**cfg), {}),
+                (seq, EncoderConfig(**cfg), {"device": "cpu"})):
+            with pytest.raises(ValueError, match="closed_loop=True"):
+                mod.encode_sequence(str(seq32), 32, 32, 2, config, str(bits),
+                                    closed_loop=False, **extra)
+            assert not bits.exists()
+        return
+    assert_same(*run_both(tmp_path, seq32, (32, 32), 2, cfg, batch=2,
+                          closed_loop=True))
 
 
 def test_mesh_not_ported(tmp_path, seq32):

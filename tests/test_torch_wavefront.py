@@ -314,13 +314,29 @@ def test_decode_frame_rejects_corrupt_streams(cut):
     dict(deblock=True), dict(sao=True), dict(sao_ctb=True),
 ])
 def test_unported_closed_loop_options_raise(kw):
-    cfg = port_config.EncoderConfig(**kw)
-    with pytest.raises(NotImplementedError):
-        torch_wf.encode_frame_closed_loop(port_frame(make_frame(16, 16, 1)),
-                                          cfg, device="cpu")
-    planes = torch.from_numpy(seeded_planes(1, 16, 16, 1))
-    with pytest.raises(NotImplementedError):
-        torch_wf.encode_planes_closed_loop(planes, 22, n=8, **kw)
+    """The closed-loop options once refused here: the plane encode's
+    outputs (the per-frame SAO parameters included) equal JAX's; the
+    frame's stream decodes to its recon, and with deblocking alone its
+    bytes equal JAX's (tests/test_torch_loop_filters.py holds every
+    filter's frames to JAX)."""
+    frame = make_frame(16, 16, 1)
+    tr, tb = torch_wf.encode_frame_closed_loop(
+        port_frame(frame), port_config.EncoderConfig(**kw), device="cpu")
+    decoded = torch_wf.decode_frame(tb, device="cpu")
+    for p in ("y", "u", "v"):
+        assert np.array_equal(getattr(decoded, p).data, getattr(tr, p).data)
+    if not (kw.get("sao") or kw.get("sao_ctb")):
+        jr, jb = jax_wf.encode_frame_closed_loop(frame, EncoderConfig(**kw))
+        assert tb == jb
+        for p in ("y", "u", "v"):
+            assert np.array_equal(getattr(tr, p).data, getattr(jr, p).data)
+    planes = seeded_planes(1, 16, 16, 1)
+    j, t = _both(planes, 22, n=8, **kw)
+    _assert_planes_equal(j, t)
+    for k in ("sao", "sao_ctb"):
+        assert (k in t) == (k in j) == kw.get(k, False)
+        for a, b in zip(t.get(k, ()), j.get(k, ())):
+            assert np.array_equal(a.numpy(), np.asarray(b)), k
 
 
 @pytest.mark.parametrize("kw,kernel", [
