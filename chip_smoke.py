@@ -100,7 +100,23 @@ over a 16-frame file at batch 8.  It checks them end to end:
    recon; 8d, in one CLI process, `encode --pipeline closed-loop
    --deblock --sao-ctb` and `decode` (the API's bytes and recon), and
    `--hevc-export` (4:2:0, `--hevc-mono`, `encode-seq`) on a crop, the
-   card's streams == the CPU's.
+   card's streams == the CPU's;
+9. runs the multi-device encoders (`parallel`) on a mesh over every
+   visible card when there are two or more, else on a logical (2, 2)
+   (frame, space) mesh on the one card, whose shards run one after
+   another: 9a the open loop on a 4-frame 1080p luma batch under the
+   default config and the mode search, K1 (K2) launching frames x space
+   times on the row shards, and at block size 16 (1080 rows are no
+   whole number of block-rows) K1 once a plane on the frame shards,
+   each equal bit for bit to the mesh-less encoder on the card, with
+   both calls' times, and
+   `sample_parity_check` on the first frame; 9b the frame-sharded
+   closed loop (default, mode search, deblock+sao_ctb), one wavefront
+   launch a frame shard, equal to the mesh-less encoder; 9c 4-frame
+   138x250 and 136x248 crops, card mesh == a same-shape mesh of "cpu"
+   entries; 9d `encode_sequence` of 8 frames at batch 4 under the mesh,
+   open and closed loop, bytes equal to the mesh-less run, the closed
+   loop's stream decoded on the card to its recon.
 
 Prints one JSON line of kernel results before the last line (the
 wavefront kernel has an entry per body, each with its launches), and
@@ -166,9 +182,15 @@ try:
         pad_to_blocks,
         plane_args,
     )
+    from nanohevc_tpu_torch.parallel import (
+        make_batch_encoder,
+        make_closed_loop_encoder,
+        make_mesh,
+    )
     from nanohevc_tpu_torch.ref.metrics import hadamard_matrix
     from nanohevc_tpu_torch.ref.metrics import ssim as ssim_host
     from nanohevc_tpu_torch.runtime import assemble_bitstream, parse_bitstream
+    from nanohevc_tpu_torch.utils import sample_parity_check
 except ImportError as exc:
     print(f"chip_smoke: cannot import the port ({exc}); run it from the "
           "root of a checkout of the repository", file=sys.stderr)
@@ -1534,8 +1556,6 @@ def drain_waits_on_its_event_only(dev, frames: list, gpu: str) -> None:
     beside an NVIDIA H100 80GB HBM3, PERF.md) must return before half
     the spin is over; a plain .cpu() of the same levels waits for all
     of it."""
-    from nanohevc_tpu_torch.parallel.sharding import make_closed_loop_encoder
-
     clock = time.perf_counter
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
         enable_timing=True)
@@ -2168,6 +2188,223 @@ def phase_filters(dev, tmp: str, src: str, frame: Frame, frames: list,
     return launches
 
 
+# --- multi-device encoding (9) ---------------------------------------------
+
+MESH_FRAMES = 4          # the 1080p luma batch of 9a-9b
+MESH_SEQ_FRAMES, MESH_SEQ_BATCH = 8, 4
+
+
+def build_mesh(dev):
+    """Every visible card when there are 2 or more (space 2 where the
+    count is even), else a logical (2, 2) mesh on `dev`."""
+    count = torch.cuda.device_count()
+    if count >= 2:
+        space = 2 if count % 2 == 0 else 1
+        return make_mesh(space=space), f"{count} cards"
+    return make_mesh([dev] * 4, space=2), f"a logical mesh on {dev}"
+
+
+def same_outputs(a: dict, b: dict, keys) -> bool:
+    """Equal tensors (or tuples of tensors, the SAO maps), compared on
+    the host."""
+    def eq(x, y):
+        if isinstance(x, tuple):
+            return len(x) == len(y) and all(eq(p, q) for p, q in zip(x, y))
+        return torch.equal(x.cpu(), y.cpu())
+    return all(eq(a[k], b[k]) for k in keys)
+
+
+def turns_ms(fns: dict, repeats: int = 5) -> dict:
+    """Median host-clock ms of each call (ended by a synchronise), the
+    calls taken in turns."""
+    took = {k: [] for k in fns}
+    for r in range(repeats):
+        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[k]()
+            torch.cuda.synchronize()
+            took[k].append(1e3 * (time.perf_counter() - t0))
+    return {k: sorted(v)[repeats // 2] for k, v in took.items()}
+
+
+def mesh_batch(mesh, planes, config: EncoderConfig, closed: bool,
+               want: dict, tag: str, label: str, gpu: str) -> tuple:
+    """One batch encoder under the mesh, with the launch counts reset
+    just before it and read just after (they must equal `want`), and
+    the mesh-less encoder on the same planes: equal bit for bit (recon,
+    levels, modes, nnz, SAO maps, psnr; mean_psnr within 1e-6, a mean
+    of shard means under the closed loop).  Returns the launches, the
+    mesh's outputs and the turns' times."""
+    make = make_closed_loop_encoder if closed else make_batch_encoder
+    on_mesh, alone = make(config, mesh), make(config)
+    copies = slab_encode_plane.copies
+    reset_launches()
+    got = on_mesh(planes, config.qp)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches != want:
+        raise SystemExit(f"[{tag}] {label} under the mesh launched {launches}, "
+                         f"expected {want}")
+    ref = alone(planes, config.qp)
+    keys = [k for k in ref if k != "mean_psnr"]
+    if sorted(got) != sorted(ref) or not same_outputs(got, ref, keys):
+        raise SystemExit(f"[{tag}] {label}: the mesh's outputs differ from "
+                         "the mesh-less encoder's")
+    if abs(float(got["mean_psnr"]) - float(ref["mean_psnr"])) > \
+            1e-6 * abs(float(ref["mean_psnr"])):
+        raise SystemExit(f"[{tag}] {label}: mean_psnr differs")
+    ms = turns_ms({"mesh": lambda: on_mesh(planes, config.qp),
+                   "alone": lambda: alone(planes, config.qp)})
+    log(f"[{tag}] {label}, {planes.shape[0]} 1080p luma planes: mesh == "
+        f"mesh-less ({', '.join(keys)}); launches {launches} "
+        f"(copies {slab_encode_plane.copies - copies}); mesh call "
+        f"{ms['mesh']:.2f} ms, mesh-less {ms['alone']:.2f} ms (host clock, "
+        f"median of 5 in turns) [{gpu}]")
+    return launches, got
+
+
+def phase_mesh_crop(dev, mesh, frames: list, gpu: str) -> None:
+    """9c: 4-frame crops on the card mesh == the same-shape mesh of
+    "cpu" entries: 138x250 (no sharded kernel covers it: the plain
+    route and the closed loop) and 136x248 (the sharded kernels with a
+    bottom pad)."""
+    cpu_mesh = make_mesh(["cpu"] * mesh.devices.size,
+                         space=mesh.shape["space"])
+    cases = 0
+    for h, w in ((138, 250), (136, 248)):
+        planes = np.stack([f.y.data[:h, :w] for f in frames[:MESH_FRAMES]]
+                          ).astype(np.int32)
+        for label, cfg, make in (
+                ("default", EncoderConfig(), make_batch_encoder),
+                ("mode search", MODE_SEARCH, make_batch_encoder),
+                ("closed loop", EncoderConfig(), make_closed_loop_encoder)):
+            card = make(cfg, mesh)(torch.from_numpy(planes).to(dev), cfg.qp)
+            cpu = make(cfg, cpu_mesh)(torch.from_numpy(planes), cfg.qp)
+            keys = [k for k in cpu if k not in ("psnr", "mean_psnr")]
+            if not same_outputs(card, cpu, keys) or not torch.allclose(
+                    card["psnr"].cpu(), cpu["psnr"], rtol=1e-6, atol=0):
+                raise SystemExit(f"[9c] {label} on a {h}x{w} crop: the card "
+                                 "mesh differs from the CPU mesh")
+            cases += 1
+    log(f"[9c] {cases} encodes of 4-frame 138x250 and 136x248 crops (open "
+        f"default and mode search, closed loop): card mesh == CPU mesh "
+        f"(psnr within 1e-6) [{gpu}]")
+
+
+def phase_mesh_sequence(dev, mesh, tmp: str, src: str, closed_recon: bytes,
+                        gpu: str) -> dict:
+    """9d: encode_sequence of 8 1080p frames at batch 4 under the mesh,
+    open and closed loop (default config): the kernels launch on the
+    mesh's shards, the bytes equal the mesh-less run's, and the
+    closed-loop stream decodes on the card to 4g's recon of the same
+    frames.  Returns the launches by kernel."""
+    fa, sa = mesh.devices.shape
+    batches = MESH_SEQ_FRAMES // MESH_SEQ_BATCH
+    launches = {}
+    for closed, kern, per_batch in (
+            (False, "slab_encode_plane", 3 * MESH_SEQ_BATCH * sa),
+            (True, "wavefront_encode_planes", 2 * fa)):
+        bits = {}
+        for how, kw in (("mesh", {"mesh": mesh}), ("alone", {})):
+            bits[how] = os.path.join(tmp, f"mesh_{int(closed)}_{how}.bin")
+            reset_launches()
+            t0 = time.perf_counter()
+            seq.encode_sequence(src, W, H, MESH_SEQ_FRAMES, EncoderConfig(),
+                                bits[how], batch=MESH_SEQ_BATCH,
+                                closed_loop=closed, resume=False, device=dev,
+                                **kw)
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+            if how == "mesh":
+                n = read_launches()
+                want = {k: batches * per_batch if k == kern else 0
+                        for k in KERNELS}
+                if n != want:
+                    raise SystemExit(f"[9d] sequence under the mesh launched "
+                                     f"{n}, expected {want}")
+                launches[kern] = n[kern]
+                mesh_s = took
+        with open(bits["mesh"], "rb") as f, open(bits["alone"], "rb") as g:
+            data = f.read()
+            if data != g.read():
+                raise SystemExit(f"[9d] {'closed' if closed else 'open'}-loop "
+                                 "sequence under the mesh: bytes differ from "
+                                 "the mesh-less run")
+        note = ""
+        if closed:
+            dec = os.path.join(tmp, "mesh_dec.yuv")
+            n = seq.decode_sequence(bits["mesh"], dec, device=dev)
+            size = MESH_SEQ_FRAMES * H * W * 3 // 2
+            with open(dec, "rb") as f:
+                if n != MESH_SEQ_FRAMES or f.read() != closed_recon[:size]:
+                    raise SystemExit("[9d] the mesh's closed-loop stream does "
+                                     "not decode to the recon")
+            note = "; decode_sequence on the card == recon"
+        log(f"[9d] encode_sequence {'closed' if closed else 'open'} loop, "
+            f"{MESH_SEQ_FRAMES} 1080p frames at batch {MESH_SEQ_BATCH} under "
+            f"the mesh: {mesh_s:.3f} s (first call), {len(data)} bytes == "
+            f"mesh-less run, launches {launches[kern]}{note} [{gpu}]")
+    return launches
+
+
+def phase_mesh(dev, tmp: str, src: str, frames: list, closed_recon: bytes,
+               gpu: str) -> tuple:
+    """9: the multi-device encoders (`parallel`) on the card.  Returns
+    the launches of the mesh's main paths: by kernel, and the wavefront
+    kernel's by body."""
+    t0 = time.perf_counter()
+    mesh, kind = build_mesh(dev)
+    fa, sa = mesh.devices.shape
+    log(f"[9] mesh {mesh.shape} over {kind}")
+    planes = torch.from_numpy(np.stack(
+        [f.y.data for f in frames[:MESH_FRAMES]]).astype(np.int32)).to(dev)
+    launches = {"slab_encode_plane": 0, "mode_search_encode_plane": 0}
+    wf = {"dc_planar": 0, "search": 0}
+    # 1080 rows are no whole number of 16-row block-rows: no row shards,
+    # K1 on each plane of the frame shards
+    for label, cfg, kern, per_plane in (
+            ("default", EncoderConfig(), "slab_encode_plane", sa),
+            ("mode search", MODE_SEARCH, "mode_search_encode_plane", sa),
+            ("block 16, frame shards", EncoderConfig(block_size=16),
+             "slab_encode_plane", 1)):
+        want = {k: MESH_FRAMES * per_plane if k == kern else 0
+                for k in KERNELS}
+        n, out = mesh_batch(mesh, planes, cfg, False, want, "9a",
+                            f"open loop, {label}", gpu)
+        launches[kern] += n[kern]
+        if label == "default":
+            raster = ops.scan_unpack(out["levels"][0].cpu(), cfg.scan,
+                                     modes=out["modes"][0].cpu())
+            bad = sample_parity_check(frames[0].y.data.astype(np.int32),
+                                      raster.numpy(), out["recon"][0].cpu()
+                                      .numpy(), cfg.block_size, cfg.qp)
+            if bad:
+                raise SystemExit(f"[9a] sample_parity_check: {bad} blocks "
+                                 "differ from the oracle")
+            log("[9a] sample_parity_check on the mesh's first frame: 0 of 64 "
+                "sampled blocks differ from the oracle")
+    want = {k: fa if k == "wavefront_encode_planes" else 0 for k in KERNELS}
+    for label, cfg, body in (
+            ("default", EncoderConfig(), "dc_planar"),
+            ("mode search", MODE_SEARCH, "search"),
+            ("deblock+sao_ctb", EncoderConfig(deblock=True, sao_ctb=True),
+             "dc_planar")):
+        n, _ = mesh_batch(mesh, planes, cfg, True, want, "9b",
+                          f"closed loop, {label}", gpu)
+        wf[body] += n["wavefront_encode_planes"]
+    phase_mesh_crop(dev, mesh, frames, gpu)
+    for kern, n in phase_mesh_sequence(dev, mesh, tmp, src, closed_recon,
+                                       gpu).items():
+        if kern == "wavefront_encode_planes":
+            wf["dc_planar"] += n
+        else:
+            launches[kern] += n
+    log(f"[9] multi-device phase: {time.perf_counter() - t0:.1f} s, launches "
+        f"{launches}, wavefront by body {wf} [{gpu}]")
+    return launches, wf
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -2269,6 +2506,12 @@ def main() -> int:
     for body, n in phase_filters(dev, tmp, src, frame, frames, {
             "default": (cl_bits, cl_recon),
             "mode search": (ms_cl_bits, ms_cl_recon)}, gpu).items():
+        wf_launches[body] += n
+    mesh_launches, mesh_wf = phase_mesh(dev, tmp, src, frames, closed_recon,
+                                        gpu)
+    for name, n in mesh_launches.items():
+        launches[name] += n
+    for body, n in mesh_wf.items():
         wf_launches[body] += n
     tmp_dir.cleanup()
 

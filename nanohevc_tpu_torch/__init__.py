@@ -19,11 +19,18 @@ Layout mirrors the JAX package so each counterpart is easy to find:
   rate controller;
 - `models.sequence`: the multi-frame sequence encoder (resume, rate
   control) and its decoder;
-- `parallel.sharding`: the multi-frame batch encoders (no mesh yet);
+- `parallel`: the device mesh (`make_mesh`) and the multi-frame batch
+  encoders, frame- and space-sharded over it (`parallel.spatial`);
 - `ops.sparse`: the level-prefix device-to-host transfer;
 - `utils.tracing`: stage stopwatch and profiler regions;
+  `utils.checks`: sampled oracle parity of an open-loop encode;
 - `cli`: `python -m nanohevc_tpu_torch [--device cuda|cpu]
   demo|encode|encode-seq|decode`.
+
+The reference API that the JAX package re-exports (`Plane`, `Frame`,
+`BlockView`, the single-block intra, transform, quant and metrics
+functions of the numpy oracle `ref`) is re-exported here from the
+port's own copies.
 
 Entry points run on the CUDA card unless the caller asks for the CPU.
 """
@@ -52,6 +59,50 @@ def resolve_device(name: str | torch.device) -> torch.device:
     return dev
 
 
+from nanohevc_tpu_torch.frame import Plane, Frame, PackedFrame, FrameBufferPool  # noqa: E402
+from nanohevc_tpu_torch.block import BlockView, iterate_blocks  # noqa: E402
+from nanohevc_tpu_torch.ref.intra import (  # noqa: E402
+    INTRA_PRED_ANGLE,
+    intra_dc_predict_4x4,
+    intra_dc_predict,
+    intra_planar_predict,
+    intra_angular_predict,
+    residual_block,
+    reconstruct_block,
+    clip_to_pixel_range,
+)
+from nanohevc_tpu_torch.ref.transform import (  # noqa: E402
+    forward_transform,
+    inverse_transform,
+    forward_transform_4x4,
+    inverse_transform_4x4,
+    forward_transform_8x8,
+    inverse_transform_8x8,
+    forward_transform_16x16,
+    inverse_transform_16x16,
+    forward_transform_32x32,
+    inverse_transform_32x32,
+    DCT4,
+    DCT8,
+    DCT16,
+    DCT32,
+    DST4,
+)
+from nanohevc_tpu_torch.ref.quant import (  # noqa: E402
+    quantize,
+    dequantize,
+    quantize_block,
+    dequantize_block,
+    QUANT_SCALE,
+    DEQUANT_SCALE,
+)
+from nanohevc_tpu_torch.ref.metrics import (  # noqa: E402
+    psnr,
+    mse,
+    sad,
+    satd_4x4,
+    residual_energy,
+)
 from nanohevc_tpu_torch.models.all_intra import (  # noqa: E402
     create_test_frame,
     encode_frame_full,
@@ -89,4 +140,45 @@ __all__ = [
     "decode_sequence",
     "fused_encode_planes",
     "fused_encode_blocks",
+    # the reference API, as the JAX package exports it
+    "Plane",
+    "Frame",
+    "PackedFrame",
+    "FrameBufferPool",
+    "BlockView",
+    "iterate_blocks",
+    "INTRA_PRED_ANGLE",
+    "intra_dc_predict_4x4",
+    "intra_dc_predict",
+    "intra_planar_predict",
+    "intra_angular_predict",
+    "residual_block",
+    "reconstruct_block",
+    "clip_to_pixel_range",
+    "forward_transform",
+    "inverse_transform",
+    "forward_transform_4x4",
+    "inverse_transform_4x4",
+    "forward_transform_8x8",
+    "inverse_transform_8x8",
+    "forward_transform_16x16",
+    "inverse_transform_16x16",
+    "forward_transform_32x32",
+    "inverse_transform_32x32",
+    "DCT4",
+    "DCT8",
+    "DCT16",
+    "DCT32",
+    "DST4",
+    "quantize",
+    "dequantize",
+    "quantize_block",
+    "dequantize_block",
+    "QUANT_SCALE",
+    "DEQUANT_SCALE",
+    "psnr",
+    "mse",
+    "sad",
+    "satd_4x4",
+    "residual_energy",
 ]

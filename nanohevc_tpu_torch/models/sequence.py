@@ -40,8 +40,15 @@ closed loop), with resume and rate control.  The in-loop filters
 (deblocking, SAO, CTB SAO) run on the closed loop: each frame's SAO or
 CTB-SAO parameters ride the batch's fetch and its access unit's SAO
 NAL; the open loop refuses them with ValueError, as in the JAX
-package.  Not ported yet: a device mesh (`mesh` raises
-NotImplementedError).
+package.
+
+Under a device mesh (`parallel.make_mesh`) the batches go through the
+mesh encoders of `parallel.sharding`: the open loop's kernels on (frame,
+space) shards, the closed loop on frame shards, as in the JAX package.
+A closed-loop batch must be a multiple of the mesh's "frame" axis
+(ValueError otherwise, with JAX's text).  Uploads and the pinned fetch
+stay on the runner's `device`, which must be the mesh's first device,
+where the encoders gather their outputs.
 """
 
 from __future__ import annotations
@@ -209,6 +216,7 @@ def encode_sequence(
     launch.  Runs on `device` ("cuda" by default; "cpu" runs the
     kernels' plain versions).
     """
+    from nanohevc_tpu_torch.parallel.mesh import canonical_device
     from nanohevc_tpu_torch.parallel.sharding import (
         make_batch_encoder,
         make_closed_loop_encoder,
@@ -221,6 +229,11 @@ def encode_sequence(
     )
 
     dev = resolve_device(device)
+    if mesh is not None and canonical_device(dev) != mesh.devices.flat[0]:
+        raise ValueError(
+            f"device {str(dev)!r} is not the mesh's first device "
+            f"{str(mesh.devices.flat[0])!r}, where the mesh encoders "
+            "gather their outputs")
     if (config.deblock or config.sao or config.sao_ctb) and not closed_loop:
         # the signalled filters would make the decoder transform a
         # reconstruction the open-loop encoder never produced -- refuse
@@ -228,6 +241,15 @@ def encode_sequence(
                          "require closed_loop=True (in-loop filters on "
                          "the decodable recon)")
     if closed_loop:
+        if mesh is not None:
+            # the luma batch and the 2*batch chroma stack must divide
+            # the mesh's 'frame' axis
+            f_axis = mesh.shape["frame"]
+            if batch % f_axis:
+                raise ValueError(
+                    f"closed-loop sequence batch {batch} must be a "
+                    f"multiple of the mesh 'frame' axis ({f_axis})"
+                )
         luma_fn = make_closed_loop_encoder(config, mesh, is_luma=True)
         chroma_fn = make_closed_loop_encoder(config, mesh, is_luma=False)
     else:

@@ -38,6 +38,7 @@ from nanohevc_tpu_torch.ops.metrics import (
     residual_energy_blocks,
     sad_blocks,
     satd_blocks,
+    ssim,
 )
 from nanohevc_tpu_torch.ops.rate import (
     RateTable,
@@ -73,6 +74,7 @@ __all__ = [
     "mode_scan_idx",
     "mse",
     "psnr",
+    "ssim",
     "sad_blocks",
     "satd_blocks",
     "residual_energy_blocks",

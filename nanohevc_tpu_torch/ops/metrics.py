@@ -4,7 +4,8 @@
 Per-block variants reduce the last two axes of a (..., N, N) tensor
 and return int32, as JAX does (PyTorch sums int32 into int64, so the
 result is cast back; the sums are exact for 8/10-bit video:
-32*32*1023^2 < 2^31).  mse/psnr reduce in float32 like the JAX ops.
+32*32*1023^2 < 2^31).  mse/psnr/ssim reduce in float32 like the JAX
+ops.
 """
 
 from __future__ import annotations
@@ -29,6 +30,52 @@ def psnr(original: torch.Tensor, reconstructed: torch.Tensor,
         err == 0, torch.tensor(float("inf"), device=err.device),
         10.0 * torch.log10((peak * peak) / err),
     )
+
+
+def _box_mean(a: torch.Tensor, window: int) -> torch.Tensor:
+    """Mean over each window x window box of a 2-D float32 tensor
+    ("VALID": one value per box that fits), its terms added one shifted
+    view at a time in raster order of the window, as XLA's CPU
+    reduce_window adds them."""
+    oh, ow = a.shape[0] - window + 1, a.shape[1] - window + 1
+    acc = a[:oh, :ow]
+    for i in range(window):
+        for j in range(window):
+            if i or j:
+                acc = acc + a[i:i + oh, j:j + ow]
+    return acc / (window * window)
+
+
+def _ssim_map(x: torch.Tensor, y: torch.Tensor, peak: int,
+              window: int) -> torch.Tensor:
+    """SSIM of each window x window box of two float32 planes, in the
+    JAX op's elementwise order, one op at a time."""
+    mx, my = _box_mean(x, window), _box_mean(y, window)
+    mxx, myy, mxy = (_box_mean(x * x, window), _box_mean(y * y, window),
+                     _box_mean(x * y, window))
+    vx = mxx - mx * mx
+    vy = myy - my * my
+    cxy = mxy - mx * my
+    c1 = torch.tensor((0.01 * peak) ** 2, dtype=torch.float32, device=x.device)
+    c2 = torch.tensor((0.03 * peak) ** 2, dtype=torch.float32, device=x.device)
+    return ((2 * mx * my + c1) * (2 * cxy + c2)) / (
+        (mx * mx + my * my + c1) * (vx + vy + c2)
+    )
+
+
+def ssim(original: torch.Tensor, reconstructed: torch.Tensor, peak: int = 255,
+         window: int = 8) -> torch.Tensor:
+    """Uniform-window SSIM of two 2-D planes, a float32 scalar.
+
+    The per-box map (`_ssim_map`) equals the JAX op's bit for bit: the
+    box sums hold integer-valued terms (at 8 bits every sum is below
+    2^24, so exact in any order; above that they take reduce_window's
+    order), and the elementwise expression keeps JAX's order.  The
+    final mean over the map is PyTorch's, whose order XLA's CPU
+    reduction does not share: it agrees with JAX's to about 1e-7.
+    """
+    return _ssim_map(original.to(torch.float32),
+                     reconstructed.to(torch.float32), peak, window).mean()
 
 
 def sad_blocks(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

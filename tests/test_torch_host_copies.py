@@ -1,10 +1,10 @@
 """The port's copies of the host modules are still the originals.
 
 `nanohevc_tpu_torch` keeps its own copies of `tables`, `config`,
-`frame`, `ref` (the deblocking oracle included), `runtime` (the
-standard-stream writer `hevc_stream` included) and `ops/rate_tables`
-of `nanohevc_tpu`, so
-that it imports nothing of the JAX package.  Each copy is held to its
+`frame`, `block`, `utils/checks`, `ref` (the deblocking oracle
+included), `runtime` (the standard-stream writer `hevc_stream`
+included) and `ops/rate_tables` of `nanohevc_tpu`, so that it imports
+nothing of the JAX package.  Each copy is held to its
 original: the
 source text (apart from the header line, the import lines, paths into
 the upstream reference project, which the copies give from its root,
@@ -43,7 +43,7 @@ COPIES = [
     "runtime/__init__.py", "runtime/entropy.py", "runtime/bitstream.py",
     "runtime/hevc_stream.py",
     "runtime/native/nanohevc_runtime.cpp", "runtime/native/hevc_cabac.cpp",
-    "ops/rate_tables.py",
+    "ops/rate_tables.py", "block.py", "utils/checks.py",
 ]
 # Copies whose native-library build moved out of the source tree.
 BUILD_COPIES = ["runtime/build.py", "runtime/hevc.py"]

@@ -8,8 +8,9 @@ package, the sequence runner's included, and `chip_smoke.py`), and by
 running the port in a process where importing jax or `nanohevc_tpu`
 raises: an open-loop and a closed-loop frame (one with deblocking and
 CTB SAO), the CLI's demo, an `encode --rdo --rdoq` and an `encode
---hevc-export`, and a 2-frame closed-loop sequence encoded and
-decoded.
+--hevc-export`, a 2-frame closed-loop sequence encoded and decoded,
+and an open-loop and a closed-loop batch on a 2 x 2 mesh of "cpu"
+entries (`parallel`).
 """
 
 import ast
@@ -116,6 +117,21 @@ JAX_BLOCKED = textwrap.dedent("""
     for p in ("y", "u", "v"):
         assert np.array_equal(getattr(decoded, p).data, getattr(recon, p).data)
     main(["--device", "cpu", "demo", "--width", "16", "--height", "16"])
+
+    import torch
+    from nanohevc_tpu_torch.parallel import (
+        make_batch_encoder,
+        make_closed_loop_encoder,
+        make_mesh,
+    )
+    mesh = make_mesh(["cpu"] * 4, space=2)
+    planes = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 256, (4, 24, 32)).astype(np.int32))
+    for make in (make_batch_encoder, make_closed_loop_encoder):
+        on_mesh = make(EncoderConfig(), mesh)(planes, 22)
+        alone = make(EncoderConfig())(planes, 22)
+        for k in ("recon", "levels", "modes"):
+            assert torch.equal(on_mesh[k], alone[k]), k
 
     import os
     import tempfile

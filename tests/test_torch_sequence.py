@@ -332,10 +332,23 @@ def test_refusals(tmp_path, seq32, cfg, closed):
                           closed_loop=True))
 
 
-def test_mesh_not_ported(tmp_path, seq32):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        seq.encode_sequence(str(seq32), 32, 32, 2, EncoderConfig(),
-                            str(tmp_path / "o.bin"), mesh=object(), device="cpu")
+def test_sequence_under_frame_mesh_equals_jax(tmp_path, seq32):
+    """Both runners under an 8-device frame mesh (2 frames padded to a
+    batch of 8): the port gives JAX's bytes and sidecar."""
+    from nanohevc_tpu.parallel import make_mesh as jax_make_mesh
+    from nanohevc_tpu_torch.parallel import make_mesh
+
+    runs = []
+    for tag, mod, config, mesh, extra in (
+            ("jax", jax_seq, JaxConfig(), jax_make_mesh(), {}),
+            ("port", seq, EncoderConfig(), make_mesh(["cpu"] * 8),
+             {"device": "cpu"})):
+        bits = tmp_path / f"{tag}.bin"
+        res = mod.encode_sequence(str(seq32), 32, 32, 2, config, str(bits),
+                                  mesh=mesh, **extra)
+        runs.append((res, bits.read_bytes(),
+                     (tmp_path / f"{tag}.bin.progress").read_text()))
+    assert_same(*runs)
 
 
 def test_cuda_without_card_raises(tmp_path, seq32, monkeypatch):
