@@ -35,7 +35,13 @@ over a 16-frame file at batch 8.  It checks them end to end:
    QP 0 and 51, every N (DST at 4 and both dequant modes for the slab
    kernel; 3e also against the slab kernel at 8 bits), and an input
    view 4 bytes past a 16-byte boundary, which must give the aligned
-   input's outputs through a counted copy (`.copies`);
+   input's outputs through a counted copy (`.copies`); the decode kernel
+   (3f, run after 4d) over N 4 (DST), 8, 16, 32, smoothing off and on,
+   8/10-bit, batches of 1 and 3 with a QP per frame, on a 128x256 and a
+   138x250 crop of adversarial streams (random modes 0..34 and levels,
+   decoded by `decode_planes` with no encoder, one launch a call), DC-only
+   streams whose flat arms take the 32x32 strong filter, and the luma
+   plane of 4d's 1080p search stream (three repeats, each == the first);
 4. encodes the frame on the card under each config through the open
    loop (4: default, 4b: mode search) and the closed loop (4c, 4d):
    the path's kernel must launch once per plane (3 times) and every
@@ -44,7 +50,11 @@ over a 16-frame file at batch 8.  It checks them end to end:
    oracle (for the closed loop, a per-block simulation on the
    reconstructed neighbours), and the bitstream written by the port's
    runtime must parse back to the same levels and modes; the closed
-   loop's stream must decode on the card to the recon pixel for pixel.
+   loop's stream must decode on the card to the recon pixel for pixel,
+   through the decode kernel: every decode gate (4c, 4d, 4g, 7c, 8a-8c,
+   9d) runs with the counts at 0 and must launch `decode_blocks` once a
+   `decode_planes` call (3 a frame, 3 a `decode_sequence` chunk of 8) and
+   no other kernel.
    4e: `fused_encode_planes` on 8 luma planes in one launch, equal to
    the plain path on the CPU over a 270x480 crop and to the oracle.
    4f/4g: `encode_sequence` on 16 frames, open and closed loop, under
@@ -65,7 +75,10 @@ over a 16-frame file at batch 8.  It checks them end to end:
    fused kernel; K1, K2 and K5 on the card through a CUDA graph of their
    calls, since their wrappers cost the host more than the kernels
    take, and in a launch loop beside it), the frame under each
-   config, the closed-loop frame and its decode (6c), and the sequence
+   config, the closed-loop frame and its decode (6c), the decode kernel
+   per 1080p luma plane at N 4-32 through a CUDA graph with its bound
+   and us a block on the chain (6d; the plain version at N=8 only) and
+   `decode_frame`'s split (host parse, device busy share), and the sequence
    under all four configs (6f: throughput, stages, whether drain
    overlaps the next batch, device busy share, entropy_tiles=4,
    `decode_sequence`);
@@ -119,7 +132,8 @@ over a 16-frame file at batch 8.  It checks them end to end:
    loop's stream decoded on the card to its recon.
 
 Prints one JSON line of kernel results before the last line (the
-wavefront kernel has an entry per body, each with its launches), and
+wavefront kernel has an entry per body, each with its launches; the
+decode kernel's entry counts the decode gates' launches), and
 as the last line {"ok": true, "device": {...}}.  Exits non-zero, without that
 line, when there is no CUDA card or a phase fails.
 
@@ -127,7 +141,7 @@ Each kernel's bound in the JSON line is the larger of its bytes over
 the card's 3.35 TB/s and its integer operations over 67 T/s (the H100
 SXM's float32 rate outside the tensor cores, which no int32 add or
 multiply exceeds), counted per pixel as `kernel_bound` (`fused_bound`
-for the fused blocks kernel) says.
+for the fused blocks kernel, `decode_bound` for the decode kernel) says.
 """
 
 from __future__ import annotations
@@ -151,6 +165,10 @@ try:
     from nanohevc_tpu_torch.config import EncoderConfig
     from nanohevc_tpu_torch.frame import Frame, Plane
     from nanohevc_tpu_torch.kernels import build
+    from nanohevc_tpu_torch.kernels.decode import (
+        decode_blocks,
+        decode_blocks_reference,
+    )
     from nanohevc_tpu_torch.kernels.fused_pipeline import (
         fused_encode_blocks,
         fused_encode_blocks_reference,
@@ -177,11 +195,14 @@ try:
     from nanohevc_tpu_torch.models.rate_control import find_frame_qp
     from nanohevc_tpu_torch.models.wavefront import (
         decode_frame,
+        decode_planes,
+        decode_residual,
         encode_frame_closed_loop,
         encode_planes_closed_loop,
         pad_to_blocks,
         plane_args,
     )
+    from nanohevc_tpu_torch.ops.intra import mode_filter_flags
     from nanohevc_tpu_torch.parallel import (
         make_batch_encoder,
         make_closed_loop_encoder,
@@ -224,6 +245,12 @@ KERNELS = {
         fused_encode_blocks, fused_encode_blocks_reference,
         "nanohevc_tpu_torch/csrc/fused_pipeline.cu",
         "nanohevc_tpu/kernels/fused_pipeline.py:136",
+    ),
+    "decode_blocks": (
+        decode_blocks, decode_blocks_reference,
+        "nanohevc_tpu_torch/csrc/decode.cu",
+        "nanohevc_tpu/models/wavefront.py:779 (decode_plane's jax.lax.scan, "
+        "an XLA scan; no Pallas kernel)",
     ),
 }
 # The wavefront kernel's two bodies, by (mode_set, decision).
@@ -962,7 +989,8 @@ def phase_closed_loop(dev, frame: Frame, config: EncoderConfig, tag: str):
         f"{int((modes_y > 0).sum())} of 35")
 
     t0 = time.perf_counter()
-    decoded = decode_frame(bits, device=dev)
+    decoded = counted_decode(f"[{tag}] decode_frame", 3,
+                             lambda: decode_frame(bits, device=dev))
     dec_s = time.perf_counter() - t0
     if not all(np.array_equal(getattr(recon, p).data, getattr(decoded, p).data)
                for p in "yuv"):
@@ -970,7 +998,8 @@ def phase_closed_loop(dev, frame: Frame, config: EncoderConfig, tag: str):
     y_psnr = oracle.psnr(frame.y.data.astype(np.uint8),
                          recon.y.data.astype(np.uint8))
     log(f"[{tag}] decode_frame on {dev} == encoder recon pixel for pixel "
-        f"({dec_s:.3f} s, first call); Y-PSNR {y_psnr:.2f} dB")
+        f"({dec_s:.3f} s, first call; decode_blocks 3 launches, no other "
+        f"kernel); Y-PSNR {y_psnr:.2f} dB")
     return launches["wavefront_encode_planes"], bits, recon
 
 
@@ -1113,6 +1142,269 @@ def closed_loop_times(dev, frame: Frame, config: EncoderConfig, label: str,
         f"{parts} [{gpu}]")
     busy_us, wall_us = device_busy(call)
     log(f"[6c] {label} device over 3 encode_frame_closed_loop calls "
+        f"(torch.profiler): {busy_us:.1f} us of kernels and copies in "
+        f"{wall_us:.1f} us: {busy_share(busy_us, wall_us)} [{gpu}]")
+
+
+# --- the decode kernel (3f, 6d; launches on every decode gate) --------------
+
+DECODE_SIZES = ((4, True), (8, False), (16, False), (32, False))
+DECODE_CHUNK = 8      # decode_sequence decodes its frames 8 at a time
+# decode_blocks launches of the main paths' decodes (4c, 4d, 4g, 7c, 8a-8c,
+# 9d), each counted by counted_decode
+DECODE_LAUNCHES = {"main": 0}
+
+
+def counted_decode(what: str, want: int, call):
+    """Run a decode route on the card with every count at 0: the decode
+    kernel must launch `want` times (one a decode_planes call: 3 a
+    frame, 3 a decode_sequence chunk) and no other kernel.  Adds the
+    launches to the kernel's main-path count; returns call()."""
+    reset_launches()
+    out = call()
+    torch.cuda.synchronize()
+    got = read_launches()
+    expect = {k: want if k == "decode_blocks" else 0 for k in KERNELS}
+    if got != expect:
+        raise SystemExit(f"{what}: launches {got}, expected {expect}")
+    DECODE_LAUNCHES["main"] += want
+    return out
+
+
+def sequence_decodes(frames: int) -> int:
+    """decode_blocks launches of decode_sequence over `frames` frames
+    of one block size: one a plane a chunk."""
+    return 3 * -(-frames // DECODE_CHUNK)
+
+
+def decode_stream(shape, n: int, batch: int, seed: int, dc_only: bool):
+    """A seeded stream no encoder made, (B, nb, N*N) scan-packed levels
+    and (B, nb) modes: random modes 0..34 in every block; random levels
+    (15 % of the coefficients, a few of them up to +-60), or with
+    `dc_only` one DC level in -2..2 a block (flat residuals, so that
+    arms are nearly flat: the 32x32 strong filter's case)."""
+    rng = np.random.default_rng(seed)
+    nb = -(-shape[0] // n) * -(-shape[1] // n)
+    modes = rng.integers(0, 35, (batch, nb)).astype(np.int32)
+    levels = np.zeros((batch, nb, n * n), np.int32)
+    if dc_only:
+        levels[..., 0] = rng.integers(-2, 3, (batch, nb))
+        return levels, modes
+    big = rng.random(levels.shape) < 0.05
+    mag = np.where(big, rng.integers(-60, 61, levels.shape),
+                   rng.integers(-3, 4, levels.shape))
+    return np.where(rng.random(levels.shape) < 0.15, mag, 0).astype(
+        np.int32), modes
+
+
+def strong_blocks(recon: torch.Tensor, modes: torch.Tensor, n: int,
+                  bit_depth: int) -> int:
+    """Blocks of a smoothed N=32 decode whose references, as the decoder
+    saw them (the rule's extensions, not the final recon's), took the
+    strong filter with an arm that is not constant."""
+    if n != 32:
+        return 0
+    recon, modes = recon.cpu(), modes.cpu().long()
+    nby, nbx = recon.shape[1] // n, recon.shape[2] // n
+    by, bx = (t.reshape(-1) for t in torch.meshgrid(
+        torch.arange(nby), torch.arange(nbx), indexing="ij"))
+    refs = ops.extract_refs_at(recon, by, bx, n, 1 << (bit_depth - 1))
+    top, left = refs[..., :2 * n + 1], refs[..., 2 * n + 1:]
+    top[..., n + 1:] *= ~((by > 0) & (bx < nbx - 1))[:, None]
+    left[..., n + 1:] *= ~((bx > 0) & (by < nby - 1))[:, None]
+    c, thresh = top[..., 0], 1 << (bit_depth - 5)
+    flat = (((c + top[..., 2 * n] - 2 * top[..., n]).abs() < thresh)
+            & ((c + left[..., 2 * n] - 2 * left[..., n]).abs() < thresh))
+    ramp = (c != top[..., 2 * n]) | (c != left[..., 2 * n])
+    filt = torch.from_numpy(mode_filter_flags(n))[modes]
+    return int((flat & ramp & filt).sum())
+
+
+def decode_kernel_case(dev, levels, modes, qps, n: int, shape, **kw):
+    """decode_planes of one stream on the card (one decode_blocks
+    launch), and the kernel against its plain version on the card on
+    the same residual.  Returns (differing pixels, kernel recon, modes on
+    the card)."""
+    h, w = shape
+    hp, wp = -(-h // n) * n, -(-w // n) * n
+    lv = torch.from_numpy(levels).to(dev)
+    md = torch.from_numpy(modes).to(dev)
+    reset_launches()
+    got = decode_planes(lv, md, qps, n=n, height=h, width=w, **kw)
+    torch.cuda.synchronize()
+    if read_launches()["decode_blocks"] != 1:
+        raise SystemExit(f"decode_planes at {shape} N={n}: launches "
+                         f"{read_launches()}, expected one decode_blocks")
+    res = decode_residual(lv, md, qps, n=n, hp=hp, wp=wp,
+                          use_dst=kw.get("use_dst", False))
+    bk = dict(bit_depth=kw.get("bit_depth", 8),
+              intra_smoothing=kw.get("intra_smoothing", False))
+    kern = decode_blocks(res, md, n, **bk)
+    plain = decode_blocks_reference(res, md, n, **bk)
+    torch.cuda.synchronize()
+    bad = int((kern != plain).sum())
+    if not torch.equal(got, kern[:, :h, :w]):
+        bad = max(bad, 1)
+    return bad, kern, md
+
+
+def phase_decode_vs_plain(dev, search_bits: bytes, gpu: str) -> int:
+    """3f: the decode kernel == its plain version on the card, bit for
+    bit, on adversarial streams (random modes 0..34, random levels, a
+    QP per frame) decoded by decode_planes, one launch a call: N 4
+    (DST), 8, 16, 32; smoothing off and on (N > 4); 8 and 10 bits;
+    batches of 1 and 3; a block-aligned 128x256 and a misaligned 138x250
+    crop; DC-only streams at N=32 whose flat arms take the strong
+    filter (one block column, and 4x8 blocks).  Then the luma plane of
+    the closed loop's 1080p search stream, and three repeats of its
+    kernel decode, each equal to the first.  Returns the max abs err."""
+    t0 = time.perf_counter()
+    cases = []
+    combos = ((8, 1), (10, 3), (8, 3), (10, 1))
+    for shape in ((128, 256), (138, 250)):
+        for n, dst in DECODE_SIZES:
+            for smooth in (False, True) if n > 4 else (False,):
+                bd, batch = combos[len(cases) % len(combos)]
+                cases.append((shape, n, dst, smooth, bd, batch, False))
+    for bd in (8, 10):
+        cases.append(((256, 32), 32, False, True, bd, 3, True))
+        cases.append(((128, 256), 32, False, True, bd, 1, True))
+    strong = 0
+    for i, (shape, n, dst, smooth, bd, batch, dc) in enumerate(cases):
+        levels, modes = decode_stream(shape, n, batch, SEED + i, dc)
+        qps = [22, 37, 30][:batch] if i % 2 else [30, 22, 45][:batch]
+        bad, kern, md = decode_kernel_case(
+            dev, levels, modes, qps, n, shape, use_dst=dst, bit_depth=bd,
+            intra_smoothing=smooth)
+        if bad:
+            raise SystemExit(
+                f"decode_blocks != plain at {shape} N={n} dst={dst} "
+                f"smoothing={smooth} bd={bd} batch={batch} dc_only={dc}: "
+                f"{bad} pixels differ")
+        if smooth:
+            strong += strong_blocks(kern, md, n, bd)
+    if not strong:
+        raise SystemExit("3f: no 32x32 block took the strong filter")
+    parsed = parse_bitstream(search_bits)
+    y = parsed["Y"]
+    qp = y.get("qp", parsed["params"]["qp"])
+    n = y["block_size"]
+    levels, modes = y["levels"][None], y["modes"][None].astype(np.int32)
+    bad, kern, md = decode_kernel_case(dev, levels, modes, [qp], n, (H, W))
+    if bad:
+        raise SystemExit(f"decode_blocks != plain on the 1080p search luma "
+                         f"plane: {bad} pixels differ")
+    res = decode_residual(torch.from_numpy(levels).to(dev), md, [qp], n=n,
+                          hp=kern.shape[1], wp=kern.shape[2])
+    for rep in range(3):
+        again = decode_blocks(res, md, n)
+        torch.cuda.synchronize()
+        if not torch.equal(again, kern):
+            raise SystemExit(f"decode_blocks 1080p: repeat {rep + 1} "
+                             "differs from the first run")
+    log(f"[3f] decode_blocks == plain on CUDA, 0 pixels differ, in "
+        f"{len(cases)} adversarial cases (random modes 0..34 and levels, "
+        f"a QP per frame, N 4 DST/8/16/32, smoothing off/on, 8/10-bit, "
+        f"batch 1/3, 128x256 and 138x250; {strong} blocks took the 32x32 "
+        f"strong filter) and on the 1080p search stream's luma plane "
+        f"(N={n}, three repeats == the first); each decode_planes call one "
+        f"launch ({time.perf_counter() - t0:.1f} s) [{gpu}]")
+    return 0
+
+
+def decode_bound(n: int, modes: torch.Tensor) -> tuple:
+    """(bound ms, "bytes" or "operations") of decode_blocks on one
+    plane whose blocks carry `modes` (no smoothing).  Bytes: the int32
+    residual read and the int32 recon written (8 a pixel), one int32
+    mode a block.  Operations, counted from these modes, an add,
+    multiply, shift, compare or select each one: a pixel's add and clip
+    (3) and its prediction, planar 9, DC none (its 2N-term sum and
+    division once a block), angular 9 (fraction, index, the two-tap
+    lerp); an angular block's projection array, 3N+1 samples of 4."""
+    m = modes.reshape(-1).long().cpu()
+    nb = m.numel()
+    planar, dc = int((m == 0).sum()), int((m == 1).sum())
+    angular = nb - planar - dc
+    pixels = nb * n * n
+    ops_count = (3 * pixels + 9 * n * n * (planar + angular)
+                 + (2 * n + 2) * dc + 4 * (3 * n + 1) * angular)
+    t_bytes = (8 * pixels + 4 * nb) / 3.35e12 * 1e3
+    t_ops = ops_count / 67e12 * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def decode_times(dev, frame: Frame, gpu: str) -> tuple:
+    """6d: the decode kernel per 1080p luma plane of the closed loop's
+    search stream at N 4 (DST), 8, 16, 32 (and the default config's at
+    N=8), QP 22: device time through a CUDA graph, a launch loop's
+    stream time, grids a call, us a block on the chain, the bound; the
+    plain version on the search stream at N=8 only.  Returns ({N:
+    (kernel ms, plain ms)}, the N=8 search plane's bound)."""
+    y = torch.from_numpy(frame.y.data.astype(np.int32))[None].to(dev)
+    times, bound = {}, None
+    for label, mode_set, decision in (("search", "all", "satd"),
+                                      ("default", "dc_planar", "energy")):
+        for n, dst in DECODE_SIZES:
+            if label == "default" and n != 8:
+                continue
+            out = encode_planes_closed_loop(y, 22, n=n, mode_set=mode_set,
+                                            decision=decision, use_dst=dst)
+            hp, wp = -(-H // n) * n, -(-W // n) * n
+            md = out["modes"].contiguous()
+            res = decode_residual(out["levels"], md, [22], n=n, hp=hp,
+                                  wp=wp, use_dst=dst)
+            call = lambda: decode_blocks(res, md, n)   # noqa: E731
+            grids0, calls0 = decode_blocks.grids, decode_blocks.launches
+            rec = call()
+            torch.cuda.synchronize()
+            if not torch.equal(rec[:, :H, :W], out["recon"]):
+                raise SystemExit(f"6d: decode_blocks N={n} {label}: the "
+                                 "decode differs from the encoder's recon")
+            grids = (decode_blocks.grids - grids0) / (
+                decode_blocks.launches - calls0)
+            k_ms = graph_ms(call)
+            loop_ms = cuda_ms(call, iters=10)
+            depth = hp // n + wp // n - 1
+            b_ms, b_by = decode_bound(n, md)
+            p_ms = None
+            if label == "search":
+                if n == 8:     # the plain loop on one 1080p plane only
+                    p_ms = cuda_ms(lambda: decode_blocks_reference(res, md, n),
+                                   iters=1, warmup=1)
+                    bound = (b_ms, b_by)
+                times[n] = (k_ms, p_ms)
+            plain_note = (f", plain {p_ms:.4f} ms" if p_ms is not None
+                          else "")
+            log(f"[6d] decode_blocks {label} stream, 1080p luma N={n}"
+                f"{' DST' if dst else ''}: kernel {k_ms:.4f} ms (CUDA graph; "
+                f"launch loop {loop_ms:.4f} ms), {grids:g} grid a call, a "
+                f"chain of {depth} blocks, {1e3 * k_ms / depth:.3f} us a "
+                f"block; bound {1e3 * b_ms:.2f} us ({b_by}, "
+                f"{100 * b_ms / k_ms:.2f} %){plain_note} [{gpu}]")
+    return times, bound
+
+
+def decode_frame_split(dev, bits: bytes, label: str, gpu: str) -> None:
+    """6d: decode_frame of a 1080p 4:2:0 stream, host bytes in and host
+    planes out, and where its time goes: the host parse
+    (`parse_bitstream`, median of 3 beside the calls'), and the device's
+    busy time over 3 calls (torch.profiler: the residual's kernels, the
+    decode kernel, the copies); the rest is host dispatch and copies."""
+    clock = time.perf_counter
+    walls, parses = [], []
+    for _ in range(3):
+        t0 = clock()
+        decode_frame(bits, device=dev)
+        walls.append(clock() - t0)
+        t0 = clock()
+        parse_bitstream(bits)
+        parses.append(clock() - t0)
+    busy_us, wall_us = device_busy(lambda: decode_frame(bits, device=dev))
+    log(f"[6d] decode_frame {label}, 1080p 4:2:0 ({len(bits)} bytes): "
+        f"{1e3 * sorted(walls)[1]:.2f} ms (median of 3; the plain loop "
+        f"took 1206 / 1276 ms default / search on an H100, PERF.md section "
+        f"5), of which the host parse "
+        f"{1e3 * sorted(parses)[1]:.2f} ms; device over 3 calls "
         f"(torch.profiler): {busy_us:.1f} us of kernels and copies in "
         f"{wall_us:.1f} us: {busy_share(busy_us, wall_us)} [{gpu}]")
 
@@ -1410,14 +1702,18 @@ def phase_sequence_closed(dev, tmp: str, src: str, frames: list, label: str,
         recon.append(rec.to_yuv420p())
     dec = os.path.join(tmp, f"{tag}_dec.yuv")
     t0 = time.perf_counter()
-    n = seq.decode_sequence(bits, dec, device=dev)
+    n = counted_decode(f"[{tag}] decode_sequence",
+                       sequence_decodes(SEQ_FRAMES),
+                       lambda: seq.decode_sequence(bits, dec, device=dev))
     dec_s = time.perf_counter() - t0
     with open(dec, "rb") as f:
         if n != SEQ_FRAMES or f.read() != b"".join(recon):
             raise SystemExit("decode_sequence on the card != the recon")
     log(f"[{tag}] each frame parses back to encode_frame_closed_loop's levels "
         f"and modes; decode_sequence on {dev} == recon pixel for pixel "
-        f"({dec_s:.3f} s for 16 frames, first call)")
+        f"({dec_s:.3f} s for 16 frames, first call; decode_blocks "
+        f"{sequence_decodes(SEQ_FRAMES)} launches, one a plane a chunk of "
+        f"{DECODE_CHUNK}, no other kernel)")
     return launches["wavefront_encode_planes"], bits, b"".join(recon)
 
 
@@ -1647,13 +1943,23 @@ def sequence_times(dev, tmp: str, src: str, frames: list, closed_bits: str,
     log(f"[6f] sequence default, entropy_tiles=4: {tp['seconds'] * 1e3:.1f} ms "
         f"for 16 frames ({tp['mpix_per_s']:.2f} Mpix/s all samples), entropy "
         f"{res.stats['entropy']['total_s'] * 1e3:.1f} ms [{gpu}]")
+    out = os.path.join(tmp, "times_dec.yuv")
     t0 = time.perf_counter()
-    seq.decode_sequence(closed_bits, os.path.join(tmp, "times_dec.yuv"),
-                        device=dev)
+    seq.decode_sequence(closed_bits, out, device=dev)
     dec_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seq.decode_sequence_levels(closed_bits)
+    parse_s = time.perf_counter() - t0
+    busy_us, wall_us = device_busy(
+        lambda: seq.decode_sequence(closed_bits, out, device=dev), repeats=1)
     log(f"[6f] decode_sequence of the 16-frame closed-loop (default) stream: "
         f"{dec_s * 1e3:.1f} ms ({dec_s * 1e3 / SEQ_FRAMES:.2f} ms a frame; "
-        f"plain PyTorch, host in and out) [{gpu}]")
+        f"the decode kernel, host in and out; the plain loop took 3638.2 "
+        f"ms on an H100, PERF.md section 5), "
+        f"of which the host parse (decode_sequence_levels) "
+        f"{parse_s * 1e3:.1f} ms; device over one call (torch.profiler): "
+        f"{busy_us:.1f} us of kernels and copies in {wall_us:.1f} us: "
+        f"{busy_share(busy_us, wall_us)} [{gpu}]")
 
 
 # --- the RD stages (7a-7e) ---------------------------------------------------
@@ -1779,7 +2085,8 @@ def phase_rd_closed_full(dev, frame: Frame, gpu: str) -> None:
         enc_s = time.perf_counter() - t0
         no_launches(f"closed loop ({label})")
         t0 = time.perf_counter()
-        decoded = decode_frame(bits, device=dev)
+        decoded = counted_decode(f"[7c] {label} decode_frame", 3,
+                                 lambda: decode_frame(bits, device=dev))
         dec_s = time.perf_counter() - t0
         if not all(np.array_equal(getattr(recon, p).data,
                                   getattr(decoded, p).data) for p in "yuv"):
@@ -1917,7 +2224,8 @@ def phase_filters_crops(dev, frame: Frame, gpu: str) -> None:
         if card[1] != cpu[1] or not same_frames(card[0], cpu[0]):
             raise SystemExit(f"8a: {label} on a {small.height}x{small.width} "
                              "crop: the card differs from the CPU")
-        decoded = decode_frame(card[1], device=dev)
+        decoded = counted_decode(f"[8a] {label} decode_frame", 3,
+                                 lambda: decode_frame(card[1], device=dev))
         if not same_frames(decoded, card[0]):
             raise SystemExit(f"8a: {label}: decode_frame != recon")
         sizes.setdefault(small.height, []).append(len(card[1]))
@@ -2015,7 +2323,9 @@ def phase_filters_frame(dev, frame: Frame, base_bits: dict,
                                  f"expected {want}")
             launches[body] += got["wavefront_encode_planes"]
             t0 = time.perf_counter()
-            decoded = decode_frame(bits, device=dev)
+            decoded = counted_decode(f"[8b] {label}, {base_label} "
+                                     "decode_frame", 3,
+                                     lambda: decode_frame(bits, device=dev))
             dec_s = time.perf_counter() - t0
             if not same_frames(decoded, recon):
                 raise SystemExit(f"8b: {label}, {base_label}: decode_frame "
@@ -2075,7 +2385,9 @@ def phase_filters_sequence(dev, tmp: str, src: str, frames: list,
             recon.append(rec.to_yuv420p())
         dec = os.path.join(tmp, "filters_dec.yuv")
         t0 = time.perf_counter()
-        n = seq.decode_sequence(bits, dec, device=dev)
+        n = counted_decode(f"[8c] {label} decode_sequence",
+                           sequence_decodes(SEQ_FRAMES),
+                           lambda: seq.decode_sequence(bits, dec, device=dev))
         dec_s = time.perf_counter() - t0
         with open(dec, "rb") as f:
             if n != SEQ_FRAMES or f.read() != b"".join(recon):
@@ -2334,7 +2646,9 @@ def phase_mesh_sequence(dev, mesh, tmp: str, src: str, closed_recon: bytes,
         note = ""
         if closed:
             dec = os.path.join(tmp, "mesh_dec.yuv")
-            n = seq.decode_sequence(bits["mesh"], dec, device=dev)
+            n = counted_decode(
+                "[9d] decode_sequence", sequence_decodes(MESH_SEQ_FRAMES),
+                lambda: seq.decode_sequence(bits["mesh"], dec, device=dev))
             size = MESH_SEQ_FRAMES * H * W * 3 // 2
             with open(dec, "rb") as f:
                 if n != MESH_SEQ_FRAMES or f.read() != closed_recon[:size]:
@@ -2449,6 +2763,7 @@ def main() -> int:
         dev, frame, config, "4c")
     wf_launches["search"], ms_cl_bits, ms_cl_recon = phase_closed_loop(
         dev, frame, MODE_SEARCH, "4d")
+    worst["decode_blocks"] = phase_decode_vs_plain(dev, ms_cl_bits, gpu)
     launches["fused_encode_blocks"], planes8 = phase_fused_main(dev)
 
     # The sequence runner drives K1, K2 and the wavefront kernel: each
@@ -2500,6 +2815,9 @@ def main() -> int:
     frame_times(dev, frame, MODE_SEARCH, "mode search:", gpu)
     closed_loop_times(dev, frame, config, "default config:", gpu)
     closed_loop_times(dev, frame, MODE_SEARCH, "mode search:", gpu)
+    dec_times, dec_bound = decode_times(dev, frame, gpu)
+    decode_frame_split(dev, cl_bits, "default", gpu)
+    decode_frame_split(dev, ms_cl_bits, "mode search", gpu)
     times["fused_encode_blocks"] = fused_times(dev, planes8, gpu)
     sequence_times(dev, tmp, src, frames, seq_bits["closed loop default"], gpu)
     phase_rd(dev, tmp, src, frame, frames, gpu)
@@ -2535,6 +2853,10 @@ def main() -> int:
     rows.append(("fused_encode_blocks", times["fused_encode_blocks"][n8],
                  launches["fused_encode_blocks"], worst["fused_encode_blocks"],
                  fused_bound(n8, H * W), KERNELS["fused_encode_blocks"][3]))
+    # the decode kernel on the search stream's luma plane at N = 8
+    rows.append(("decode_blocks", dec_times[n8], DECODE_LAUNCHES["main"],
+                 worst["decode_blocks"], dec_bound,
+                 KERNELS["decode_blocks"][3]))
     entries = []
     for name, (k_ms, p_ms), count, err, (bound_ms, bound_by), replaces in rows:
         entries.append({
@@ -2548,7 +2870,7 @@ def main() -> int:
             "plain_ms": p_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            "library_ms": None,    # no one PyTorch call encodes a block
+            "library_ms": None,    # no one PyTorch call codes a block
         })
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)

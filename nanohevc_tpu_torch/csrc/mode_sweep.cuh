@@ -85,6 +85,42 @@ __device__ __forceinline__ int dc_value(const int* ref) {
   return floor_div(sum + N, 2 * N);
 }
 
+// Sample e (0 .. 3N) of angular `mode`'s projection array
+// (angular_tables.py src): ref[N + i] for i in -N..2N, the primary arm
+// at i >= 0 (i = 0 is the corner); below 0, the extension from the
+// other arm where the angle is negative and i >= (N * angle) >> 5, else
+// the corner.  `ref` is the block's extract_refs layout.
+template <int N>
+__device__ __forceinline__ int projection_sample(const int* ref, int mode,
+                                                 int e) {
+  constexpr int R = 2 * N + 1;
+  const int m = mode - 2;
+  const int angle = c_tables[kAngleOffset + m];
+  const bool vertical = mode >= 18;
+  const int prim = vertical ? 0 : R, sec = vertical ? R : 0;
+  const int pos = e - N;
+  if (pos >= 0) return ref[prim + pos];
+  if (angle < 0 && pos >= ((N * angle) >> 5))
+    return ref[sec + (((pos + 1) * c_tables[kInvAngleOffset + m] + 128) >> 8)];
+  return ref[0];
+}
+
+// Angular `mode`'s prediction of pixel (i, j) from its projection
+// array `proj` (3N+1 samples, projection_sample's).
+template <int N>
+__device__ __forceinline__ int angular_pixel(const int* proj, int mode, int i,
+                                             int j) {
+  const int angle = c_tables[kAngleOffset + mode - 2];
+  const bool vertical = mode >= 18;
+  const int scan = vertical ? i : j, base = vertical ? j : i;
+  const int p = (scan + 1) * angle;
+  const int frac = p & 31;
+  const int idx = N + base + 1 + (p >> 5);
+  const int a = proj[idx];
+  const int b = proj[min(idx + 1, 3 * N)];
+  return ((32 - frac) * a + frac * b + 16) >> 5;
+}
+
 // The prediction of pixel (i, j) under `mode`, from the block's
 // references and its projection arrays (as mode_sweep left them).
 template <int N>
@@ -93,16 +129,7 @@ __device__ __forceinline__ int predict_pixel(const int* ref,
                                              int mode, int i, int j) {
   if (mode == 0) return planar_pixel<N>(ref, i, j);
   if (mode == 1) return dc_value<N>(ref);
-  const int m = mode - 2;
-  const int angle = c_tables[kAngleOffset + m];
-  const bool vertical = mode >= 18;
-  const int scan = vertical ? i : j, base = vertical ? j : i;
-  const int proj = (scan + 1) * angle;
-  const int frac = proj & 31;
-  const int idx = N + base + 1 + (proj >> 5);
-  const int a = mref[m][idx];
-  const int b = mref[m][min(idx + 1, 3 * N)];
-  return ((32 - frac) * a + frac * b + 16) >> 5;
+  return angular_pixel<N>(mref[mode - 2], mode, i, j);
 }
 
 // Search one N x N block with the BT threads t = 0 .. BT-1 that serve
@@ -118,7 +145,6 @@ template <int N, int BT, int THREADS>
 __device__ __forceinline__ int mode_sweep(const int* ref,
                                           SweepScratch<N, BT>& s, int t,
                                           int max_pix) {
-  constexpr int R = 2 * N + 1;          // one reference arm, corner at 0
   constexpr int L = 3 * N + 1;          // a mode's projection array
   constexpr int G = BT / N;             // groups, one mode each a pass
   constexpr int SPAN = BT < 32 ? BT : 32;   // a block's lanes in a warp
@@ -137,27 +163,13 @@ __device__ __forceinline__ int mode_sweep(const int* ref,
     if (base + warp_g0 >= 35) break;    // uniform: the warp has no mode
     const int mode = min(base + g, 34);
     const int m = mode - 2;
-    // The group's projection array (angular_tables.py src): ref[N + i]
-    // for i in -N..2N, the primary arm at i >= 0 (i = 0 is the corner);
-    // below 0, the extension from the other arm where the angle is
-    // negative and i >= (N * angle) >> 5, else the corner.  Groups past
-    // mode 34 neither build nor keep anything.
+    // The group's projection array; groups past mode 34 neither build
+    // nor keep anything.
     const int angle = mode >= 2 ? c_tables[kAngleOffset + m] : 0;
     const bool vertical = mode >= 18;
     if (mode >= 2 && base + g < 35) {
-      const int prim = vertical ? 0 : R, sec = vertical ? R : 0;
-      const int inv = c_tables[kInvAngleOffset + m];
-      for (int e = r; e < L; e += N) {
-        const int pos = e - N;
-        int v;
-        if (pos >= 0)
-          v = ref[prim + pos];
-        else if (angle < 0 && pos >= ((N * angle) >> 5))
-          v = ref[sec + (((pos + 1) * inv + 128) >> 8)];
-        else
-          v = ref[0];
-        s.mref[m][e] = v;
-      }
+      for (int e = r; e < L; e += N)
+        s.mref[m][e] = projection_sample<N>(ref, mode, e);
     }
     __syncwarp(kMask);                  // the group's array is complete
     int v[N];

@@ -81,36 +81,7 @@
 
 #include "dc_planar.cuh"
 #include "mode_sweep.cuh"   // also defines c_tables, the constant table
-
-__device__ __forceinline__ int load_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_release(int* p, int v) {
-  asm volatile("st.release.gpu.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Spin (one thread) until *flag > bx; returns the value seen.
-__device__ int wait_above(const int* flag, int bx) {
-  int v = load_acquire(flag);
-  if (v > bx) return v;
-  const unsigned long long t0 = global_ns();
-  unsigned ns = 16;
-  while ((v = load_acquire(flag)) <= bx) {
-    __nanosleep(ns);
-    if (ns < 128) ns <<= 1;
-    if (global_ns() - t0 > 1000000000ull) __trap();   // a second: a fault
-  }
-  return v;
-}
+#include "wavefront_sync.cuh"
 
 template <int N, bool SEARCH>
 __host__ __device__ constexpr int wavefront_threads() {

@@ -21,6 +21,10 @@ from nanohevc_tpu_torch.kernels.fused_pipeline import (
     fused_encode_planes,
     fused_encode_planes_reference,
 )
+from nanohevc_tpu_torch.kernels.decode import (
+    decode_blocks,
+    decode_blocks_reference,
+)
 from nanohevc_tpu_torch.kernels.wavefront import (
     wavefront_encode_planes,
     wavefront_encode_planes_reference,
@@ -28,6 +32,8 @@ from nanohevc_tpu_torch.kernels.wavefront import (
 )
 
 __all__ = [
+    "decode_blocks",
+    "decode_blocks_reference",
     "fused_encode_blocks",
     "fused_encode_blocks_reference",
     "fused_encode_planes",

@@ -56,6 +56,10 @@ SIGNATURES = {
     # blocks, refs, nb, n, 7 QpScalars, recon, levels, stream, device
     "fused_pipeline": {"nhv_fused_encode":
                        [_P, _P, _I, _I] + [_I] * 7 + [_P, _P, _P, _I]},
+    # residual, modes, batch, height, width, n, bit_depth, strong_thresh,
+    # filter_mask, recon, work, grids, stream, device
+    "decode": {"nhv_wavefront_decode":
+               [_P, _P] + [_I] * 6 + [ctypes.c_ulonglong] + [_P] * 4 + [_I]},
 }
 
 

@@ -45,9 +45,11 @@ parameters the stream carries.
 Non-block-aligned planes are padded by edge replication and the recon
 cropped back (the conformance window), so `decode_plane` reproduces
 the encoder's reconstruction pixel for pixel at any geometry.  The
-decoder runs the same diagonal loop with `ops.predict_by_mode_mm`, in
-plain PyTorch on the device of its inputs (the JAX decoder runs no
-Pallas kernel either), then the filters.
+decoder dequantizes and inverse-transforms every block's residual at
+once, then predicts, adds and clips through `kernels.decode.decode_blocks`:
+on the card one persistent CUDA launch per batch of planes (the port's
+counterpart of the JAX decoder's compiled scan, which runs no Pallas
+kernel), on the CPU the plain diagonal loop; then the filters.
 """
 
 from __future__ import annotations
@@ -57,9 +59,9 @@ import torch
 
 from nanohevc_tpu_torch import ops, resolve_device
 from nanohevc_tpu_torch.frame import Frame
+from nanohevc_tpu_torch.kernels.decode import decode_blocks
 from nanohevc_tpu_torch.kernels.wavefront import (
     code_residual,
-    diagonal_blocks,
     wavefront_encode_planes,
     wavefront_encode_planes_reference,
     wavefront_supported,
@@ -463,6 +465,27 @@ def decode_frame(bitstream: bytes, *,
     return recon
 
 
+def decode_residual(levels: torch.Tensor, modes: torch.Tensor, qps, *,
+                    n: int, hp: int, wp: int, use_dst: bool = False,
+                    scan: str = "diag",
+                    dequant_rescale: bool = False) -> torch.Tensor:
+    """(B, nb, N*N) scan-packed levels, (B, nb) modes and B per-frame QPs
+    of the block-aligned (Hp, Wp) geometry -> (B, Hp, Wp) int32 residual
+    planes: each frame unpacked, dequantized at its QP and
+    inverse-transformed, all its blocks at once."""
+    b = levels.shape[0]
+    if not b:
+        return torch.zeros((0, hp, wp), dtype=torch.int32,
+                           device=levels.device)
+    res = torch.stack([
+        ops.inverse_transform(ops.dequantize(
+            ops.scan_unpack(levels[i], scan, modes=modes[i]), int(q), n,
+            rescale=dequant_rescale), use_dst)
+        for i, q in enumerate(qps)
+    ]).reshape(b, hp // n, wp // n, n, n)
+    return res.permute(0, 1, 3, 2, 4).reshape(b, hp, wp)
+
+
 def decode_planes(levels: torch.Tensor, modes: torch.Tensor, qps, *, n: int,
                   height: int, width: int, use_dst: bool = False,
                   bit_depth: int = 8, scan: str = "diag",
@@ -471,7 +494,11 @@ def decode_planes(levels: torch.Tensor, modes: torch.Tensor, qps, *, n: int,
                   sao_ctb=None) -> torch.Tensor:
     """Batched decode_plane: (B, nb, N*N) levels, (B, nb) modes and B
     per-frame QPs -> (B, H, W) int32 reconstructions, on the device of
-    `levels`.  The B frames' diagonals are decoded together.
+    `levels`.  Each frame's residual is dequantized at its QP and
+    inverse-transformed, all its blocks at once; then
+    `kernels.decode.decode_blocks` predicts, adds and clips every block
+    of the B frames in one call (on the card, one persistent kernel
+    launch).
 
     Then the filters, frame by frame on the padded recon: deblocking at
     each frame's QP (chroma's filter with is_chroma), and sao, a
@@ -482,29 +509,14 @@ def decode_planes(levels: torch.Tensor, modes: torch.Tensor, qps, *, n: int,
     if sao is not None and sao_ctb is not None:
         raise ValueError("pass per-frame sao OR sao_ctb, not both")
     hp, wp = -(-height // n) * n, -(-width // n) * n
-    nby, nbx = hp // n, wp // n
     b = levels.shape[0]
     dev = levels.device
-    res = torch.stack([
-        ops.inverse_transform(ops.dequantize(
-            ops.scan_unpack(levels[i], scan, modes=modes[i]), int(q), n,
-            rescale=dequant_rescale), use_dst)
-        for i, q in enumerate(qps)
-    ]).reshape(b, nby, nbx, n, n) if b else levels.new_zeros((0, nby, nbx, n, n))
-    modes = modes.reshape(b, nby, nbx)
-    recon = torch.zeros((b, hp, wp), dtype=torch.int32, device=dev)
-    rec_blocks = recon.view(b, nby, n, nbx, n).permute(0, 1, 3, 2, 4)
-    boundary = 1 << (bit_depth - 1)
-    for d in range(nby + nbx - 1):
-        by, bx = diagonal_blocks(d, nby, nbx, dev)
-        m = by.shape[0]
-        refs = ops.extract_refs_at(recon, by, bx, n, boundary)
-        pred = ops.predict_by_mode_mm(
-            refs.reshape(b * m, 4 * n + 2), n, modes[:, by, bx].reshape(b * m),
-            smoothing=intra_smoothing, bit_depth=bit_depth)
-        rec = (pred + res[:, by, bx].reshape(b * m, n, n)).clamp(
-            0, (1 << bit_depth) - 1)
-        rec_blocks[:, by, bx] = rec.reshape(b, m, n, n)
+    res = decode_residual(levels, modes, qps, n=n, hp=hp, wp=wp,
+                          use_dst=use_dst, scan=scan,
+                          dequant_rescale=dequant_rescale)
+    modes = modes.reshape(b, (hp // n) * (wp // n)).to(torch.int32)
+    recon = decode_blocks(res, modes.contiguous(), n, bit_depth=bit_depth,
+                          intra_smoothing=intra_smoothing)
     if deblock:
         recon = ops.deblock_plane(
             recon, torch.tensor([int(q) for q in qps], device=dev),
