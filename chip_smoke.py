@@ -25,7 +25,15 @@ over a 16-frame file at batch 8.  It checks them end to end:
    to 1088 rows) on 1080x1920, then the row schedule's cases (a tall
    200x45 plane, one block row, one block column, the 16-plane chroma
    stack at N=4, a 12-bit search at N=32, and the 1080p search at N=8
-   three more times, each equal to the first); the fused blocks kernel
+   three more times, each equal to the first); what the wavefront
+   kernel took over from JAX's closed-loop XLA scan (3g): the fixed
+   modes dc and planar, DC/planar by SAD and SATD, the 35 modes by
+   energy and SAD, and the two bodies above, each at N 4 DST, 4, 8, 16
+   and 32 with luma smoothing off and on, RDOQ rotated over every scan
+   and three lambda scales, 8/10/12-bit, both dequant modes and the four
+   QPs on a 135x240 and a 45x200 crop, then the 1080p luma plane under
+   RDOQ and with the smoothed search, three more times each, each equal
+   to the first; the fused blocks kernel
    (3e) over N 4-32, 8/10-bit and
    the four QPs on two 1080p planes and a 45x200 plane, and against the
    slab kernel (DCT, parity) on the 1080p plane's full block rows.  The
@@ -64,7 +72,14 @@ over a 16-frame file at batch 8.  It checks them end to end:
    gives the CPU's bytes; `decode_sequence` on the card gives the
    closed loop's recon.  4h: target_bpp rate control (open and closed
    loop), resume (8 frames, then 16 == a straight run), a corrupt
-   sidecar (restart from frame 0);
+   sidecar (restart from frame 0).  4i: the closed-loop configs no
+   other phase runs (luma smoothing, the horizontal, vertical and mode
+   scans, the dequant rescale, chroma mode sets, DC/planar by SAD and
+   SATD, the 35 modes by energy and SAD, RDOQ under the mode scan) on a
+   256x256 and a 138x250 crop and the default config at 10 bits on the
+   1080p frame: 3 wavefront launches a frame, no other kernel, no
+   plain-loop entry, card == CPU in recon and bytes, each stream decoded
+   on the card to its recon;
 5. runs the CLI under each config and compares its bitstream (5, 5b:
    open loop; 5c: closed loop, then `decode`; 5d: `encode-seq` open,
    closed and `--target-bpp`, `decode` of the sequence, `encode
@@ -78,23 +93,28 @@ over a 16-frame file at batch 8.  It checks them end to end:
    config, the closed-loop frame and its decode (6c), the decode kernel
    per 1080p luma plane at N 4-32 through a CUDA graph with its bound
    and us a block on the chain (6d; the plain version at N=8 only) and
-   `decode_frame`'s split (host parse, device busy share), and the sequence
+   `decode_frame`'s split (host parse, device busy share), each row of
+   what the kernel took over from the XLA scan per 1080p luma plane at
+   N=8 through a CUDA graph beside the plain loop and its bound (6g),
+   and the sequence
    under all four configs (6f: throughput, stages, whether drain
    overlaps the next batch, device busy share, entropy_tiles=4,
    `decode_sequence`);
-7. runs the RD stages, which launch no kernel (plain PyTorch on the
-   card, as the JAX package runs them on its XLA path): 7a the 1080p
-   frame under rdo_cbf+rdoq (default and mode search) and
+7. runs the RD stages, plain PyTorch on the card as the JAX package
+   runs them on its XLA path, except the closed loop's RDOQ, which runs
+   in the wavefront kernel (one launch a plane, no plain-loop entry; the
+   open loop's RD stages and decision="rd" launch no kernel): 7a the
+   1080p frame under rdo_cbf+rdoq (default and mode search) and
    decision="rd", each equal to the port on the CPU (recon, levels,
    modes, nnz, bytes), with its frame call and device part; 7b the
    35-mode RD decision (open loop) and the closed loop with RDOQ and
    with decision="rd" on a 256x256 and a 138x250 crop, card == CPU;
-   7c both closed-loop RD encodes at 1080p, decoded on the card pixel
-   for pixel; 7d 16-frame sequences at batch 8 with rdo_cbf+rdoq (open
-   loop) and rdoq (closed loop), every frame equal to its single-frame
-   encode, bytes and mean Y-PSNR beside the runs without RD; 7e the
-   CLI's `encode --rdo --rdoq` and `encode --decision rd`, bytes equal
-   to the API's;
+   7c both closed-loop RD encodes at 1080p (RDOQ's frame call also
+   warm), decoded on the card pixel for pixel; 7d 16-frame sequences
+   at batch 8 with rdo_cbf+rdoq (open loop) and rdoq (closed loop),
+   every frame equal to its single-frame encode, bytes and mean
+   Y-PSNR beside the runs without RD; 7e the CLI's `encode --rdo
+   --rdoq` and `encode --decision rd`, bytes equal to the API's;
 8. runs the in-loop filters, which launch no kernel of their own (plain
    PyTorch on the card, as the JAX package runs them on XLA) after the
    wavefront kernel: 8a the closed loop with deblock, sao, sao_ctb
@@ -132,7 +152,9 @@ over a 16-frame file at batch 8.  It checks them end to end:
    loop's stream decoded on the card to its recon.
 
 Prints one JSON line of kernel results before the last line (the
-wavefront kernel has an entry per body, each with its launches; the
+wavefront kernel has an entry per body, each with its launches, and one
+for each row of what it took over from JAX's XLA scan, SCAN_ROWS, whose
+launches are 4i's and 7b-7d's; the
 decode kernel's entry counts the decode gates' launches), and
 as the last line {"ok": true, "device": {...}}.  Exits non-zero, without that
 line, when there is no CUDA card or a phase fails.
@@ -141,7 +163,9 @@ Each kernel's bound in the JSON line is the larger of its bytes over
 the card's 3.35 TB/s and its integer operations over 67 T/s (the H100
 SXM's float32 rate outside the tensor cores, which no int32 add or
 multiply exceeds), counted per pixel as `kernel_bound` (`fused_bound`
-for the fused blocks kernel, `decode_bound` for the decode kernel) says.
+for the fused blocks kernel, `decode_bound` for the decode kernel,
+`scan_bound` for the XLA scan's rows, RDOQ's float32 operations at the
+same rate) says.
 """
 
 from __future__ import annotations
@@ -165,6 +189,7 @@ try:
     from nanohevc_tpu_torch.config import EncoderConfig
     from nanohevc_tpu_torch.frame import Frame, Plane
     from nanohevc_tpu_torch.kernels import build
+    from nanohevc_tpu_torch.kernels import wavefront as kwf
     from nanohevc_tpu_torch.kernels.decode import (
         decode_blocks,
         decode_blocks_reference,
@@ -188,6 +213,7 @@ try:
         wavefront_encode_planes_reference,
     )
     from nanohevc_tpu_torch.models import sequence as seq
+    from nanohevc_tpu_torch.models import wavefront as torch_wf
     from nanohevc_tpu_torch.models.all_intra import (
         encode_frame_full,
         encode_plane_config,
@@ -239,7 +265,8 @@ KERNELS = {
         "nanohevc_tpu_torch/csrc/wavefront.cu",
         "nanohevc_tpu/kernels/wavefront_mode_grouped.py:199, "
         "nanohevc_tpu/kernels/wavefront_mode_slab.py:182, "
-        "nanohevc_tpu/kernels/wavefront_slab.py:151",
+        "nanohevc_tpu/kernels/wavefront_slab.py:151, "
+        "nanohevc_tpu/models/wavefront.py:414 (XLA scan)",
     ),
     "fused_encode_blocks": (
         fused_encode_blocks, fused_encode_blocks_reference,
@@ -256,6 +283,37 @@ KERNELS = {
 # The wavefront kernel's two bodies, by (mode_set, decision).
 WAVEFRONT_BODIES = {"dc_planar": ("dc_planar", "energy"),
                     "search": ("all", "satd")}
+# What the wavefront kernel codes as the counterpart of JAX's closed-loop
+# XLA scan: every (mode_set, decision) but decision="rd", smoothing and
+# RDOQ on each (3g), by the name 3g gives the body.
+SCAN_BODIES = {"dc": ("dc", "energy"), "planar": ("planar", "energy"),
+               "pair sad": ("dc_planar", "sad"),
+               "pair satd": ("dc_planar", "satd"),
+               "all energy": ("all", "energy"), "all sad": ("all", "sad"),
+               **WAVEFRONT_BODIES}
+XLA_SCAN = ("nanohevc_tpu/models/wavefront.py:414 (encode_planes_closed_loop"
+            "'s jax.lax.scan, an XLA scan; no Pallas kernel)")
+# The kernels-line rows of what the kernel took over from the XLA scan:
+# row -> (label, the 1080p luma plane's keywords at N = 8 for 6g).  The
+# two switches' rows count their launches under every body, and are
+# timed on the body their label names.
+SCAN_ROWS = {
+    "fixed": ("wavefront_encode_planes (fixed-mode body)",
+              dict(mode_set="dc", decision="energy")),
+    "pair": ("wavefront_encode_planes (DC/planar body by SAD or SATD)",
+             dict(mode_set="dc_planar", decision="satd")),
+    "sweep": ("wavefront_encode_planes (35-mode body by energy or SAD)",
+              dict(mode_set="all", decision="sad")),
+    "smoothing": ("wavefront_encode_planes (luma smoothing switch, any body; "
+                  "timed on the search body)",
+                  dict(mode_set="all", decision="satd", intra_smoothing=True)),
+    "rdoq": ("wavefront_encode_planes (RDOQ tail switch, any body; timed "
+             "on the DC/planar body)",
+             dict(mode_set="dc_planar", decision="energy", rdoq=True)),
+}
+# Main-path launches of each row (4i, 7b-7d), from the wrapper's
+# launches_by_config.
+SCAN_LAUNCHES = dict.fromkeys(SCAN_ROWS, 0)
 
 
 def log(*args):
@@ -367,6 +425,60 @@ def max_abs_err(got: dict, want: dict) -> int:
 def reset_launches() -> None:
     for name in KERNELS:
         KERNELS[name][0].launches = 0
+    wavefront_encode_planes.launches_by_config.clear()
+
+
+def scan_row(mode_set: str, decision: str, smoothing: bool, rdoq: bool):
+    """The kernels-line row of a wavefront launch's configuration: one
+    of SCAN_ROWS, or None for the two bodies of the TPU kernels."""
+    if rdoq:
+        return "rdoq"
+    if smoothing:
+        return "smoothing"
+    if mode_set in ("dc", "planar"):
+        return "fixed"
+    if (mode_set, decision) in WAVEFRONT_BODIES.values():
+        return None
+    return "pair" if mode_set == "dc_planar" else "sweep"
+
+
+def add_scan_launches() -> dict:
+    """Add the wrapper's launches since the last reset to SCAN_LAUNCHES,
+    by row; returns {row: launches} of this run."""
+    got = {}
+    for key, count in wavefront_encode_planes.launches_by_config.items():
+        row = scan_row(*key)
+        if row is not None:
+            got[row] = got.get(row, 0) + count
+            SCAN_LAUNCHES[row] += count
+    return got
+
+
+class PlainLoopEntries:
+    """Counts the closed loop's plain entries while it is open: the
+    plain loop (`wavefront_encode_planes_reference`, which the wrapper
+    reaches for a CPU tensor) and the RD decision's slot batches
+    (`_encode_planes_rd`), each looked up by name where it is called."""
+
+    def __enter__(self):
+        self.count = 0
+        self.saved = (kwf.wavefront_encode_planes_reference,
+                      torch_wf._encode_planes_rd)
+
+        def counted(fn):
+            def call(*args, **kwargs):
+                self.count += 1
+                return fn(*args, **kwargs)
+            return call
+
+        kwf.wavefront_encode_planes_reference = counted(self.saved[0])
+        torch_wf._encode_planes_rd = counted(self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        (kwf.wavefront_encode_planes_reference,
+         torch_wf._encode_planes_rd) = self.saved
+        return False
 
 
 def read_launches() -> dict:
@@ -932,6 +1044,108 @@ def phase_wavefront_vs_plain(dev) -> int:
     return worst
 
 
+def phase_wavefront_scan_vs_plain(dev) -> dict:
+    """3g: what the wavefront kernel took over from JAX's closed-loop XLA
+    scan == its plain version on the card, 0 differing values in recon,
+    levels and modes: every body of SCAN_BODIES at N 4 (DST and DCT), 8,
+    16 and 32, each with smoothing off and on; RDOQ rotated over the
+    cases in every scan (off, diag, horizontal, vertical, mode) with
+    lambda scales 1, 2.5 and 0.5; bit depth 8/10/12 and the dequant
+    rescale rotated; QP 0/22/37/51 rotated; on a 135x240 and a 45x200
+    crop (padded).  The scan turns with the body as well as with (N,
+    smoothing), so that each body meets every scan with smoothing off
+    and on.  Then, each against the plain loop and run three more times,
+    each == the first: two 1080p luma planes at N=8, the DC/planar body
+    under RDOQ (diag) and the smoothed 35-mode search; and 7d's batches
+    under RDOQ as encode_sequence gives them, a batch's 8 luma planes
+    (1080p, N=8) and its 16 chroma planes (540x960, N=4).
+    Returns the worst error of each kernels-line row."""
+    kernel, plain = KERNELS["wavefront_encode_planes"][:2]
+    rng = np.random.default_rng(SEED + 5)
+    sizes = ((4, True), (4, False), (8, False), (16, False), (32, False))
+    rdoq_scans = (None, "diag", "horizontal", "vertical", "mode")
+    combos = [(bd, rs) for bd in (8, 10, 12) for rs in (False, True)]
+    cases = []
+    t = 0
+    for b, body in enumerate(SCAN_BODIES):
+        for n, use_dst in sizes:
+            for smoothing in (False, True):
+                bd, rescale = combos[t % len(combos)]
+                cases.append((((H // 8, W // 8), (45, 200))[t % 2], body, n,
+                              use_dst, (0, 22, 37, 51)[t % 4], bd, rescale,
+                              smoothing, rdoq_scans[(t + b) % 5],
+                              (1.0, 2.5, 0.5)[t % 3]))
+                t += 1
+    planes = {}
+    worst = dict.fromkeys(SCAN_ROWS, 0)
+    t0 = time.perf_counter()
+    for (shape, body, n, use_dst, qp, bd, rescale, smoothing, scan,
+         scale) in cases:
+        key = (shape, bd, n)
+        if key not in planes:
+            planes[key] = stacked_planes(shape, bd, 1, n, dev, rng)
+        mode_set, decision = SCAN_BODIES[body]
+        kw = dict(mode_set=mode_set, decision=decision, bit_depth=bd,
+                  use_dst=use_dst, dequant_rescale=rescale,
+                  intra_smoothing=smoothing, rdoq=scan is not None,
+                  scan=scan or "diag", rd_lambda_scale=scale)
+        got = kernel(planes[key], qp, n, **kw)
+        want = plain(planes[key], qp, n, **kw)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err:
+            raise SystemExit(
+                f"wavefront_encode_planes != plain at {shape} body={body} "
+                f"N={n} dst={use_dst} bd={bd} rescale={rescale} qp={qp} "
+                f"smoothing={smoothing} rdoq scan={scan} scale={scale}: "
+                f"max abs err {err}")
+        row = scan_row(mode_set, decision, smoothing and n > 4,
+                       scan is not None)
+        if row is not None:
+            worst[row] = max(worst[row], err)
+    cases_s = time.perf_counter() - t0
+    y = stacked_planes((H, W), 8, 1, 8, dev, rng)
+    full = [(f"1080p luma N=8, {label}", y, 8, SCAN_ROWS[row][1])
+            for label, row in (("DC/planar under RDOQ (diag)", "rdoq"),
+                               ("smoothed 35-mode search", "smoothing"))]
+    seq_cfg = EncoderConfig(rdoq=True)        # 7d's closed-loop RDOQ run
+    for is_luma, shape, batch in ((True, (H, W), SEQ_BATCH),
+                                  (False, (H // 2, W // 2), 2 * SEQ_BATCH)):
+        args = torch_wf.plane_args(seq_cfg, is_luma)
+        kw = {k: args[k] for k in ("mode_set", "decision", "bit_depth",
+                                   "use_dst", "dequant_rescale",
+                                   "intra_smoothing", "rdoq", "scan")}
+        full.append((f"7d's {'luma' if is_luma else 'chroma'} batch under "
+                     f"RDOQ, {batch} {shape[0]}x{shape[1]} planes N="
+                     f"{args['n']}", stacked_planes(shape, 8, batch,
+                                                    args["n"], dev, rng),
+                     args["n"], kw))
+    done = []
+    for label, planes, n, kw in full:
+        t1 = time.perf_counter()
+        first = kernel(planes, 22, n, **kw)
+        want = plain(planes, 22, n, **kw)
+        torch.cuda.synchronize()
+        err = max_abs_err(first, want)
+        if err:
+            raise SystemExit(f"wavefront_encode_planes {label}: != plain, "
+                             f"max abs err {err}")
+        for rep in range(3):
+            again = kernel(planes, 22, n, **kw)
+            torch.cuda.synchronize()
+            if max_abs_err(again, first):
+                raise SystemExit(f"wavefront_encode_planes {label}: repeat "
+                                 f"{rep + 1} differs from the first run")
+        done.append(f"{label} ({time.perf_counter() - t1:.1f} s)")
+    log(f"[3g] wavefront_encode_planes == plain on CUDA in {len(cases)} cases "
+        f"of JAX's closed-loop XLA scan ({len(SCAN_BODIES)} bodies x N 4 "
+        f"DST/4/8/16/32 x smoothing off/on; each body under RDOQ in every "
+        f"scan, lambda scales 1/2.5/0.5; 8/10/12-bit; both dequant modes; "
+        f"QP 0/22/37/51; {cases_s:.1f} s), 0 values differing; at full "
+        f"size == plain and three repeats == the first: {'; '.join(done)}")
+    return worst
+
+
 def phase_closed_loop(dev, frame: Frame, config: EncoderConfig, tag: str):
     """Closed-loop encode of the frame on the card: the wavefront kernel
     must launch 3 times and every other kernel 0 times; the result must
@@ -1073,6 +1287,64 @@ def wavefront_times(dev, gpu: str) -> dict:
                 f"{shape[0]}x{shape[1]} planes N={n}: kernel {k_ms:.4f} ms "
                 f"({k_ms / times[body, 8 if n == 8 else 4][0]:.2f}x one "
                 f"1080p luma plane at N={n}) [{gpu}]")
+    return times
+
+
+# Operations a pixel of the kernels-line rows beyond the transform tail
+# (kernel_bound's counts: a candidate's prediction, residual and cost
+# 10, plus 2N for SATD's WHT; planar alone 10), and RDOQ's float32
+# operations a coefficient (two dequantized distortions and rates, the
+# trim's compare, the zeroing gain, three prefix-sum adds and the last
+# position's cost: about 60).
+RDOQ_OPS = 60
+
+
+def scan_bound(row: str, n: int, pixels: int) -> tuple:
+    """(bound ms, "bytes" or "operations") of one encode of `pixels`
+    pixels at block size n by a SCAN_ROWS row's configuration: bytes as
+    kernel_bound's (12 a pixel, 4 a block), operations a pixel the tail's
+    8N + 18 plus the body's (fixed 10; the pair by SATD 2 (2N + 10); the
+    sweep by SAD 35 x 10 + 9; the smoothed search kernel_bound's search
+    plus 12 for the filtered references; RDOQ the DC/planar body's 16
+    plus RDOQ_OPS)."""
+    body = {"fixed": 10, "pair": 2 * (2 * n + 10), "sweep": 35 * 10 + 9,
+            "smoothing": 35 * (2 * n + 10) + 9 + 12,
+            "rdoq": 16 + RDOQ_OPS}[row]
+    t_bytes = (12 * pixels + 4 * pixels // (n * n)) / 3.35e12 * 1e3
+    t_ops = (8 * n + 18 + body) * pixels / 67e12 * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def scan_times(dev, gpu: str) -> dict:
+    """6g: each SCAN_ROWS row's configuration on a seeded 1080p luma
+    plane at N = 8, QP 22: the kernel through a CUDA graph (graph_ms),
+    the plain loop once, and the bound; {row: (kernel ms, plain ms)}."""
+    kernel, plain = KERNELS["wavefront_encode_planes"][:2]
+    y = stacked_planes((H, W), 8, 1, 8, dev, np.random.default_rng(SEED + 1))
+    depth = y.shape[1] // 8 + y.shape[2] // 8 - 1
+    times = {}
+    for row, (label, kw) in SCAN_ROWS.items():
+        k_ms = graph_ms(lambda: kernel(y, 22, 8, **kw))
+        p_ms = cuda_ms(lambda: plain(y, 22, 8, **kw), iters=1, warmup=1)
+        bound_ms, by = scan_bound(row, 8, H * W)
+        times[row] = (k_ms, p_ms)
+        log(f"[6g] {label} 1080p luma N=8: kernel {k_ms:.4f} ms (CUDA "
+            f"graph; {1e3 * k_ms / depth:.2f} us a block on the {depth}-block "
+            f"chain), plain {p_ms:.2f} ms, bound {1e3 * bound_ms:.2f} us "
+            f"({by}) [{gpu}]")
+    # the rows' other bodies and switches, the kernel alone
+    for kw in (dict(mode_set="planar", decision="energy"),
+               dict(mode_set="dc_planar", decision="sad"),
+               dict(mode_set="all", decision="energy"),
+               dict(mode_set="dc_planar", decision="energy",
+                    intra_smoothing=True),
+               dict(mode_set="all", decision="satd", rdoq=True),
+               dict(mode_set="dc_planar", decision="energy", rdoq=True,
+                    scan="mode")):
+        k_ms = graph_ms(lambda: kernel(y, 22, 8, **kw))
+        log(f"[6g] wavefront_encode_planes {kw} 1080p luma N=8: kernel "
+            f"{k_ms:.4f} ms (CUDA graph; {1e3 * k_ms / depth:.2f} us a "
+            f"block) [{gpu}]")
     return times
 
 
@@ -1762,6 +2034,80 @@ def phase_rate_and_resume(dev, tmp: str, src: str, straight_bits: str,
     return rc_bits
 
 
+# 4i: closed-loop configs no earlier phase runs on the card, each on the
+# wavefront kernel (luma smoothing, the non-diagonal scans, the dequant
+# rescale, a chroma mode set, the mode sets and decisions of JAX's XLA
+# scan, RDOQ under the mode scan).
+SCAN_CONFIGS = {
+    "smoothing, mode search": EncoderConfig(mode_set="all", decision="satd",
+                                            intra_smoothing=True),
+    "smoothing, horizontal scan": EncoderConfig(intra_smoothing=True,
+                                                scan="horizontal"),
+    'decision="sad", vertical scan': EncoderConfig(decision="sad",
+                                                   scan="vertical"),
+    'decision="satd", dequant_rescale, mode scan': EncoderConfig(
+        decision="satd", dequant_rescale=True, scan="mode"),
+    'mode_set="all", decision="energy"': EncoderConfig(mode_set="all",
+                                                       decision="energy"),
+    'mode_set="all", decision="sad", smoothing': EncoderConfig(
+        mode_set="all", decision="sad", intra_smoothing=True),
+    'chroma_mode_set="dc"': EncoderConfig(chroma_mode_set="dc"),
+    'chroma_mode_set="planar", rdoq, mode scan': EncoderConfig(
+        chroma_mode_set="planar", rdoq=True, scan="mode"),
+}
+
+
+def scan_config_case(dev, what: str, small: Frame, cfg: EncoderConfig):
+    """One closed-loop frame on the card with every count at 0: the
+    wavefront kernel once a plane and nothing else, no plain-loop entry;
+    == the CPU's recon and bytes; the stream decoded on the card (3
+    decode launches) == the recon.  Returns (bytes, {row: launches})."""
+    reset_launches()
+    with PlainLoopEntries() as entries:
+        card = encode_frame_closed_loop(small, cfg, device=dev)
+        torch.cuda.synchronize()
+    launches = read_launches()
+    want = {k: 3 if k == "wavefront_encode_planes" else 0 for k in KERNELS}
+    if launches != want or entries.count:
+        raise SystemExit(f"{what}: launches {launches}, plain-loop entries "
+                         f"{entries.count}; expected {want} and none")
+    rows = add_scan_launches()
+    cpu = encode_frame_closed_loop(small, cfg, device="cpu")
+    if card[1] != cpu[1] or not same_frames(card[0], cpu[0]):
+        raise SystemExit(f"{what}: the card differs from the CPU")
+    decoded = counted_decode(f"{what} decode_frame", 3,
+                             lambda: decode_frame(card[1], device=dev))
+    if not same_frames(decoded, card[0]):
+        raise SystemExit(f"{what}: decode_frame on the card != recon")
+    return card[1], rows
+
+
+def phase_scan_configs(dev, frame: Frame, gpu: str) -> None:
+    """4i: SCAN_CONFIGS on a 256x256 and a 138x250 crop, and the default
+    config at 10 bits on the 1080p frame, each by scan_config_case."""
+    t0 = time.perf_counter()
+    rows = {}
+    sizes = []
+    for h, w in ((256, 256), (138, 250)):
+        small = crop(frame, h, w)
+        for label, cfg in SCAN_CONFIGS.items():
+            bits, got = scan_config_case(dev, f"[4i] {label}, {h}x{w}",
+                                         small, cfg)
+            sizes.append(len(bits))
+            for row, n in got.items():
+                rows[row] = rows.get(row, 0) + n
+    frame10 = ten_bit(frame, np.random.default_rng(SEED + 7))
+    bits10, got = scan_config_case(dev, "[4i] 10-bit 1080p", frame10,
+                                   EncoderConfig(bit_depth=10))
+    log(f"[4i] {2 * len(SCAN_CONFIGS)} closed-loop crops ("
+        f"{'; '.join(SCAN_CONFIGS)}; 256x256 and 138x250) and the 10-bit "
+        f"1080p frame ({len(bits10)} "
+        f"bytes): card == CPU in recon and bytes, 3 wavefront launches a "
+        f"frame and no plain-loop entry, each stream decoded on the card to "
+        f"its recon; crop bytes {min(sizes)}-{max(sizes)}; launches by "
+        f"kernels-line row {rows} ({time.perf_counter() - t0:.1f} s) [{gpu}]")
+
+
 def phase_cli_sequence(dev, tmp: str, src: str, frame0: Frame,
                        want: dict) -> None:
     """5d: the CLI on the card, in one process: encode-seq (open loop,
@@ -1994,6 +2340,18 @@ def no_launches(what: str) -> None:
                          "on the plain path only")
 
 
+def wavefront_calls(what: str, calls: int, entries: PlainLoopEntries) -> None:
+    """The closed loop under RDOQ: exactly one wavefront launch per
+    encode_planes_closed_loop call (`calls` of them since the counts
+    were reset), no other kernel, and no plain-loop entry."""
+    launches = read_launches()
+    want = {k: calls if k == "wavefront_encode_planes" else 0 for k in KERNELS}
+    if launches != want or entries.count:
+        raise SystemExit(f"{what} launched {launches} with {entries.count} "
+                         f"plain-loop entries; expected {want} and none")
+    add_scan_launches()
+
+
 def phase_rd_open(dev, frame: Frame, gpu: str) -> dict:
     """7a: the open loop's RD stages on the 1080p frame on the card: no
     kernel launch (RD cbf, RDOQ and the RD decision are plain PyTorch),
@@ -2041,16 +2399,23 @@ def phase_rd_open(dev, frame: Frame, gpu: str) -> dict:
 def phase_rd_crops(dev, frame: Frame, gpu: str) -> None:
     """7b: the 35-mode RD decision (open loop) and the closed loop with
     RDOQ and with decision="rd" on a 256x256 crop and a 138x250 one
-    (not block-aligned): card == CPU, bytes and recon."""
+    (not block-aligned): card == CPU, bytes and recon; RDOQ through the
+    wavefront kernel (one launch a plane), the RD decisions with no
+    kernel launch."""
     for h, w in ((256, 256), (138, 250)):
         small = crop(frame, h, w)
         for label, (cfg, closed) in RD_CROP_CONFIGS.items():
             reset_launches()
             t0 = time.perf_counter()
             if closed:
-                card = encode_frame_closed_loop(small, cfg, device=dev)
-                torch.cuda.synchronize()
+                with PlainLoopEntries() as entries:
+                    card = encode_frame_closed_loop(small, cfg, device=dev)
+                    torch.cuda.synchronize()
                 card_s = time.perf_counter() - t0
+                if cfg.rdoq:            # the wavefront kernel, Y, U, V
+                    wavefront_calls(label, 3, entries)
+                else:                   # decision="rd": the slot batches
+                    no_launches(label)
                 cpu = encode_frame_closed_loop(small, cfg, device="cpu")
                 same = card[1] == cpu[1] and all(
                     np.array_equal(getattr(card[0], p).data,
@@ -2064,7 +2429,7 @@ def phase_rd_crops(dev, frame: Frame, gpu: str) -> None:
                 size = len(assemble_frame_bitstream(w, h, cfg, card[1]))
                 same = same_encode(card, cpu) and size == len(
                     assemble_frame_bitstream(w, h, cfg, cpu[1]))
-            no_launches(label)
+                no_launches(label)
             if not same:
                 raise SystemExit(f"{label} on a {h}x{w} crop: the card "
                                  "differs from the CPU")
@@ -2073,17 +2438,38 @@ def phase_rd_crops(dev, frame: Frame, gpu: str) -> None:
 
 
 def phase_rd_closed_full(dev, frame: Frame, gpu: str) -> None:
-    """7c: the closed loop with RDOQ and with decision="rd" on the 1080p
-    frame on the card (no kernel launch); each stream decodes on the
-    card to the recon pixel for pixel."""
+    """7c: the closed loop with RDOQ (the wavefront kernel, one launch a
+    plane, no plain-loop entry; recon and bytes == the port on the CPU)
+    and with decision="rd" (no kernel launch) on the 1080p frame on the
+    card; each stream decodes on the card to the recon pixel for pixel;
+    the frame call, first and warm (median of 3)."""
     for label, cfg in (("rdoq", EncoderConfig(rdoq=True)),
                        ('decision="rd"', EncoderConfig(decision="rd"))):
         reset_launches()
         t0 = time.perf_counter()
-        recon, bits = encode_frame_closed_loop(frame, cfg, device=dev)
-        torch.cuda.synchronize()
+        with PlainLoopEntries() as entries:
+            recon, bits = encode_frame_closed_loop(frame, cfg, device=dev)
+            torch.cuda.synchronize()
         enc_s = time.perf_counter() - t0
-        no_launches(f"closed loop ({label})")
+        if cfg.rdoq:
+            wavefront_calls(f"closed loop ({label})", 3, entries)
+        else:
+            no_launches(f"closed loop ({label})")
+        warm = ""
+        if cfg.rdoq:    # the kernel's frame == the plain loop's on the CPU
+            t0 = time.perf_counter()
+            cpu = encode_frame_closed_loop(frame, cfg, device="cpu")
+            if cpu[1] != bits or not same_frames(cpu[0], recon):
+                raise SystemExit(f"closed loop ({label}): the card differs "
+                                 "from the CPU")
+            warm = (f", == the CPU in recon and bytes (CPU "
+                    f"{time.perf_counter() - t0:.1f} s)")
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                encode_frame_closed_loop(frame, cfg, device=dev)
+                walls.append(time.perf_counter() - t0)
+            warm += f", warm {1e3 * sorted(walls)[1]:.2f} ms (median of 3)"
         t0 = time.perf_counter()
         decoded = counted_decode(f"[7c] {label} decode_frame", 3,
                                  lambda: decode_frame(bits, device=dev))
@@ -2096,16 +2482,18 @@ def phase_rd_closed_full(dev, frame: Frame, gpu: str) -> None:
                              recon.y.data.astype(np.uint8))
         log(f"[7c] closed loop {label}, 1080p 4:2:0 on the card: "
             f"{len(bits)} bytes, Y-PSNR {y_psnr:.2f} dB, encode "
-            f"{enc_s:.2f} s (first call), decode_frame {dec_s:.2f} s, "
+            f"{enc_s:.3f} s (first call){warm}, decode_frame {dec_s:.2f} s, "
             f"decoded == recon pixel for pixel [{gpu}]")
 
 
 def phase_rd_sequences(dev, tmp: str, src: str, frames: list,
                        gpu: str) -> dict:
     """7d: encode_sequence of the 16-frame 1080p file at batch 8 with
-    rdo_cbf+rdoq (open loop) and rdoq (closed loop): every frame parses
-    back to its single-frame encode on the card; bytes and mean Y-PSNR
-    beside the same runs without RD (4f, 4g)."""
+    rdo_cbf+rdoq (open loop, no kernel launch) and rdoq (closed loop:
+    the wavefront kernel once a batch's luma and once its chroma stack,
+    one launch a plane in the single-frame encodes, no plain-loop entry):
+    every frame parses back to its single-frame encode on the card;
+    bytes and mean Y-PSNR beside the same runs without RD (4f, 4g)."""
     out = {}
     for label, cfg, closed, base in (
             ("open loop, rdo_cbf+rdoq", EncoderConfig(rdo_cbf=True, rdoq=True),
@@ -2115,26 +2503,41 @@ def phase_rd_sequences(dev, tmp: str, src: str, frames: list,
         bits = os.path.join(tmp, f"rd_{int(closed)}.bin")
         reset_launches()
         t0 = time.perf_counter()
-        res = run_sequence(dev, src, bits, cfg, closed)
-        torch.cuda.synchronize()
+        with PlainLoopEntries() as entries:
+            res = run_sequence(dev, src, bits, cfg, closed)
+            torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        no_launches(f"sequence ({label})")
+        if closed:      # one launch a batch's luma, one its chroma stack
+            wavefront_calls(f"sequence ({label})",
+                            2 * -(-SEQ_FRAMES // SEQ_BATCH), entries)
+        else:
+            no_launches(f"sequence ({label})")
         parsed = seq.decode_sequence_levels(bits)
-        for i, fr in enumerate(frames):
-            if closed:
-                want = parse_bitstream(encode_frame_closed_loop(
-                    fr, cfg, device=dev)[1])
-            else:
-                want = encode_frame_full(fr, cfg, device=dev)[1]["planes"]
-            if not same_planes(parsed[i], want):
-                raise SystemExit(f"RD sequence ({label}) frame {i} differs "
-                                 "from its single-frame encode")
+        reset_launches()
+        t1 = time.perf_counter()
+        with PlainLoopEntries() as entries:
+            for i, fr in enumerate(frames):
+                if closed:
+                    want = parse_bitstream(encode_frame_closed_loop(
+                        fr, cfg, device=dev)[1])
+                else:
+                    want = encode_frame_full(fr, cfg, device=dev)[1]["planes"]
+                if not same_planes(parsed[i], want):
+                    raise SystemExit(f"RD sequence ({label}) frame {i} "
+                                     "differs from its single-frame encode")
+        frames_s = time.perf_counter() - t1
+        if closed:
+            wavefront_calls(f"single-frame encodes ({label})",
+                            3 * len(frames), entries)
+        else:
+            no_launches(f"single-frame encodes ({label})")
         plain = SEQ_RESULTS[base]
         log(f"[7d] encode_sequence {label}, 16 1080p frames, batch 8: "
             f"{run_s:.3f} s, {res.bytes_written} bytes, mean Y-PSNR "
             f"{res.mean_psnr_y:.2f} dB; without RD {plain.bytes_written} "
             f"bytes, {plain.mean_psnr_y:.2f} dB; each frame == its "
-            f"single-frame encode [{gpu}]")
+            f"single-frame encode ({len(frames)} of them in {frames_s:.2f} "
+            f"s) [{gpu}]")
         out[label] = bits
     return out
 
@@ -2747,6 +3150,8 @@ def main() -> int:
         "mode_search_encode_plane": phase_kernel_vs_plain(
             dev, "mode_search_encode_plane", "3b", wide_bits=True),
         "wavefront_encode_planes": phase_wavefront_vs_plain(dev),
+        **{f"scan {row}": err
+           for row, err in phase_wavefront_scan_vs_plain(dev).items()},
         "fused_encode_blocks": phase_fused_vs_plain(dev),
     }
     frame = make_frame(np.random.default_rng(SEED))
@@ -2792,6 +3197,8 @@ def main() -> int:
     rc_bits = phase_rate_and_resume(dev, tmp, src, seq_bits["default"],
                                     bpp_at_22, gpu)
 
+    phase_scan_configs(dev, frame, gpu)
+
     phase_cli(frame, bits, [], "5")
     phase_cli(frame, ms_bits, ["--mode-search"], "5b")
     phase_cli_closed_loop(frame, cl_bits, cl_recon, [], "5c")
@@ -2811,6 +3218,7 @@ def main() -> int:
             dev, "mode_search_encode_plane", "6b", gpu),
     }
     wf = wavefront_times(dev, gpu)
+    scan_ms = scan_times(dev, gpu)
     frame_times(dev, frame, config, "default config:", gpu)
     frame_times(dev, frame, MODE_SEARCH, "mode search:", gpu)
     closed_loop_times(dev, frame, config, "default config:", gpu)
@@ -2850,6 +3258,14 @@ def main() -> int:
         rows.append((label, wf[body, n8], wf_launches[body],
                      worst["wavefront_encode_planes"],
                      kernel_bound(body == "search", n8, H * W), replaces))
+    # what the kernel took over from JAX's closed-loop XLA scan, a row
+    # each: main-path launches of 4i and 7b-7d
+    for row, (label, _) in SCAN_ROWS.items():
+        if not SCAN_LAUNCHES[row]:
+            raise SystemExit(f"{label}: no launch on the main paths")
+        rows.append((label, scan_ms[row], SCAN_LAUNCHES[row],
+                     worst[f"scan {row}"], scan_bound(row, n8, H * W),
+                     XLA_SCAN))
     rows.append(("fused_encode_blocks", times["fused_encode_blocks"][n8],
                  launches["fused_encode_blocks"], worst["fused_encode_blocks"],
                  fused_bound(n8, H * W), KERNELS["fused_encode_blocks"][3]))

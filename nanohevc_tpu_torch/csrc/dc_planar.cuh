@@ -1,11 +1,11 @@
-// The DC/planar decision by residual energy, shared by the open-loop
-// kernel (slab_pipeline.cu, K1), the blocks-API kernel
-// (fused_pipeline.cu, K5) and the closed loop's DC/planar body
-// (wavefront.cu, K4): bit for bit the decision of the TPU kernels
-// nanohevc_tpu/kernels/slab_pipeline.py and wavefront_slab.py:
+// The DC/planar decision by residual energy of the closed loop's
+// DC/planar body (wavefront.cu, K4; the row kernels K1 and K5 have its
+// row form in row_tail.cuh): bit for bit the decision of the TPU
+// kernels nanohevc_tpu/kernels/slab_pipeline.py and wavefront_slab.py:
 //   DC = floor((sum T[1..N] + sum L[1..N] + N) / 2N);
 //   planar with T[N] / L[N] as top-right / bottom-left;
-//   pick by residual energy, ties to DC.
+//   pick by residual energy, ties to DC;
+//   with luma smoothing, planar from the filtered references.
 // Each caller fills the references its own way (source-fed or
 // reconstruction-fed); this header defines no variables.
 
@@ -17,28 +17,31 @@
 // block of THREADS threads.  `ref` is the block's references in shared
 // memory, in the layout of ops.tiling.extract_refs: the top arm at
 // ref[0..2N] with the corner at 0, the left arm at ref[2N+1..4N+1]; only
-// T[1..N] and L[1..N] are read.  s_a and s_b are the block's N*N-int
-// shared scratch (the first N*N/32 ints of each hold the per-warp sums
-// at N >= 8).  Every thread of the thread block must call it (it holds a
-// barrier at N >= 8), after a barrier that follows the writes of `ref`.
+// T[1..N] and L[1..N] are read, by DC from `ref` and by planar from
+// `pref` (`ref` itself, or its filtered copy).  s_a and s_b are the
+// block's N*N-int shared scratch (the first N*N/32 ints of each hold
+// the per-warp sums at N >= 8).  Every thread of the thread block must
+// call it (it holds a barrier at N >= 8), after a barrier that follows
+// the writes of `ref` and `pref`.
 // Returns the prediction of pixel (i, j); `use_dc` is the same for every
 // pixel of the block.
 template <int N, int THREADS>
-__device__ __forceinline__ int dc_planar_energy(const int* ref, int x, int i,
-                                                int j, int* s_a, int* s_b,
-                                                bool& use_dc) {
+__device__ __forceinline__ int dc_planar_energy(const int* ref,
+                                                const int* pref, int x,
+                                                int i, int j, int* s_a,
+                                                int* s_b, bool& use_dc) {
   constexpr int NN = N * N;
   constexpr int LOG2N = Log2<N>::value;
   constexpr int LANES = NN < 32 ? NN : 32;       // lanes per block per warp
   constexpr unsigned kMask = THREADS >= 32 ? 0xffffffffu : (1u << THREADS) - 1u;
-  const int* top = ref + 1;             // T[1..N]
-  const int* left = ref + 2 * N + 2;    // L[1..N]
   const int p = i * N + j;
 
   int sum = 0;
 #pragma unroll
-  for (int k = 0; k < N; ++k) sum += top[k] + left[k];
+  for (int k = 0; k < N; ++k) sum += ref[1 + k] + ref[2 * N + 2 + k];
   const int dc = floor_div(sum + N, 2 * N);
+  const int* top = pref + 1;            // planar's T[1..N]
+  const int* left = pref + 2 * N + 2;   // planar's L[1..N]
   const int tr = top[N - 1];
   const int bl = left[N - 1];
   const int pl = ((N - 1 - j) * left[i] + (j + 1) * tr +

@@ -24,7 +24,8 @@
 // it from ops.intra.mode_filter_flags: luma smoothing, N > 4), the
 // [1 2 1] filter along bottom-left -> corner -> top-right, with the path
 // ends unfiltered, and at N = 32 the strong (bilinear) filter where both
-// arms are flat (ops.intra.smooth_refs); planar reads the filtered
+// arms are flat (intra_smooth.cuh, shared with wavefront.cu; ops.intra.
+// smooth_refs); planar reads the filtered
 // references at every N > 4, DC never.  Then the mode's prediction
 // (mode_sweep.cuh: planar_pixel, dc_value, or the angular projection
 // array of the one signalled mode and angular_pixel), the residual
@@ -51,6 +52,7 @@
 // Bytes (a residual read, a recon written: 8 a pixel) and operations
 // are a small fraction of that chain's time.
 
+#include "intra_smooth.cuh"
 #include "mode_sweep.cuh"   // c_tables and the predictors
 #include "wavefront_sync.cuh"
 
@@ -133,29 +135,7 @@ decode_kernel(const int* __restrict__ residual, const int* __restrict__ modes,
       const int* ref = s_ref;
       if constexpr (N > 4) {
         if ((filter_mask >> mode) & 1ull) {   // uniform over the block
-          if (t < 2 * R) {
-            const int arm = t < R ? 0 : R;
-            const int k = t - arm;
-            const int* a = s_ref + arm;
-            int v;
-            if (k == 0)
-              v = (s_ref[R + 1] + 2 * s_ref[0] + s_ref[1] + 2) >> 2;
-            else if (k == 2 * N)
-              v = a[2 * N];
-            else
-              v = (a[k - 1] + 2 * a[k] + a[k + 1] + 2) >> 2;
-            if constexpr (N == 32) {    // strong: both arms near-linear
-              const int c = s_ref[0];
-              const bool flat =
-                  abs(c + s_ref[2 * N] - 2 * s_ref[N]) < strong_thresh &&
-                  abs(c + s_ref[R + 2 * N] - 2 * s_ref[R + N]) < strong_thresh;
-              if (flat)
-                v = k == 0 ? c
-                           : ((2 * N - k) * c + k * a[2 * N] + N) >>
-                                 (Log2<N>::value + 1);
-            }
-            s_fref[t] = v;
-          }
+          if (t < 2 * R) s_fref[t] = smoothed_ref<N>(s_ref, t, strong_thresh);
           __syncthreads();
           ref = s_fref;
         }

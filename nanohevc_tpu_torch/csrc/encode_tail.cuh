@@ -1,4 +1,5 @@
-// Pieces shared by the encode kernels (slab_pipeline.cu, mode_search.cu):
+// Pieces shared by the encode kernels (mode_search.cu, wavefront.cu, and
+// through row_tail.cuh slab_pipeline.cu and fused_pipeline.cu):
 // the transform-table layout, the per-QP scalars, and the tail every
 // encode runs after its mode decision -- forward transform, deadzone
 // quantizer, parity or spec-rescale dequantizer, inverse transform,
@@ -36,18 +37,35 @@ struct Log2 {
   static constexpr int value = N == 4 ? 2 : N == 8 ? 3 : N == 16 ? 4 : 5;
 };
 
+// The dequantizer of one level (signed dequant shift), as
+// ops.quant.dequantize gives it.
+__device__ __forceinline__ int dequant_level(int level, const QpScalars& q) {
+  const int base = level * q.dscale;
+  return q.dq_shift >= 1 ? (base + (1 << (q.dq_shift - 1))) >> q.dq_shift
+                         : (int)((unsigned)base << (-q.dq_shift));
+}
+
+// The deadzone levels as they are.
+struct KeepLevels {
+  __device__ int operator()(int, int level) const { return level; }
+};
+
 // Transform, quantize and reconstruct one N x N block, one thread per
 // pixel (i, j).  Every thread of the thread block must call it (it
 // holds barriers).  s_t is T (T[i][k] at i*N + k) and s_tt its
 // transpose, both in shared memory; s_x, s_a, s_b are this block's
 // N*N-int shared scratch, which the caller may have used before the
-// call.  Returns the quantized level through `level` and the clipped
-// reconstruction through `rec`.
-template <int N>
+// call.  `adjust(coeff, level)` may re-decide the deadzone level of
+// every pixel (RDOQ, rdoq_tail.cuh) before it is dequantized: every
+// thread calls it, after the reads of the forward transform, and it may
+// use s_x, s_a and s_b (behind barriers of its own).  Returns the
+// quantized level through `level` and the clipped reconstruction
+// through `rec`.
+template <int N, class Adjust = KeepLevels>
 __device__ __forceinline__ void transform_quant_recon(
     const int* s_t, const int* s_tt, int* s_x, int* s_a, int* s_b, int i,
     int j, int residual, int pred, const QpScalars& q, int& level,
-    int& rec) {
+    int& rec, Adjust adjust = Adjust()) {
   constexpr int TSHIFT = Log2<N>::value + 5;
   constexpr int RND = 1 << (TSHIFT - 1);
   const int p = i * N + j;
@@ -68,13 +86,8 @@ __device__ __forceinline__ void transform_quant_recon(
 
   // deadzone quantizer and dequantizer (signed dequant shift)
   const int mag = ((coeff < 0 ? -coeff : coeff) * q.mf + q.qoffset) >> q.qshift;
-  level = coeff > 0 ? mag : (coeff < 0 ? -mag : 0);
-  const int base = level * q.dscale;
-  const int deq =
-      q.dq_shift >= 1
-          ? (base + (1 << (q.dq_shift - 1))) >> q.dq_shift
-          : (int)((unsigned)base << (-q.dq_shift));
-  s_b[p] = deq;
+  level = adjust(coeff, coeff > 0 ? mag : (coeff < 0 ? -mag : 0));
+  s_b[p] = dequant_level(level, q);
   __syncthreads();
 
   // inverse: temp = T^T.D, res = temp.T

@@ -1,14 +1,21 @@
-// The 35-mode SATD search of one block, shared by the open-loop search
-// (mode_search.cu, K2a+K2b) and the closed loop's search body
-// (wavefront.cu, K3a+K3b): bit for bit
-// decide_modes(mode_set="all", decision="satd") of the JAX package:
+// The mode search of one block, shared by the open-loop search
+// (mode_search.cu, K2a+K2b: the 35 modes by SATD) and the closed loop's
+// search and pair bodies (wavefront.cu: the 35 modes, or DC and planar,
+// by energy, SAD or SATD): bit for bit decide_modes of the JAX package
+// (nanohevc_tpu/models/all_intra.py; ops/metrics.py for the costs):
 //   planar with T[N] / L[N] (corner-at-0) as top-right / bottom-left;
 //   DC = floor((sum + N) / 2N);
 //   angular 2..34 from a per-mode reference array of 3N+1 samples with
 //   the negative-angle extension ref[N+i] = side[((i+1)*inv + 128) >> 8],
 //   then ((32-f)*a + f*b + 16) >> 5 with the idx+1 read clamped at 3N;
-//   SATD = sum |H.D.H^T| with the Sylvester Walsh-Hadamard matrix H;
-//   strict < in mode order 0..34, so ties go to the lowest index.
+//   SATD = sum |H.D.H^T| with the Sylvester Walsh-Hadamard matrix H,
+//   SAD = sum |D|, energy = sum D^2, each an int32 sum that wraps as
+//   the plain version's int64 sum cast to int32 does;
+//   strict < in mode order 0..34, so ties go to the lowest index; of the
+//   pair (mode_set="dc_planar"), DC unless planar costs strictly less;
+//   with luma smoothing, the modes whose bit of the caller's filter mask
+//   is set (planar included) read the filtered references
+//   (intra_smooth.cuh), DC never.
 // The projections shift negative ints right (proj >> 5 with a negative
 // angle); this relies on nvcc's >> on signed int being arithmetic, as
 // it is on every NVIDIA target.
@@ -61,10 +68,24 @@ struct SweepScratch {
   int best[2][BT > 32 ? BT / 32 : 1];   // per warp: key or (cost, mode)
 };
 
-// Whether cost * 64 + mode fits int32 for every SATD at this bit depth.
-template <int N>
+// The per-block costs of decide_modes' decisions.
+constexpr int kCostEnergy = 0, kCostSad = 1, kCostSatd = 2;
+
+// Whether cost * 64 + rank fits int32 for every cost at this bit depth
+// (cost >= 0: SATD <= N^3 max_pix, SAD <= N^2 max_pix, energy <= N^2
+// max_pix^2, which wraps in int32 beyond that).
+template <int N, int COST = kCostSatd>
 __device__ __forceinline__ bool packed_min_ok(int max_pix) {
-  return (long long)N * N * N * max_pix * 64 + 34 < (1LL << 31);
+  const long long m = max_pix;
+  const long long bound = COST == kCostSatd  ? (long long)N * N * N * m
+                          : COST == kCostSad ? (long long)N * N * m
+                                             : (long long)N * N * m * m;
+  return bound * 64 + 34 < (1LL << 31);
+}
+
+// a + b mod 2^32, as the plain version's int64 sums cast to int32 give
+__device__ __forceinline__ int wrap_add(int a, int b) {
+  return (int)((unsigned)a + (unsigned)b);
 }
 
 // Planar's prediction of pixel (i, j).
@@ -122,61 +143,80 @@ __device__ __forceinline__ int angular_pixel(const int* proj, int mode, int i,
 }
 
 // The prediction of pixel (i, j) under `mode`, from the block's
-// references and its projection arrays (as mode_sweep left them).
+// references (planar from `pl_ref`, the filtered ones where planar
+// filters) and its projection arrays (as mode_sweep left them).
 template <int N>
-__device__ __forceinline__ int predict_pixel(const int* ref,
+__device__ __forceinline__ int predict_pixel(const int* ref, const int* pl_ref,
                                              const int (*mref)[3 * N + 1],
                                              int mode, int i, int j) {
-  if (mode == 0) return planar_pixel<N>(ref, i, j);
+  if (mode == 0) return planar_pixel<N>(pl_ref, i, j);
   if (mode == 1) return dc_value<N>(ref);
   return angular_pixel<N>(mref[mode - 2], mode, i, j);
 }
 
+template <int N>
+__device__ __forceinline__ int predict_pixel(const int* ref,
+                                             const int (*mref)[3 * N + 1],
+                                             int mode, int i, int j) {
+  return predict_pixel<N>(ref, ref, mref, mode, i, j);
+}
+
 // Search one N x N block with the BT threads t = 0 .. BT-1 that serve
 // it (BT a multiple of N, at least N*N, and of 32 when above it), in a
-// thread block of THREADS threads.  `ref` is the block's 4N+2
-// references in shared memory (extract_refs layout: top arm at 0..2N,
-// corner at 0, left arm at 2N+1..4N+1); s.x holds the block's pixels,
-// x[i * (N+1) + j].  Every thread of the thread block must call it (it
-// holds barriers), after a barrier that follows the writes of `ref` and
-// s.x.  Fills s.mref and returns the winning mode, the same for every
-// thread of the block.
-template <int N, int BT, int THREADS>
-__device__ __forceinline__ int mode_sweep(const int* ref,
+// thread block of THREADS threads, over M candidates: the 35 modes
+// (M = 35), or DC and planar (M = 2, ties to DC), by COST.  `ref` is
+// the block's 4N+2 references in shared memory (extract_refs layout:
+// top arm at 0..2N, corner at 0, left arm at 2N+1..4N+1), `fref` the
+// same filtered (or `ref` itself), read by the modes whose bit of
+// `filter_mask` is set; s.x holds the block's pixels, x[i * (N+1) + j].
+// Every thread of the thread block must call it (it holds barriers),
+// after a barrier that follows the writes of `ref`, `fref` and s.x.
+// Fills s.mref and returns the winning mode, the same for every thread
+// of the block.
+template <int N, int BT, int THREADS, int COST, int M>
+__device__ __forceinline__ int mode_sweep(const int* ref, const int* fref,
+                                          unsigned long long filter_mask,
                                           SweepScratch<N, BT>& s, int t,
                                           int max_pix) {
   constexpr int L = 3 * N + 1;          // a mode's projection array
-  constexpr int G = BT / N;             // groups, one mode each a pass
+  constexpr int G = BT / N;             // groups, one candidate each a pass
   constexpr int SPAN = BT < 32 ? BT : 32;   // a block's lanes in a warp
   constexpr int S = N + 1;              // row stride of s.x
   constexpr unsigned kMask = THREADS >= 32 ? 0xffffffffu : (1u << THREADS) - 1u;
   static_assert(BT % N == 0 && BT >= N * N && G <= 34, "threads per block");
+  static_assert(M == 35 || M == 2, "the 35 modes or the pair");
 
-  const int dc = dc_value<N>(ref);
+  const int dc = dc_value<N>(ref);      // DC reads the raw references
+  const int* pl_ref = (filter_mask & 1ull) ? fref : ref;
 
-  // --- the passes: group g codes mode base + g, lane r one line -------
+  // --- the passes: group g codes candidate base + g, lane r one line --
+  // A candidate's rank is its mode (M = 35) or DC 0, planar 1 (M = 2).
   const int g = t / N, r = t % N;
   const int warp_g0 = (t & ~31) / N;    // first group of this warp
-  int best_cost = 0x7fffffff, best_mode = 0;
+  int best_cost = 0x7fffffff, best_rank = 0;
 #pragma unroll 1
-  for (int base = 0; base < 35; base += G) {
-    if (base + warp_g0 >= 35) break;    // uniform: the warp has no mode
-    const int mode = min(base + g, 34);
+  for (int base = 0; base < M; base += G) {
+    if (base + warp_g0 >= M) break;     // uniform: the warp has no mode
+    const int rank = min(base + g, M - 1);
+    const bool real = base + g < M;
+    const int mode = M == 35 ? rank : 1 - rank;
     const int m = mode - 2;
-    // The group's projection array; groups past mode 34 neither build
-    // nor keep anything.
+    // The group's projection array; groups past the last candidate
+    // neither build nor keep anything.
     const int angle = mode >= 2 ? c_tables[kAngleOffset + m] : 0;
     const bool vertical = mode >= 18;
-    if (mode >= 2 && base + g < 35) {
+    if (mode >= 2 && real) {
+      const int* src = (filter_mask >> mode) & 1ull ? fref : ref;
       for (int e = r; e < L; e += N)
-        s.mref[m][e] = projection_sample<N>(ref, mode, e);
+        s.mref[m][e] = projection_sample<N>(src, mode, e);
     }
     __syncwarp(kMask);                  // the group's array is complete
     int v[N];
     if (mode < 2) {                     // planar or DC, lane r = row r
 #pragma unroll
       for (int k = 0; k < N; ++k)
-        v[k] = s.x[r * S + k] - (mode == 0 ? planar_pixel<N>(ref, r, k) : dc);
+        v[k] = s.x[r * S + k] -
+               (mode == 0 ? planar_pixel<N>(pl_ref, r, k) : dc);
     } else {                            // lane r = row (vertical) or column
       const int proj = (r + 1) * angle;
       const int frac = proj & 31;
@@ -192,39 +232,54 @@ __device__ __forceinline__ int mode_sweep(const int* ref,
         prev = next;
       }
     }
-    // WHT along the line, in registers
-#pragma unroll
-    for (int h = 1; h < N; h <<= 1) {
-#pragma unroll
-      for (int k = 0; k < N; ++k) {
-        if (k & h) continue;
-        const int lo = v[k], hi = v[k + h];
-        v[k] = lo + hi;
-        v[k + h] = lo - hi;
-      }
-    }
-    // WHT across the group's lanes; the upper lane keeps lo - hi
-#pragma unroll
-    for (int h = 1; h < N; h <<= 1) {
-      const int sign = r & h ? -1 : 1;
-#pragma unroll
-      for (int k = 0; k < N; ++k)
-        v[k] = __shfl_xor_sync(kMask, v[k], h) + sign * v[k];
-    }
     int cost = 0;
+    if constexpr (COST == kCostSatd) {
+      // WHT along the line, in registers
 #pragma unroll
-    for (int k = 0; k < N; ++k) cost += v[k] < 0 ? -v[k] : v[k];
+      for (int h = 1; h < N; h <<= 1) {
 #pragma unroll
-    for (int h = 1; h < N; h <<= 1) cost += __shfl_xor_sync(kMask, cost, h);
-    if (base + g < 35 && cost < best_cost) {   // modes rise in a group
+        for (int k = 0; k < N; ++k) {
+          if (k & h) continue;
+          const int lo = v[k], hi = v[k + h];
+          v[k] = lo + hi;
+          v[k + h] = lo - hi;
+        }
+      }
+      // WHT across the group's lanes; the upper lane keeps lo - hi
+#pragma unroll
+      for (int h = 1; h < N; h <<= 1) {
+        const int sign = r & h ? -1 : 1;
+#pragma unroll
+        for (int k = 0; k < N; ++k)
+          v[k] = __shfl_xor_sync(kMask, v[k], h) + sign * v[k];
+      }
+#pragma unroll
+      for (int k = 0; k < N; ++k) cost += v[k] < 0 ? -v[k] : v[k];
+    } else if constexpr (COST == kCostSad) {
+#pragma unroll
+      for (int k = 0; k < N; ++k) cost += v[k] < 0 ? -v[k] : v[k];
+    } else {
+      unsigned acc = 0;
+#pragma unroll
+      for (int k = 0; k < N; ++k) acc += (unsigned)v[k] * (unsigned)v[k];
+      cost = (int)acc;
+    }
+#pragma unroll
+    for (int h = 1; h < N; h <<= 1)
+      cost = wrap_add(cost, __shfl_xor_sync(kMask, cost, h));
+    if (real && cost < best_cost) {     // ranks rise in a group
       best_cost = cost;
-      best_mode = mode;
+      best_rank = rank;
     }
   }
 
-  // --- the winner: lexicographic (cost, mode) minimum over groups ------
-  if (packed_min_ok<N>(max_pix)) {      // uniform over the launch
-    int key = best_cost * 64 + best_mode;
+  // --- the winner: lexicographic (cost, rank) minimum over groups ------
+  int rank;
+  if (packed_min_ok<N, COST>(max_pix)) {   // uniform over the launch
+    // a group that had no candidate (the pair's groups past rank 1)
+    // keeps the largest key
+    int key = best_cost == 0x7fffffff ? 0x7fffffff
+                                      : best_cost * 64 + best_rank;
 #pragma unroll
     for (int h = N; h < SPAN; h <<= 1)
       key = min(key, __shfl_xor_sync(kMask, key, h));
@@ -237,37 +292,48 @@ __device__ __forceinline__ int mode_sweep(const int* ref,
         key = min(key, __shfl_xor_sync(kMask, key, h));
     }
     __syncwarp(kMask);                  // the winner's array, BT <= 32
-    return key & 63;
-  }
-  int cost = best_cost, mode = best_mode;
+    rank = key & 63;
+  } else {
+    int cost = best_cost;
+    rank = best_rank;
 #pragma unroll
-  for (int h = N; h < SPAN; h <<= 1) {
-    const int oc = __shfl_xor_sync(kMask, cost, h);
-    const int om = __shfl_xor_sync(kMask, mode, h);
-    if (oc < cost || (oc == cost && om < mode)) {
-      cost = oc;
-      mode = om;
-    }
-  }
-  if constexpr (BT > 32) {
-    if ((t & 31) == 0) {
-      s.best[0][t >> 5] = cost;
-      s.best[1][t >> 5] = mode;
-    }
-    __syncthreads();
-    const bool real = (t & 31) < BT / 32;
-    cost = real ? s.best[0][t & 31] : 0x7fffffff;
-    mode = real ? s.best[1][t & 31] : 0;
-#pragma unroll
-    for (int h = 16; h > 0; h >>= 1) {
+    for (int h = N; h < SPAN; h <<= 1) {
       const int oc = __shfl_xor_sync(kMask, cost, h);
-      const int om = __shfl_xor_sync(kMask, mode, h);
-      if (oc < cost || (oc == cost && om < mode)) {
+      const int orank = __shfl_xor_sync(kMask, rank, h);
+      if (oc < cost || (oc == cost && orank < rank)) {
         cost = oc;
-        mode = om;
+        rank = orank;
       }
     }
+    if constexpr (BT > 32) {
+      if ((t & 31) == 0) {
+        s.best[0][t >> 5] = cost;
+        s.best[1][t >> 5] = rank;
+      }
+      __syncthreads();
+      const bool real = (t & 31) < BT / 32;
+      cost = real ? s.best[0][t & 31] : 0x7fffffff;
+      rank = real ? s.best[1][t & 31] : 0;
+#pragma unroll
+      for (int h = 16; h > 0; h >>= 1) {
+        const int oc = __shfl_xor_sync(kMask, cost, h);
+        const int orank = __shfl_xor_sync(kMask, rank, h);
+        if (oc < cost || (oc == cost && orank < rank)) {
+          cost = oc;
+          rank = orank;
+        }
+      }
+    }
+    __syncwarp(kMask);
   }
-  __syncwarp(kMask);
-  return mode;
+  return M == 35 ? rank : 1 - rank;
+}
+
+// The 35-mode SATD search on unfiltered references (K2's form).
+template <int N, int BT, int THREADS>
+__device__ __forceinline__ int mode_sweep(const int* ref,
+                                          SweepScratch<N, BT>& s, int t,
+                                          int max_pix) {
+  return mode_sweep<N, BT, THREADS, kCostSatd, 35>(ref, ref, 0ull, s, t,
+                                                   max_pix);
 }

@@ -9,11 +9,21 @@
 //     (wavefront_mode_search_blocks -> _kernel), K3b, and
 //   nanohevc_tpu/kernels/wavefront_mode_grouped.py
 //     (wavefront_mode_search_raster_grouped -> _kernel), K3a: the
-//     35-mode SATD search; K3a and K3b differ only in TPU layout.
-// One kernel, templated on the body (DC/planar by energy, dc_planar.cuh,
-// shared with slab_pipeline.cu and fused_pipeline.cu; or the 35-mode
-// search, mode_sweep.cuh, shared with mode_search.cu) and on N in
-// {4, 8, 16, 32}.  Same arithmetic, bit for bit, as the plain loop
+//     35-mode SATD search; K3a and K3b differ only in TPU layout;
+// and the JAX package's closed-loop XLA scan (models/wavefront.py there,
+// `step` and `one_frame`, the jax.lax.scan of encode_planes_closed_loop),
+// which codes every configuration its Pallas kernels do not take: the
+// mode sets dc, planar, dc_planar and all under the decisions energy,
+// sad and satd, luma reference smoothing, and RDOQ in every scan.  Only
+// decision="rd", which prices each batch with the adaptive rate model
+// on the host, stays outside (models/wavefront.py, _encode_planes_rd).
+// One kernel, templated on N in {4, 8, 16, 32}, on the body's shape
+// (one fixed mode; the pair DC / planar, K4's energy body of
+// dc_planar.cuh or, by SAD or SATD, the pair through mode_sweep.cuh; the
+// 35-mode sweep of mode_sweep.cuh, shared with mode_search.cu) and on
+// the cost; smoothing (intra_smooth.cuh, shared with decode.cu), RDOQ
+// (rdoq_tail.cuh) and its scan are switches taken once a block.  Same
+// arithmetic, bit for bit, as the plain loop
 // kernels/wavefront.py::wavefront_encode_planes_reference, which codes
 // one anti-diagonal (by + bx == d) at a time.  A block's references
 // follow the closed loop's availability rule (ops.extract_refs_at on a
@@ -25,8 +35,9 @@
 //     (by-1, bx+1) is on the same diagonal, not yet reconstructed;
 //   L[1..N], L[N+1..2N] likewise from column x0-1 (L[N] replicated
 //     at the last block-row);
-//   then the body's decision and the transform-quantize tail
-//   (encode_tail.cuh).
+//   then, with smoothing, their filtered copy for the modes that read
+//   it; the body's decision; and the transform-quantize tail
+//   (encode_tail.cuh), with RDOQ between quantizer and dequantizer.
 // So block (by, bx) reads only its top (by-1, bx), left (by, bx-1) and
 // top-left (by-1, bx-1) neighbours: T[N]'s replica at the last column
 // lies in the top block, L[N]'s at the last row in the left block.  The
@@ -66,39 +77,66 @@
 // first barrier of its tail, every shared write of the next block after
 // the last one.
 //
-// Thread blocks: the DC/planar body N*N threads, one a pixel; the
+// Thread blocks: the fixed and pair bodies N*N threads, one a pixel; the
 // search body max(N*N, 16N), so that 16 (32 at N = 32) groups of N
 // lanes sweep the 35 modes in 3 (2) passes (mode_sweep.cuh); threads
 // beyond N*N mirror pixel t % N*N in the tail, writing the same values.
+// Smoothing adds one barrier a block; RDOQ adds block reductions and
+// serial float32 loops of up to 32 (within a run) and 63 (across runs)
+// adds to every block of the dependency chain.
 //
 // What bounds it on the card: the dependency chain, not bytes or
 // operations.  A plane is nby + nbx - 1 block latencies long (374 at
 // 1080p, N = 8), plus one hand-off between thread blocks for each of
 // the nby - 1 rows; a batch of planes, or more rows than resident
-// thread blocks, adds little to that while the SMs have room.
+// thread blocks, adds little to that while the SMs have room.  What a
+// body or the RDOQ tail adds to a block's latency adds to the whole
+// chain.
 
 #include <type_traits>
 
 #include "dc_planar.cuh"
+#include "intra_smooth.cuh"
 #include "mode_sweep.cuh"   // also defines c_tables, the constant table
+#include "rdoq_tail.cuh"
 #include "wavefront_sync.cuh"
 
-template <int N, bool SEARCH>
+// The body's shape: one fixed mode (mode_set "dc" or "planar"), the pair
+// DC / planar ("dc_planar"), or the 35-mode sweep ("all").
+constexpr int kBodyFixed = 0, kBodyPair = 1, kBodySweep = 2;
+
+template <int N, int BODY>
 __host__ __device__ constexpr int wavefront_threads() {
-  return SEARCH ? (N * N > 16 * N ? N * N : 16 * N) : N * N;
+  return BODY == kBodySweep ? (N * N > 16 * N ? N * N : 16 * N) : N * N;
 }
 
-template <int N, bool SEARCH>
-__global__ void __launch_bounds__(wavefront_threads<N, SEARCH>())
+// The body's runtime switches: the fixed body's mode (0 planar, 1 DC),
+// the modes that read filtered references (bit m: mode m; 0 without
+// smoothing) and the strong filter's threshold (N = 32).
+struct BodyArgs {
+  int fixed_mode;
+  int strong_thresh;
+  unsigned long long filter_mask;
+};
+
+template <int N, int BODY, int COST>
+__global__ void __launch_bounds__(wavefront_threads<N, BODY>())
 wavefront_kernel(const int* __restrict__ planes, int* recon, int batch,
                  int height, int width, int nby, int nbx, int t_offset,
-                 QpScalars q, int* __restrict__ levels,
-                 int* __restrict__ modes, int* ticket, int* progress) {
+                 QpScalars q, BodyArgs body, RdoqArgs rq,
+                 int* __restrict__ levels, int* __restrict__ modes,
+                 int* ticket, int* progress) {
   constexpr int NN = N * N;
   constexpr int R = 2 * N + 1;          // one reference arm, corner at 0
-  constexpr int THREADS = wavefront_threads<N, SEARCH>();
+  constexpr int THREADS = wavefront_threads<N, BODY>();
+  // the pair by energy keeps K4's body (dc_planar.cuh), 16-43 % faster
+  // than the sweep's pair by energy at N 4-32 on an H100 80GB HBM3 at
+  // 700 W (tools/wavefront_body_times.py --pair-by-sweep); the other
+  // decisions sweep
+  constexpr bool SWEEP =
+      BODY == kBodySweep || (BODY == kBodyPair && COST != kCostEnergy);
   using Scratch =
-      typename std::conditional<SEARCH, SweepScratch<N, THREADS>, int>::type;
+      typename std::conditional<SWEEP, SweepScratch<N, THREADS>, int>::type;
 
   __shared__ int s_t[NN];               // T[i][k] at i*N + k
   __shared__ int s_tt[NN];              // T[j][k] at k*N + j
@@ -106,6 +144,7 @@ wavefront_kernel(const int* __restrict__ planes, int* recon, int batch,
   __shared__ int s_a[NN];
   __shared__ int s_b[NN];
   __shared__ int s_ref[2 * R];          // top arm | left arm
+  __shared__ int s_fref[N > 4 ? 2 * R : 1];   // the same, filtered
   __shared__ int s_row;
   __shared__ Scratch s_sweep;
 
@@ -167,24 +206,61 @@ wavefront_kernel(const int* __restrict__ planes, int* recon, int batch,
           for (int k = 1; k <= N; ++k) s_ref[R + N + k] = right;
         }
       }
-      if constexpr (SEARCH) s_sweep.x[i * (N + 1) + j] = x;
+      if constexpr (SWEEP) s_sweep.x[i * (N + 1) + j] = x;
       __syncthreads();
+
+      // --- luma smoothing: the filtered references, where a mode reads
+      // them (a uniform branch) -----------------------------------------
+      const int* fref = s_ref;          // the modes of filter_mask
+      const int* pref = s_ref;          // planar
+      if constexpr (N > 4) {
+        if (body.filter_mask != 0ull) {
+          if (t < 2 * R)
+            s_fref[t] = smoothed_ref<N>(s_ref, t, body.strong_thresh);
+          __syncthreads();
+          fref = s_fref;
+          if (body.filter_mask & 1ull) pref = s_fref;
+        }
+      }
 
       // --- the body's decision -----------------------------------------
       int pred, mode;
-      if constexpr (SEARCH) {
-        mode = mode_sweep<N, THREADS, THREADS>(s_ref, s_sweep, t, q.max_pix);
-        pred = predict_pixel<N>(s_ref, s_sweep.mref, mode, i, j);
-      } else {
+      if constexpr (BODY == kBodyFixed) {
+        mode = body.fixed_mode;
+        pred = mode == 1 ? dc_value<N>(s_ref) : planar_pixel<N>(pref, i, j);
+      } else if constexpr (!SWEEP) {
         bool use_dc;
-        pred = dc_planar_energy<N, THREADS>(s_ref, x, i, j, s_a, s_b, use_dc);
+        pred = dc_planar_energy<N, THREADS>(s_ref, pref, x, i, j, s_a, s_b,
+                                            use_dc);
         mode = use_dc ? 1 : 0;
+      } else {
+        // Two call sites: without smoothing the sweep reads s_ref alone,
+        // which keeps the unsmoothed passes as fast as before the mask
+        // (a runtime choice of array in them cost the N=8 search 28 %
+        // of its passes; PERF.md).
+        constexpr int M = BODY == kBodySweep ? 35 : 2;
+        mode = body.filter_mask
+                   ? mode_sweep<N, THREADS, THREADS, COST, M>(
+                         s_ref, fref, body.filter_mask, s_sweep, t, q.max_pix)
+                   : mode_sweep<N, THREADS, THREADS, COST, M>(
+                         s_ref, s_ref, 0ull, s_sweep, t, q.max_pix);
+        pred = predict_pixel<N>(s_ref, pref, s_sweep.mref, mode, i, j);
       }
 
-      // --- transform, quantize, reconstruct (shared tail) ----------------
+      // --- transform, quantize (RDOQ), reconstruct (shared tail) --------
       int level, r;
-      transform_quant_recon<N>(s_t, s_tt, s_x, s_a, s_b, i, j, x - pred, pred,
-                               q, level, r);
+      if (rq.scan >= 0) {               // uniform over the launch
+        auto rdoq = [&](int coeff, int lev) {
+          return rdoq_level<N, THREADS>(
+              coeff, lev, p, t, mode, rq, q, reinterpret_cast<float*>(s_x),
+              reinterpret_cast<float*>(s_a), reinterpret_cast<float*>(s_b));
+        };
+        transform_quant_recon<N>(s_t, s_tt, s_x, s_a, s_b, i, j, x - pred,
+                                 pred, q, level, r, rdoq);
+      } else {
+        transform_quant_recon<N>(s_t, s_tt, s_x, s_a, s_b, i, j, x - pred,
+                                 pred, q, level, r);
+      }
 
       if (t < NN) {
         rec[(size_t)(y0 + i) * width + x0 + j] = r;
@@ -201,41 +277,59 @@ wavefront_kernel(const int* __restrict__ planes, int* recon, int batch,
   }
 }
 
-// One persistent launch on `stream`; `grids` gets the grids launched.
-template <int N, bool SEARCH>
-static int run(const int* planes, int batch, int height, int width,
-               int t_offset, QpScalars q, int* recon, int* levels, int* modes,
-               int* work, int* grids, cudaStream_t stream) {
-  constexpr int threads = wavefront_threads<N, SEARCH>();
-  const int nby = height / N, nbx = width / N;
+struct Launch {
+  const int* planes;
+  int batch, height, width, t_offset;
+  QpScalars q;
+  BodyArgs body;
+  RdoqArgs rq;
+  int *recon, *levels, *modes, *work, *grids;
+  cudaStream_t stream;
+};
+
+// One persistent launch on the call's stream; `grids` gets the grids
+// launched.
+template <int N, int BODY, int COST>
+static int run(const Launch& a) {
+  constexpr int threads = wavefront_threads<N, BODY>();
+  const int nby = a.height / N, nbx = a.width / N;
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, wavefront_kernel<N, SEARCH>, threads, 0);
+        &per_sm, wavefront_kernel<N, BODY, COST>, threads, 0);
   if (err != cudaSuccess) return (int)err;
-  const int rows = batch * nby;
+  const int rows = a.batch * nby;
   const int resident = per_sm * sms > 0 ? per_sm * sms : 1;
   const int grid = rows < resident ? rows : resident;
-  wavefront_kernel<N, SEARCH><<<grid, threads, 0, stream>>>(
-      planes, recon, batch, height, width, nby, nbx, t_offset, q, levels,
-      modes, work, work + 1);
+  wavefront_kernel<N, BODY, COST><<<grid, threads, 0, a.stream>>>(
+      a.planes, a.recon, a.batch, a.height, a.width, nby, nbx, a.t_offset,
+      a.q, a.body, a.rq, a.levels, a.modes, a.work, a.work + 1);
   err = cudaGetLastError();
-  if (err == cudaSuccess) *grids += 1;
+  if (err == cudaSuccess) *a.grids += 1;
   return (int)err;
 }
 
+template <int N, int BODY>
+static int run_cost(int cost, const Launch& a) {
+  switch (cost) {
+    case kCostEnergy: return run<N, BODY, kCostEnergy>(a);
+    case kCostSad: return run<N, BODY, kCostSad>(a);
+    case kCostSatd: return run<N, BODY, kCostSatd>(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <int N>
-static int run_body(int body, const int* planes, int batch, int height,
-                    int width, int t_offset, QpScalars q, int* recon,
-                    int* levels, int* modes, int* work, int* grids,
-                    cudaStream_t stream) {
-  return body ? run<N, true>(planes, batch, height, width, t_offset, q, recon,
-                             levels, modes, work, grids, stream)
-              : run<N, false>(planes, batch, height, width, t_offset, q,
-                              recon, levels, modes, work, grids, stream);
+static int run_body(int body, int cost, const Launch& a) {
+  switch (body) {
+    case kBodyFixed: return run<N, kBodyFixed, kCostEnergy>(a);  // no cost
+    case kBodyPair: return run_cost<N, kBodyPair>(cost, a);
+    case kBodySweep: return run_cost<N, kBodySweep>(cost, a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int nhv_table_ints() { return kTableInts; }
@@ -250,44 +344,67 @@ extern "C" int nhv_upload_tables(const int* host, int count, int device) {
 }
 
 // Closed-loop encode of `batch` block-aligned (height, width) int32
-// planes.  body 0 is DC/planar by energy, 1 the 35-mode SATD search.
-// `recon` (batch, height, width) is written whole; levels
-// (batch, nb, n, n) and modes (batch, nb) in raster block order.
-// `work` is 1 + batch * (height / n) zeroed ints on the device: the
-// ticket counter, then the progress flag of each block row.  Launches
-// one grid on `stream` without synchronising and adds the grids it
-// launched to *grids; returns the CUDA error of the launch, or
+// planes.  body 0 codes one fixed mode (fixed_mode 0 planar, 1 DC), 1
+// decides DC / planar, 2 searches the 35 modes; cost 0 energy, 1 SAD, 2
+// SATD (not read by body 0).  filter_mask bit m set: mode m reads the
+// smoothed references (luma smoothing; 0 at n = 4); strong_thresh is
+// 1 << (bit_depth - 5), read at n = 32 only.  rdoq_scan -1 codes the
+// deadzone levels; 0 / 1 / 2 / 3 re-decides them by RDOQ in the
+// diagonal, horizontal, vertical or per-mode scan, with `rdoq_tables`
+// on the device (rdoq_tail.cuh) and `rdoq_scalars` the 7 host float32
+// scalars of RdoqArgs in their order.  `recon` (batch, height, width) is
+// written whole; levels (batch, nb, n, n) and modes (batch, nb) in
+// raster block order.  `work` is 1 + batch * (height / n) zeroed ints on
+// the device: the ticket counter, then the progress flag of each block
+// row.  Launches one grid on `stream` without synchronising and adds the
+// grids it launched to *grids; returns the CUDA error of the launch, or
 // cudaSuccess.
-extern "C" int nhv_wavefront_encode(const int* planes, int batch, int height,
-                                    int width, int n, int body, int use_dst,
-                                    int mf, int qshift, int qoffset,
-                                    int dscale, int dq_shift, int max_pix,
-                                    int boundary, int* recon, int* levels,
-                                    int* modes, int* work, int* grids,
-                                    void* stream, int device) {
+extern "C" int nhv_wavefront_encode(
+    const int* planes, int batch, int height, int width, int n, int body,
+    int cost, int fixed_mode, int use_dst, int mf, int qshift, int qoffset,
+    int dscale, int dq_shift, int max_pix, int boundary, int strong_thresh,
+    unsigned long long filter_mask, int rdoq_scan, const int* rdoq_tables,
+    const float* rdoq_scalars, int* recon, int* levels, int* modes,
+    int* work, int* grids, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0 || batch < 0 || height % n != 0 || width % n != 0 ||
-      (body != 0 && body != 1) || (use_dst && n != 4))
+      body < kBodyFixed || body > kBodySweep || cost < kCostEnergy ||
+      cost > kCostSatd || (fixed_mode != 0 && fixed_mode != 1) ||
+      (use_dst && n != 4) || (filter_mask >> 35) != 0 ||
+      (n == 4 && filter_mask != 0) || rdoq_scan < -1 || rdoq_scan > 3 ||
+      (rdoq_scan >= 0 && (rdoq_tables == nullptr || rdoq_scalars == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (batch == 0 || height == 0 || width == 0) return (int)cudaSuccess;
-  const QpScalars q{mf, qshift, qoffset, dscale, dq_shift, max_pix, boundary};
-  cudaStream_t s = (cudaStream_t)stream;
-  const int t_offset = transform_offset(n, use_dst);
+  Launch a;
+  a.planes = planes;
+  a.batch = batch;
+  a.height = height;
+  a.width = width;
+  a.t_offset = transform_offset(n, use_dst);
+  a.q = QpScalars{mf, qshift, qoffset, dscale, dq_shift, max_pix, boundary};
+  // only the bits of the modes this body can pick
+  const unsigned long long live =
+      body == kBodyFixed ? 1ull << fixed_mode
+                         : body == kBodyPair ? 3ull : (1ull << 35) - 1;
+  a.body = BodyArgs{fixed_mode, strong_thresh, filter_mask & live};
+  a.rq = RdoqArgs{rdoq_tables, 0, 0, 0, 0, 0, 0, 0, rdoq_scan};
+  if (rdoq_scan >= 0) {
+    const float* f = rdoq_scalars;
+    a.rq = RdoqArgs{rdoq_tables, f[0], f[1], f[2], f[3], f[4], f[5], f[6],
+                    rdoq_scan};
+  }
+  a.recon = recon;
+  a.levels = levels;
+  a.modes = modes;
+  a.work = work;
+  a.grids = grids;
+  a.stream = (cudaStream_t)stream;
   switch (n) {
-    case 4:
-      return run_body<4>(body, planes, batch, height, width, t_offset, q,
-                         recon, levels, modes, work, grids, s);
-    case 8:
-      return run_body<8>(body, planes, batch, height, width, t_offset, q,
-                         recon, levels, modes, work, grids, s);
-    case 16:
-      return run_body<16>(body, planes, batch, height, width, t_offset, q,
-                          recon, levels, modes, work, grids, s);
-    case 32:
-      return run_body<32>(body, planes, batch, height, width, t_offset, q,
-                          recon, levels, modes, work, grids, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 4: return run_body<4>(body, cost, a);
+    case 8: return run_body<8>(body, cost, a);
+    case 16: return run_body<16>(body, cost, a);
+    case 32: return run_body<32>(body, cost, a);
+    default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -37,8 +37,7 @@ import torch
 from nanohevc_tpu_torch import ops
 from nanohevc_tpu_torch.kernels.mode_search import angle_table
 from nanohevc_tpu_torch.kernels.slab_pipeline import BLOCK_SIZES, transform_table
-from nanohevc_tpu_torch.kernels.wavefront import diagonal_blocks
-from nanohevc_tpu_torch.ops.intra import mode_filter_flags
+from nanohevc_tpu_torch.kernels.wavefront import diagonal_blocks, filter_mask
 
 
 def decode_blocks_reference(residual: torch.Tensor, modes: torch.Tensor,
@@ -80,14 +79,6 @@ def cuda_kernels():
 
     return KernelLibrary("decode",
                          np.concatenate([transform_table(), angle_table()]))
-
-
-def filter_mask(n: int, intra_smoothing: bool) -> int:
-    """Bit m set where mode m reads the smoothed references: the
-    kernel's form of `mode_filter_flags(n)` (0 without smoothing)."""
-    if not intra_smoothing:
-        return 0
-    return sum(1 << int(m) for m in np.flatnonzero(mode_filter_flags(n)))
 
 
 def _validate(residual: torch.Tensor, modes: torch.Tensor, n: int,

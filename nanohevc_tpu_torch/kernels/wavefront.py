@@ -10,10 +10,18 @@ Port of the three TPU kernels of the closed loop, as reached through
   (`wavefront_mode_search_blocks`, K3b) and
   `nanohevc_tpu/kernels/wavefront_mode_grouped.py`
   (`wavefront_mode_search_raster_grouped`, K3a): the 35-mode SATD
-  search, which differ only in TPU layout.
+  search, which differ only in TPU layout;
 
-One kernel, `csrc/wavefront.cu`, serves all three, templated on the
-body and on N; its header says how it is laid out and what bounds it.
+and of the JAX package's closed-loop XLA scan (the `jax.lax.scan` of
+that function), which codes everything else but `decision="rd"`: the
+mode sets `dc`, `planar`, `dc_planar` and `all` under the decisions
+`energy`, `sad` and `satd`, luma reference smoothing, and RDOQ in every
+scan with its lambda scale (`wavefront_covers`).
+
+One kernel, `csrc/wavefront.cu`, serves all of them, templated on N,
+on the body's shape (one fixed mode, DC/planar, the 35-mode sweep) and
+on the cost; smoothing and RDOQ are switches.  Its header says how it
+is laid out and what bounds it.
 
 Blocks on one anti-diagonal (by + bx == d) depend only on earlier
 diagonals, so the plain version walks the nby + nbx - 1 diagonals in
@@ -24,7 +32,8 @@ written one diagonal at a time is the closed loop's availability rule.
 The kernel codes the same blocks in one launch, block row by block
 row, each row one block behind the row above (per-row ready flags);
 it writes the rule's extensions instead of reading them, so the
-order gives the same result.
+order gives the same result.  RDOQ prices each block with the static
+rate table, alone, so neither the order nor the batch moves it.
 
 `wavefront_encode_planes` dispatches on the device of its input: a
 CPU tensor goes to `wavefront_encode_planes_reference`, a CUDA tensor
@@ -42,19 +51,45 @@ import torch
 from nanohevc_tpu_torch import ops
 from nanohevc_tpu_torch.kernels.mode_search import angle_table
 from nanohevc_tpu_torch.kernels.slab_pipeline import BLOCK_SIZES, transform_table
-from nanohevc_tpu_torch.params import qp_scalars
+from nanohevc_tpu_torch.ops.intra import mode_filter_flags
+from nanohevc_tpu_torch.params import encoder_tables, qp_scalars
 
-# (mode_set, decision) -> the kernel's body: 0 DC/planar by energy,
-# 1 the 35-mode SATD search.
+# The TPU kernels' two configurations, (mode_set, decision).
 BODIES = {("dc_planar", "energy"): 0, ("all", "satd"): 1}
+# The kernel's body shape of each mode set (0 one fixed mode, 1 the pair
+# DC / planar, 2 the 35-mode sweep), the fixed body's mode, and its
+# costs; decision="rd" has none.
+SHAPES = {"planar": 0, "dc": 0, "dc_planar": 1, "all": 2}
+FIXED_MODES = {"planar": 0, "dc": 1}
+COSTS = {"energy": 0, "sad": 1, "satd": 2}
+SCANS = {"diag": 0, "horizontal": 1, "vertical": 2, "mode": 3}
 
 
 def wavefront_supported(n: int, mode_set: str, decision: str,
                         use_dst: bool) -> bool:
-    """Whether the kernel covers this configuration: the union of the
-    TPU kernels' checks, without their TPU batch rule."""
+    """Whether a TPU kernel of the closed loop takes this configuration:
+    the union of the TPU kernels' checks, without their TPU batch rule.
+    These are the configurations `allow_fast=True` admits."""
     return ((mode_set, decision) in BODIES and n in BLOCK_SIZES
             and (not use_dst or n == 4))
+
+
+def wavefront_covers(n: int, mode_set: str, decision: str,
+                     use_dst: bool) -> bool:
+    """Whether the kernel codes this configuration: every mode set and
+    per-block decision but `decision="rd"`, at every N (DST at 4 only),
+    with or without smoothing and RDOQ."""
+    return (mode_set in SHAPES and decision in COSTS and n in BLOCK_SIZES
+            and (not use_dst or n == 4))
+
+
+def filter_mask(n: int, intra_smoothing: bool) -> int:
+    """Bit m set where mode m reads the smoothed references: the form
+    of `mode_filter_flags(n)` that the encode and decode kernels take (0
+    without smoothing)."""
+    if not intra_smoothing:
+        return 0
+    return sum(1 << int(m) for m in np.flatnonzero(mode_filter_flags(n)))
 
 
 def diagonal_blocks(d: int, nby: int, nbx: int, device) -> tuple:
@@ -152,8 +187,57 @@ def cuda_kernels():
                          np.concatenate([transform_table(), angle_table()]))
 
 
+@lru_cache(maxsize=None)
+def _rdoq_table_array(n: int, use_dst: bool) -> np.ndarray:
+    """The RDOQ tail's (7 N*N,) int32 table (csrc/rdoq_tail.cuh): float32
+    bits of the transform gain by raster position, then of the default
+    rate table's sig0, sig1 and last-position bits by scan position, then
+    the scan position of each raster position for the diagonal,
+    horizontal and vertical scans.  The values `ops.rdoq_levels` reads."""
+    from nanohevc_tpu_torch.ops import rate
+    from nanohevc_tpu_torch.ops.rdoq import _gain_matrix, _last_cost_vec
+
+    nn = n * n
+    table = rate.default_table(nn)
+    pos = np.minimum(np.arange(nn), 31)
+    key = (float(table.lastfull0), float(table.lastfull1),
+           tuple(float(x) for x in table.lastp0),
+           tuple(float(x) for x in table.lastp1))
+    floats = np.concatenate([
+        _gain_matrix(n, use_dst).reshape(nn),
+        np.asarray(table.sig0)[pos].astype(np.float32),
+        np.asarray(table.sig1)[pos].astype(np.float32),
+        _last_cost_vec(nn, key),
+    ]).astype(np.float32)
+    tabs = encoder_tables(n)
+    scans = [tabs[f"scan_{k}_inverse"].numpy() for k in
+             ("diag", "horizontal", "vertical")]
+    return np.concatenate([floats.view(np.int32)] + scans).astype(np.int32)
+
+
+@lru_cache(maxsize=None)
+def rdoq_tables(n: int, use_dst: bool, device: torch.device) -> torch.Tensor:
+    """`_rdoq_table_array` on `device`, made once per (N, DST, device)."""
+    return torch.from_numpy(_rdoq_table_array(n, use_dst)).to(device)
+
+
+def rdoq_scalars(qp: int, n: int, use_dst: bool, dequant_rescale: bool,
+                 rd_lambda_scale: float) -> np.ndarray:
+    """The RDOQ tail's float32 scalars, as `ops.rdoq_levels` rounds
+    them: lambda, lambda * cbf0 (one float32 product), cbf1, gt1_0,
+    gt1_1, gt2_0, gt2_1."""
+    from nanohevc_tpu_torch.ops import rate
+    from nanohevc_tpu_torch.ops.rdoq import rd_lambda_calibrated
+
+    t = rate.default_table(n * n)
+    lam = rd_lambda_calibrated(qp, n, use_dst, dequant_rescale,
+                               rd_lambda_scale)
+    return np.array([lam, np.float32(lam) * np.float32(t.cbf0), t.cbf1,
+                     t.gt1_0, t.gt1_1, t.gt2_0, t.gt2_1], dtype=np.float32)
+
+
 def _validate(planes: torch.Tensor, n: int, mode_set: str, decision: str,
-              use_dst: bool, bit_depth: int) -> None:
+              use_dst: bool, bit_depth: int, scan: str) -> None:
     what = "wavefront_encode_planes"
     if not isinstance(planes, torch.Tensor) or planes.dim() != 3:
         raise ValueError(f"{what} needs a 3-D (B, H, W) tensor")
@@ -161,10 +245,12 @@ def _validate(planes: torch.Tensor, n: int, mode_set: str, decision: str,
         raise TypeError(f"{what} needs int32, got {planes.dtype}")
     if not planes.is_contiguous():
         raise ValueError(f"{what} needs contiguous planes")
-    if not wavefront_supported(n, mode_set, decision, use_dst):
+    if not wavefront_covers(n, mode_set, decision, use_dst):
         raise ValueError(
             f"{what} does not cover n={n}, mode_set={mode_set!r}, "
             f"decision={decision!r}, use_dst={use_dst}")
+    if scan not in SCANS:
+        raise ValueError(f"unknown scan: {scan!r}")
     if planes.shape[1] % n or planes.shape[2] % n:
         raise ValueError(f"{what} needs block-aligned planes, got "
                          f"{tuple(planes.shape[1:])} at N={n}")
@@ -178,21 +264,29 @@ def wavefront_encode_planes(planes: torch.Tensor, qp: int, n: int, *,
                             mode_set: str = "dc_planar",
                             decision: str = "energy", bit_depth: int = 8,
                             use_dst: bool = False,
-                            dequant_rescale: bool = False) -> dict:
+                            dequant_rescale: bool = False,
+                            intra_smoothing: bool = False,
+                            rdoq: bool = False, scan: str = "diag",
+                            rd_lambda_scale: float = 1.0) -> dict:
     """(B, Hp, Wp) block-aligned int32 planes -> dict(recon, levels,
     modes), as `wavefront_encode_planes_reference` describes, for the
-    configurations `wavefront_supported` admits.
+    configurations `wavefront_covers` admits.
 
     qp is a static Python int.  On a CUDA tensor this runs the
     hand-written kernel, one persistent grid launch per call, on the
     current stream (no synchronisation), adds one to
     `wavefront_encode_planes.launches` and the grids the C call
-    launched to `wavefront_encode_planes.grids`; on a CPU tensor it
-    runs the plain version.
+    launched to `wavefront_encode_planes.grids`, and counts the launch
+    in `wavefront_encode_planes.launches_by_config` under (mode_set,
+    decision, smoothing, rdoq); on a CPU tensor it runs the plain
+    version.  `scan` matters under `rdoq` only (the levels come back in
+    raster order).
     """
-    _validate(planes, n, mode_set, decision, use_dst, bit_depth)
+    _validate(planes, n, mode_set, decision, use_dst, bit_depth, scan)
     kw = dict(mode_set=mode_set, decision=decision, bit_depth=bit_depth,
-              use_dst=use_dst, dequant_rescale=dequant_rescale)
+              use_dst=use_dst, dequant_rescale=dequant_rescale,
+              intra_smoothing=intra_smoothing, rdoq=rdoq, scan=scan,
+              rd_lambda_scale=rd_lambda_scale)
     if planes.device.type == "cpu":
         return wavefront_encode_planes_reference(planes, qp, n, **kw)
     b, hp, wp = planes.shape
@@ -208,22 +302,39 @@ def wavefront_encode_planes(planes: torch.Tensor, qp: int, n: int, *,
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     kern.ensure_tables(index)
     q = qp_scalars(qp, n, bit_depth, dequant_rescale)
+    smooth = intra_smoothing and n > 4
+    # the strong filter's flatness threshold (N = 32 only), computed as
+    # the plain version computes it
+    thresh = 1 << (bit_depth - 5) if smooth and n == 32 else 0
+    tables, scalars = None, None
+    if rdoq:
+        tables = rdoq_tables(n, use_dst, torch.device("cuda", index))
+        scalars = rdoq_scalars(qp, n, use_dst, dequant_rescale,
+                               rd_lambda_scale)
     # the ticket counter, then one progress flag per block row
     work = torch.zeros(1 + b * (hp // n), dtype=torch.int32, device=dev)
     grids = ctypes.c_int(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = kern.lib.nhv_wavefront_encode(
-        planes.data_ptr(), b, hp, wp, n, BODIES[(mode_set, decision)],
-        int(use_dst), *q, recon.data_ptr(), levels.data_ptr(),
-        modes.data_ptr(), work.data_ptr(), ctypes.addressof(grids), stream,
-        index,
+        planes.data_ptr(), b, hp, wp, n, SHAPES[mode_set], COSTS[decision],
+        FIXED_MODES.get(mode_set, 0), int(use_dst), *q, thresh,
+        filter_mask(n, smooth), SCANS[scan] if rdoq else -1,
+        tables.data_ptr() if rdoq else None,
+        scalars.ctypes.data if rdoq else None, recon.data_ptr(),
+        levels.data_ptr(), modes.data_ptr(), work.data_ptr(),
+        ctypes.addressof(grids), stream, index,
     )
     if rc != 0:
         raise RuntimeError(f"nhv_wavefront_encode failed: CUDA error {rc}")
     wavefront_encode_planes.launches += 1
     wavefront_encode_planes.grids += grids.value
+    key = (mode_set, decision, smooth, bool(rdoq))
+    by_config = wavefront_encode_planes.launches_by_config
+    by_config[key] = by_config.get(key, 0) + 1
     return out
 
 
 wavefront_encode_planes.launches = 0
 wavefront_encode_planes.grids = 0
+# launches by (mode_set, decision, smoothing at n > 4, rdoq)
+wavefront_encode_planes.launches_by_config = {}

@@ -13,25 +13,27 @@ and read 0, except at the plane's last block-column (block-row), where
 they replicate T[N] (L[N]); the plane's top row and left column, and
 the corner there, read 1 << (bd - 1).
 
-Routing (`encode_planes_closed_loop`):
+Routing (`encode_planes_closed_loop`), one rule:
 
-- DC/planar by energy and the 35-mode SATD search go to the
-  hand-written CUDA kernel `kernels.wavefront.wavefront_encode_planes`
-  (the port of K4 and of K3a/K3b) at every batch size.  The JAX
-  package sends DC/planar at batch >= 2 to its XLA scan instead
-  (models/wavefront.py:307-321 there), a TPU timing choice: both of
-  its paths give the same outputs bit for bit, and so does this one.
-- Other mode sets and decisions, luma reference smoothing, RDOQ and
-  `allow_fast=False` run the plain loop
-  `kernels.wavefront.wavefront_encode_planes_reference`, which gathers
-  and scatters each diagonal's blocks directly (RDOQ prices each block
-  with the static table, so its batch does not matter); `rdoq` with
-  `allow_fast=True` raises ValueError, as in JAX.
+- Every configuration but `decision="rd"` goes to
+  `kernels.wavefront.wavefront_encode_planes`: every mode set (`dc`,
+  `planar`, `dc_planar`, `all`) under every per-block decision
+  (`energy`, `sad`, `satd`), with or without luma reference smoothing
+  and RDOQ (in `scan` order, lambda scaled by rd_lambda_scale), at
+  every batch size.  On the card that is the hand-written CUDA kernel,
+  one persistent launch per call: the port's counterpart of JAX's
+  three Pallas kernels (K4, K3a/K3b) and of its XLA scan
+  (models/wavefront.py:367-421 there), which give the same bits.  On
+  the CPU the wrapper runs the plain loop
+  `kernels.wavefront.wavefront_encode_planes_reference`.
+  `allow_fast=True` keeps JAX's refusals: `rdoq`, `intra_smoothing`
+  and the configurations no Pallas kernel of JAX takes raise
+  ValueError (models/wavefront.py:301 there).
 - `decision="rd"` prices its candidates with the adaptive rate model,
-  over the batch it is given, so it runs JAX's own batches: frame by
-  frame, each diagonal on all nby slots of the JAX package's skewed
-  layout, invalid slots included, with the skew tables and skewed
-  boundary buffers ported for it (`_encode_planes_rd`).
+  over the batch it is given (on the host), so it runs JAX's own
+  batches: frame by frame, each diagonal on all nby slots of the JAX
+  package's skewed layout, invalid slots included, with the skew tables
+  and skewed boundary buffers ported for it (`_encode_planes_rd`).
 - `kernel_split` and `unroll` are TPU layout knobs and are not taken.
 
 The in-loop filters follow every route, on the padded recon and in
@@ -63,7 +65,6 @@ from nanohevc_tpu_torch.kernels.decode import decode_blocks
 from nanohevc_tpu_torch.kernels.wavefront import (
     code_residual,
     wavefront_encode_planes,
-    wavefront_encode_planes_reference,
     wavefront_supported,
 )
 from nanohevc_tpu_torch.ops.mode_rate import mpm_mode_bits
@@ -258,10 +259,12 @@ def encode_planes_closed_loop(
     Returns {"recon" (B, H, W) int32, "levels" (B, nb, N*N) int32
     scan-packed in raster block order, "modes" (B, nb) int32} on the
     planes' device; nb counts the blocks of the padded geometry.  qp is
-    a Python int.  allow_fast=None takes the kernel where it applies
-    (see the module docstring); False forces the plain loop; True
-    requires the kernel.  rdoq re-decides each block's levels inside
-    the loop (plain loop only), its lambda scaled by rd_lambda_scale.
+    a Python int.  Every configuration but decision="rd" runs
+    `wavefront_encode_planes` (on the card, the kernel), whatever
+    allow_fast says, except that allow_fast=True refuses, as JAX does,
+    what no Pallas kernel of JAX takes (rdoq, intra_smoothing, other
+    mode sets and decisions).  rdoq re-decides each block's levels
+    inside the loop, its lambda scaled by rd_lambda_scale.
     The filters (deblock, then sao or sao_ctb) act on the recon; with
     sao the dict also holds "sao" ((B,) type, (B,) band_pos, (B, 4)
     offsets), with sao_ctb "sao_ctb" ((B, nty, ntx) type, band and
@@ -271,31 +274,28 @@ def encode_planes_closed_loop(
         raise ValueError("sao and sao_ctb are mutually exclusive")
     if rdoq and allow_fast:
         raise ValueError(
-            "rdoq runs on the closed loop's plain path (the wavefront "
-            "kernel quantizes with plain deadzone); pass allow_fast=False "
+            "rdoq is not taken by the JAX package's Pallas kernels "
+            "(they quantize with plain deadzone); pass allow_fast=False "
             "or None")
-    b, h, w = planes.shape
-    src = pad_to_blocks(planes.to(torch.int32), n)
-    fits = wavefront_supported(n, mode_set, decision, use_dst)
-    if allow_fast is None:
-        allow_fast = fits and not intra_smoothing and not rdoq
-    elif allow_fast and (not fits or intra_smoothing):
+    if allow_fast and (not wavefront_supported(n, mode_set, decision, use_dst)
+                       or intra_smoothing):
         raise ValueError(
-            f"the wavefront kernel does not cover n={n}, mode_set="
+            f"no Pallas kernel of the JAX package takes n={n}, mode_set="
             f"{mode_set!r}, decision={decision!r}, use_dst={use_dst}, "
             f"intra_smoothing={intra_smoothing}")
-    kw = dict(mode_set=mode_set, decision=decision, bit_depth=bit_depth,
-              use_dst=use_dst, dequant_rescale=dequant_rescale)
-    plain = dict(intra_smoothing=intra_smoothing, rdoq=rdoq, scan=scan,
-                 rd_lambda_scale=rd_lambda_scale)
-    if allow_fast:
-        out = wavefront_encode_planes(src, int(qp), n, **kw)
-    elif decision == "rd":
+    b, h, w = planes.shape
+    src = pad_to_blocks(planes.to(torch.int32), n)
+    loop = dict(intra_smoothing=intra_smoothing, rdoq=rdoq, scan=scan,
+                rd_lambda_scale=rd_lambda_scale)
+    if decision == "rd":
         out = _encode_planes_rd(src, int(qp), n, mode_set=mode_set,
                                 use_dst=use_dst, bit_depth=bit_depth,
-                                dequant_rescale=dequant_rescale, **plain)
+                                dequant_rescale=dequant_rescale, **loop)
     else:
-        out = wavefront_encode_planes_reference(src, int(qp), n, **plain, **kw)
+        out = wavefront_encode_planes(
+            src, int(qp), n, mode_set=mode_set, decision=decision,
+            bit_depth=bit_depth, use_dst=use_dst,
+            dequant_rescale=dequant_rescale, **loop)
     nb = out["modes"].shape[1]
     levels = ops.scan_pack(out["levels"].reshape(b * nb, n, n), scan,
                            modes=out["modes"].reshape(b * nb))

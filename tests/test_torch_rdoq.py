@@ -139,6 +139,57 @@ def test_rdoq_levels_with_a_calibrated_table(n):
     assert np.array_equal(got.numpy(), want)
 
 
+def near_flat_blocks(seed, nb, n):
+    """Residuals of nearly flat blocks, a few levels of noise on a faint
+    ramp, with some textured ones: many levels near the deadzone and
+    RDOQ decisions near a tie, across the whole scan."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:n, 0:n]
+    out = []
+    for i in range(nb):
+        amp = int(rng.choice([2, 4, 16, 64, 128]))
+        b = (rng.integers(-amp, amp + 1, (n, n))
+             + (rng.integers(-2, 3) * xx + rng.integers(-2, 3) * yy)
+             // int(rng.integers(4, 17)))
+        out.append(b - int(b.mean()))
+    return np.stack(out).astype(np.int32)
+
+
+def test_rdoq_levels_n32_no_flips_against_jax():
+    """The hunt for flips at N=32, where the port's ordered_cumsum keeps
+    runs of 16 and XLA's CPU cumsum changes its order past the 288th
+    prefix (test_torch_rate.py::test_ordered_cumsum_long_rows): QPs over
+    0..51, the three scans, the dequant rescale on and off, two lambda
+    scales, one compile per rescale.  No block's levels may differ."""
+    n = 32
+    fns = {r: jax.jit(lambda a, b, c, q, lam, r=r: j_rdoq.rdoq_levels(
+        a, b, c, q, n, lam, dequant_rescale=r)) for r in (False, True)}
+    gain = jnp.broadcast_to(j_rdoq.rdoq_gain(n, False), (24, n, n))
+    late = changed = 0
+    for qp in (0, 4, 9, 13, 18, 22, 27, 32, 37, 44, 51):
+        res = near_flat_blocks(qp, 24, n)
+        coeff = jops.forward_transform(jnp.asarray(res), False)
+        levels = jops.quantize(coeff, qp, n, True)
+        for scan in ("diag", "horizontal", "vertical"):
+            pc, pl, pg = (np.array(jops.scan_pack(x, scan))
+                          for x in (coeff, levels, gain))
+            for rescale in (False, True):
+                for scale in (1.0, 16.0):
+                    lam = t_rdoq.rd_lambda_calibrated(qp, n, False, rescale,
+                                                      scale)
+                    want = np.asarray(fns[rescale](pc, pl, pg, jnp.int32(qp),
+                                                   jnp.float32(lam)))
+                    got = tops.rdoq_levels(
+                        torch.from_numpy(pc), torch.from_numpy(pl),
+                        torch.from_numpy(pg), qp, n, lam,
+                        dequant_rescale=rescale).numpy()
+                    flips = np.flatnonzero((got != want).any(axis=1))
+                    assert flips.size == 0, (qp, scan, rescale, scale, flips)
+                    changed += int((want != pl).any(axis=1).sum())
+                    late += int((pl[:, 288:] != 0).any(axis=1).sum())
+    assert changed > 0 and late > 0     # RDOQ acted, past prefix 288 too
+
+
 def test_rdoq_never_raises_a_level():
     pc, pl, pg, _ = _case(5, 8, False, 12, False, "diag")
     got = tops.rdoq_levels(torch.from_numpy(pc), torch.from_numpy(pl),

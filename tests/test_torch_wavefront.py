@@ -88,6 +88,11 @@ GRID = [
     dict(n=8, mode_set="all", decision="satd", scan="mode"),
     dict(n=4, scan="mode", qp=0),
     dict(n=8, mode_set="all", decision="satd", scan="horizontal", qp=51),
+    # the fixed mode sets, and smoothing with RDOQ at N=32
+    dict(n=8, mode_set="dc", bit_depth=10),
+    dict(n=16, mode_set="planar", intra_smoothing=True),
+    dict(n=32, mode_set="all", decision="energy", intra_smoothing=True,
+         rdoq=True, qp=27),
 ]
 
 
@@ -343,15 +348,19 @@ def test_unported_closed_loop_options_raise(kw):
     (dict(), True),
     (dict(mode_set="all", decision="satd"), True),
     (dict(mode_set="all", decision="satd", use_dst=True, n=4), True),
-    (dict(mode_set="all", decision="satd", intra_smoothing=True), False),
-    (dict(decision="sad"), False),
-    (dict(mode_set="all", decision="energy"), False),
-    (dict(allow_fast=False), False),
+    (dict(mode_set="all", decision="satd", intra_smoothing=True), True),
+    (dict(decision="sad"), True),
+    (dict(mode_set="all", decision="energy"), True),
+    (dict(allow_fast=False), True),
+    (dict(rdoq=True), True),
+    (dict(mode_set="dc"), True),
+    (dict(decision="rd"), False),
 ])
 @pytest.mark.parametrize("batch", [1, 2])
 def test_routing(monkeypatch, kw, kernel, batch):
-    """The wavefront kernel takes DC/planar by energy and the SATD
-    search at every batch size, and nothing else."""
+    """The wavefront kernel takes every closed-loop configuration but
+    decision="rd" (every mode set and per-block decision, smoothing,
+    RDOQ, allow_fast=False) at every batch size, one call a batch."""
     calls = []
     real = torch_wf.wavefront_encode_planes
 
@@ -378,11 +387,13 @@ def test_allow_fast_refuses_uncovered_configs():
 
 @pytest.mark.parametrize("args", [
     dict(n=5),
-    dict(mode_set="all", decision="sad"),
+    dict(mode_set="all", decision="rd"),
     dict(use_dst=True),
 ])
 def test_supported_matches_the_tpu_kernels(args):
-    """wavefront_supported is the union of the TPU kernels' checks."""
+    """wavefront_supported is the union of the TPU kernels' checks; the
+    wrapper refuses what the kernel does not cover (wavefront_covers:
+    every mode set and per-block decision, DST at N=4 only)."""
     from nanohevc_tpu.kernels.wavefront_mode_slab import (
         wavefront_mode_kernel_supported,
     )
@@ -395,6 +406,8 @@ def test_supported_matches_the_tpu_kernels(args):
                 want = (wavefront_kernel_supported(n, ms, dec, dst)
                         or wavefront_mode_kernel_supported(n, ms, dec, dst))
                 assert kwf.wavefront_supported(n, ms, dec, dst) == want
+                assert kwf.wavefront_covers(n, ms, dec, dst) == (
+                    n != 5 and (n == 4 or not dst))
     planes = torch.from_numpy(seeded_planes(1, 16, 16, 2))
     kw = dict(dict(n=8, mode_set="dc_planar", decision="energy"), **args)
     n = kw.pop("n")
@@ -417,10 +430,30 @@ def test_wrapper_validates_input(bad):
         kwf.wavefront_encode_planes(planes, 22, 8)
 
 
-@pytest.mark.parametrize("body", [("dc_planar", "energy"), ("all", "satd")])
+# The kernel's bodies and switches: (mode_set, decision[, keywords]).
+WRAPPER_CASES = [
+    ("dc_planar", "energy"),
+    ("all", "satd"),
+    ("dc", "energy"),
+    ("planar", "sad", dict(intra_smoothing=True)),
+    ("dc_planar", "sad", dict(intra_smoothing=True, rdoq=True)),
+    ("dc_planar", "satd", dict(rdoq=True, scan="mode")),
+    ("all", "energy", dict(intra_smoothing=True)),
+    ("all", "sad", dict(rdoq=True, scan="horizontal", rd_lambda_scale=4.0)),
+    ("all", "satd", dict(intra_smoothing=True, rdoq=True, scan="vertical",
+                         dequant_rescale=True)),
+]
+
+
+def _wrapper_kw(body):
+    return dict(dict(mode_set=body[0], decision=body[1]),
+                **(body[2] if len(body) > 2 else {}))
+
+
+@pytest.mark.parametrize("body", WRAPPER_CASES)
 def test_wrapper_on_cpu_is_the_plain_version(body):
     planes = torch.from_numpy(seeded_planes(2, 24, 32, 6))
-    kw = dict(mode_set=body[0], decision=body[1])
+    kw = _wrapper_kw(body)
     before = kwf.wavefront_encode_planes.launches
     got = kwf.wavefront_encode_planes(planes, 25, 8, **kw)
     want = kwf.wavefront_encode_planes_reference(planes, 25, 8, **kw)
@@ -430,13 +463,13 @@ def test_wrapper_on_cpu_is_the_plain_version(body):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("body", [("dc_planar", "energy"), ("all", "satd")])
+@pytest.mark.parametrize("body", WRAPPER_CASES)
 def test_cuda_kernel_matches_plain(body):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; on the GPU machine chip_smoke.py "
-                    "phase 3c runs this check")
+                    "phases 3c and 3g run this check")
     planes = torch.from_numpy(seeded_planes(2, 40, 72, 8)).cuda()
-    kw = dict(mode_set=body[0], decision=body[1])
+    kw = _wrapper_kw(body)
     got = kwf.wavefront_encode_planes(planes, 25, 8, **kw)
     want = kwf.wavefront_encode_planes_reference(planes, 25, 8, **kw)
     for k in want:

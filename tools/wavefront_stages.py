@@ -14,17 +14,20 @@ sees it:
   wait+top   the top arm: the flag wait (thread 0) and the __ldcg reads
   left+bar   the left arm from registers, and the barrier before the body
   decide     the DC/planar decision (DC/planar body); the DC value
-             (search body)
+             (search body); the smoothing, where it is on
   passes     the search's passes over the modes
   winner     the search's (cost, mode) minimum across groups and warps
   predict    the winner's prediction, per pixel
-  tail       transform, quantize, reconstruct
+  tail       transform, quantize (RDOQ, where it is on), reconstruct
   stores     recon, publish, levels and modes
 
 The kernel it measures is the package's, with the stamps added; the
 stamps cost a few cycles each.  A change to wavefront.cu or
 mode_sweep.cuh that moves a stage boundary makes this script stop with
-the anchor it could not find.
+the anchor it could not find.  It also measures a tree from before the
+sweep took a cost and a filter mask (copy this file into that tree's
+`tools/` and run both in turns): it tries the anchors there in their
+older spelling, OLD_SPELLING, and that tree has no fixed-mode body.
 """
 
 from __future__ import annotations
@@ -48,6 +51,9 @@ STAGES = ["wait+top", "left+bar", "decide", "passes", "winner", "predict",
           "tail", "stores"]
 OUT = ROOT / "build" / "wavefront_stages"
 
+# The fixed-mode body's one line, which an older tree lacks.
+FIXED_BODY = ("        pred = mode == 1 ? dc_value<N>(s_ref) : "
+              "planar_pixel<N>(pref, i, j);\n")
 # (file, anchor, text put in its place); each anchor must occur once.
 EDITS = [
     ("mode_sweep.cuh", "__constant__ int c_tables[kTableInts];\n",
@@ -55,13 +61,14 @@ EDITS = [
      "__shared__ long long s_clk[16];\n"
      "#define STAMP(k) do { if (threadIdx.x == 0) s_clk[k] = clock64(); "
      "} while (0)\n"),
-    ("mode_sweep.cuh", "  int best_cost = 0x7fffffff, best_mode = 0;\n",
-     "  int best_cost = 0x7fffffff, best_mode = 0;\n  STAMP(3);\n"),
+    ("mode_sweep.cuh", "  int best_cost = 0x7fffffff, best_rank = 0;\n",
+     "  int best_cost = 0x7fffffff, best_rank = 0;\n  STAMP(3);\n"),
     ("mode_sweep.cuh",
-     "  // --- the winner: lexicographic (cost, mode) minimum over groups",
+     "  // --- the winner: lexicographic (cost, rank) minimum over groups",
      "  STAMP(4);\n"
-     "  // --- the winner: lexicographic (cost, mode) minimum over groups"),
-    ("wavefront.cu", "__device__ __forceinline__ int load_acquire",
+     "  // --- the winner: lexicographic (cost, rank) minimum over groups"),
+    ("wavefront.cu", '#include "wavefront_sync.cuh"\n',
+     '#include "wavefront_sync.cuh"\n'
      "__device__ unsigned long long g_stages[16];\n"
      'extern "C" int nhv_stages(unsigned long long* host) {\n'
      "  cudaError_t err = cudaDeviceSynchronize();\n"
@@ -71,8 +78,7 @@ EDITS = [
      "  if (err == cudaSuccess)\n"
      "    err = cudaMemcpyToSymbol(g_stages, zero, sizeof(zero));\n"
      "  return (int)err;\n"
-     "}\n"
-     "__device__ __forceinline__ int load_acquire"),
+     "}\n"),
     ("wavefront.cu", "  const int rows = batch * nby;\n  for (;;) {\n",
      "  const int rows = batch * nby;\n"
      "  long long acc[9] = {0};\n"
@@ -89,20 +95,22 @@ EDITS = [
     ("wavefront.cu", "      if (t < NN && j == N - 1) {",
      "      STAMP(1);\n      if (t < NN && j == N - 1) {"),
     ("wavefront.cu",
-     "      if constexpr (SEARCH) s_sweep.x[i * (N + 1) + j] = x;\n"
+     "      if constexpr (SWEEP) s_sweep.x[i * (N + 1) + j] = x;\n"
      "      __syncthreads();\n",
-     "      if constexpr (SEARCH) s_sweep.x[i * (N + 1) + j] = x;\n"
+     "      if constexpr (SWEEP) s_sweep.x[i * (N + 1) + j] = x;\n"
      "      __syncthreads();\n      STAMP(2);\n"),
     ("wavefront.cu",
-     "        pred = predict_pixel<N>(s_ref, s_sweep.mref, mode, i, j);\n",
+     "        pred = predict_pixel<N>(s_ref, pref, s_sweep.mref, mode, i, j);\n",
      "        STAMP(5);\n"
-     "        pred = predict_pixel<N>(s_ref, s_sweep.mref, mode, i, j);\n"
+     "        pred = predict_pixel<N>(s_ref, pref, s_sweep.mref, mode, i, j);\n"
      "        STAMP(6);\n"),
+    ("wavefront.cu", FIXED_BODY,
+     FIXED_BODY + "        STAMP(3); STAMP(4); STAMP(5); STAMP(6);\n"),
     ("wavefront.cu", "        mode = use_dc ? 1 : 0;\n",
      "        mode = use_dc ? 1 : 0;\n"
      "        STAMP(3); STAMP(4); STAMP(5); STAMP(6);\n"),
-    ("wavefront.cu", "                               q, level, r);\n",
-     "                               q, level, r);\n      STAMP(7);\n"),
+    ("wavefront.cu", "      if (t < NN) {\n        rec[",
+     "      STAMP(7);\n      if (t < NN) {\n        rec["),
     ("wavefront.cu", "        if (p == 0) modes[g] = mode;\n      }\n",
      "        if (p == 0) modes[g] = mode;\n      }\n"
      "      STAMP(8);\n"
@@ -113,6 +121,19 @@ EDITS = [
 ]
 
 
+# (this tree's spelling, the older tree's) of the names in the anchors
+# that changed when the sweep took a cost and a filter mask.
+OLD_SPELLING = (("best_rank", "best_mode"), ("(cost, rank)", "(cost, mode)"),
+                ("(SWEEP)", "(SEARCH)"),
+                ("s_ref, pref, s_sweep.mref", "s_ref, s_sweep.mref"))
+
+
+def respelled(text: str) -> str:
+    for new, old in OLD_SPELLING:
+        text = text.replace(new, old)
+    return text
+
+
 def instrumented_sources() -> Path:
     csrc = OUT / "csrc"
     shutil.rmtree(csrc, ignore_errors=True)
@@ -120,6 +141,10 @@ def instrumented_sources() -> Path:
     for name, anchor, text in EDITS:
         path = csrc / name
         src = path.read_text()
+        if src.count(anchor) != 1:
+            anchor, text = respelled(anchor), respelled(text)
+        if anchor == FIXED_BODY and FIXED_BODY not in src:
+            continue
         if src.count(anchor) != 1:
             raise SystemExit(f"{name}: anchor not found once: {anchor!r}")
         path.write_text(src.replace(anchor, text))
