@@ -48,8 +48,12 @@ over a 16-frame file at batch 8.  It checks them end to end:
    8/10-bit, batches of 1 and 3 with a QP per frame, on a 128x256 and a
    138x250 crop of adversarial streams (random modes 0..34 and levels,
    decoded by `decode_planes` with no encoder, one launch a call), DC-only
-   streams whose flat arms take the 32x32 strong filter, and the luma
-   plane of 4d's 1080p search stream (three repeats, each == the first);
+   streams whose flat arms take the 32x32 strong filter, a batch of 8
+   1080p luma planes at N=8 (a `decode_sequence` chunk) and a smoothed
+   1080p plane at N=32, with block rows that W (the rows a thread block
+   decodes together) does not divide at every N, and the luma plane of
+   4d's 1080p search stream (three repeats, each == the first, and
+   grids capped at 1 and 2 thread blocks, each == the plain version);
 4. encodes the frame on the card under each config through the open
    loop (4: default, 4b: mode search) and the closed loop (4c, 4d):
    the path's kernel must launch once per plane (3 times) and every
@@ -92,7 +96,8 @@ over a 16-frame file at batch 8.  It checks them end to end:
    take, and in a launch loop beside it), the frame under each
    config, the closed-loop frame and its decode (6c), the decode kernel
    per 1080p luma plane at N 4-32 through a CUDA graph with its bound
-   and us a block on the chain (6d; the plain version at N=8 only) and
+   and us a block on the chain, `decode_residual` (the plain PyTorch
+   step before it) beside it (6d; the plain version at N=8 only) and
    `decode_frame`'s split (host parse, device busy share), each row of
    what the kernel took over from the XLA scan per 1080p luma plane at
    N=8 through a CUDA graph beside the plain loop and its bound (6g),
@@ -193,6 +198,7 @@ try:
     from nanohevc_tpu_torch.kernels.decode import (
         decode_blocks,
         decode_blocks_reference,
+        group_rows,
     )
     from nanohevc_tpu_torch.kernels.fused_pipeline import (
         fused_encode_blocks,
@@ -1527,9 +1533,18 @@ def phase_decode_vs_plain(dev, search_bits: bytes, gpu: str) -> int:
     (DST), 8, 16, 32; smoothing off and on (N > 4); 8 and 10 bits;
     batches of 1 and 3; a block-aligned 128x256 and a misaligned 138x250
     crop; DC-only streams at N=32 whose flat arms take the strong
-    filter (one block column, and 4x8 blocks).  Then the luma plane of
-    the closed loop's 1080p search stream, and three repeats of its
-    kernel decode, each equal to the first.  Returns the max abs err."""
+    filter (one block column, and 4x8 blocks); a batch of 8 1080p luma
+    planes at N=8 (a decode_sequence chunk), a 1080p plane at N=32
+    with smoothing, and the chroma planes of the decoders, 540x960 at
+    N=4 with the DCT, one (decode_frame) and a batch of 8 (a
+    decode_sequence chunk), and two planes too wide for the default W's
+    lines in shared memory (N=4 at 20000 columns, N=32 at 60000), which
+    take a smaller W.  At every N some case has block rows that W (the
+    rows a thread block takes) does not divide.  Then the luma plane of
+    the closed loop's 1080p search stream, three repeats of its kernel
+    decode, each equal to the first, and its decode on grids capped at 1
+    and 2 thread blocks, each equal to the plain version.  Returns the
+    max abs err."""
     t0 = time.perf_counter()
     cases = []
     combos = ((8, 1), (10, 3), (8, 3), (10, 1))
@@ -1541,10 +1556,23 @@ def phase_decode_vs_plain(dev, search_bits: bytes, gpu: str) -> int:
     for bd in (8, 10):
         cases.append(((256, 32), 32, False, True, bd, 3, True))
         cases.append(((128, 256), 32, False, True, bd, 1, True))
+    cases.append(((H, W), 8, False, False, 8, DECODE_CHUNK, False))
+    cases.append(((H, W), 32, False, True, 8, 1, False))
+    for batch in (1, DECODE_CHUNK):
+        cases.append(((H // 2, W // 2), 4, False, False, 8, batch, False))
+    wide = [((28, 20000), 4, True), ((96, 60000), 32, False)]
+    for shape, n, dst in wide:
+        cases.append((shape, n, dst, False, 8, 1, False))
+        if group_rows(n, *shape, dev.index) >= group_rows(n, H, W,
+                                                          dev.index):
+            raise SystemExit(f"3f: W at {shape} N={n} is not below the "
+                             "default")
     strong = 0
+    ragged = set()      # the N with a case whose rows W does not divide
     for i, (shape, n, dst, smooth, bd, batch, dc) in enumerate(cases):
         levels, modes = decode_stream(shape, n, batch, SEED + i, dc)
-        qps = [22, 37, 30][:batch] if i % 2 else [30, 22, 45][:batch]
+        qps = ([22, 37, 30] * 3)[:batch] if i % 2 else (
+            [30, 22, 45] * 3)[:batch]
         bad, kern, md = decode_kernel_case(
             dev, levels, modes, qps, n, shape, use_dst=dst, bit_depth=bd,
             intra_smoothing=smooth)
@@ -1555,8 +1583,14 @@ def phase_decode_vs_plain(dev, search_bits: bytes, gpu: str) -> int:
                 f"{bad} pixels differ")
         if smooth:
             strong += strong_blocks(kern, md, n, bd)
+        hp, wp = kern.shape[1:]
+        if (hp // n) % group_rows(n, hp, wp, dev.index):
+            ragged.add(n)
     if not strong:
         raise SystemExit("3f: no 32x32 block took the strong filter")
+    if ragged != {n for n, _ in DECODE_SIZES}:
+        raise SystemExit(f"3f: block rows that W does not divide only at N "
+                         f"{sorted(ragged)}")
     parsed = parse_bitstream(search_bits)
     y = parsed["Y"]
     qp = y.get("qp", parsed["params"]["qp"])
@@ -1574,13 +1608,25 @@ def phase_decode_vs_plain(dev, search_bits: bytes, gpu: str) -> int:
         if not torch.equal(again, kern):
             raise SystemExit(f"decode_blocks 1080p: repeat {rep + 1} "
                              "differs from the first run")
+    for cap in (1, 2):
+        grids0 = decode_blocks.grids
+        capped = decode_blocks(res, md, n, _max_grid=cap)
+        torch.cuda.synchronize()
+        if decode_blocks.grids - grids0 != 1 or not torch.equal(capped, kern):
+            raise SystemExit(f"decode_blocks 1080p on a grid capped at {cap}: "
+                             "differs from the plain version")
     log(f"[3f] decode_blocks == plain on CUDA, 0 pixels differ, in "
         f"{len(cases)} adversarial cases (random modes 0..34 and levels, "
         f"a QP per frame, N 4 DST/8/16/32, smoothing off/on, 8/10-bit, "
-        f"batch 1/3, 128x256 and 138x250; {strong} blocks took the 32x32 "
-        f"strong filter) and on the 1080p search stream's luma plane "
-        f"(N={n}, three repeats == the first); each decode_planes call one "
-        f"launch ({time.perf_counter() - t0:.1f} s) [{gpu}]")
+        f"batch 1/3, 128x256 and 138x250; a batch of {DECODE_CHUNK} 1080p "
+        f"luma planes at N=8, a 1080p plane at N=32 smoothed, 540x960 "
+        f"chroma at N=4 DCT, batch 1 and {DECODE_CHUNK}, 28x20000 at N=4 "
+        f"and 96x60000 at N=32 at a smaller W; {strong} "
+        f"blocks took the 32x32 strong filter; block rows that W does not "
+        f"divide at every N) and on the 1080p search stream's luma plane "
+        f"(N={n}, three repeats == the first, grids capped at 1 and 2 "
+        f"thread blocks == plain); each decode_planes call one launch "
+        f"({time.perf_counter() - t0:.1f} s) [{gpu}]")
     return 0
 
 
@@ -1609,9 +1655,11 @@ def decode_times(dev, frame: Frame, gpu: str) -> tuple:
     """6d: the decode kernel per 1080p luma plane of the closed loop's
     search stream at N 4 (DST), 8, 16, 32 (and the default config's at
     N=8), QP 22: device time through a CUDA graph, a launch loop's
-    stream time, grids a call, us a block on the chain, the bound; the
-    plain version on the search stream at N=8 only.  Returns ({N:
-    (kernel ms, plain ms)}, the N=8 search plane's bound)."""
+    stream time, grids a call, us a block on the chain, the bound, and
+    beside it the time of decode_residual, the plain PyTorch step before
+    the kernel; the plain version on the search stream at N=8 only.
+    Returns ({N: (kernel ms, plain ms)}, the N=8 search plane's
+    bound)."""
     y = torch.from_numpy(frame.y.data.astype(np.int32))[None].to(dev)
     times, bound = {}, None
     for label, mode_set, decision in (("search", "all", "satd"),
@@ -1626,6 +1674,8 @@ def decode_times(dev, frame: Frame, gpu: str) -> tuple:
             res = decode_residual(out["levels"], md, [22], n=n, hp=hp,
                                   wp=wp, use_dst=dst)
             call = lambda: decode_blocks(res, md, n)   # noqa: E731
+            r_ms = graph_ms(lambda: decode_residual(
+                out["levels"], md, [22], n=n, hp=hp, wp=wp, use_dst=dst))
             grids0, calls0 = decode_blocks.grids, decode_blocks.launches
             rec = call()
             torch.cuda.synchronize()
@@ -1652,7 +1702,9 @@ def decode_times(dev, frame: Frame, gpu: str) -> tuple:
                 f"launch loop {loop_ms:.4f} ms), {grids:g} grid a call, a "
                 f"chain of {depth} blocks, {1e3 * k_ms / depth:.3f} us a "
                 f"block; bound {1e3 * b_ms:.2f} us ({b_by}, "
-                f"{100 * b_ms / k_ms:.2f} %){plain_note} [{gpu}]")
+                f"{100 * b_ms / k_ms:.2f} %){plain_note}; before it, "
+                f"decode_residual (plain PyTorch: unpack, dequantize, "
+                f"inverse transform) {r_ms:.4f} ms (CUDA graph) [{gpu}]")
     return times, bound
 
 

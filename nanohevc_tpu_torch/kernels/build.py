@@ -60,9 +60,12 @@ SIGNATURES = {
     "fused_pipeline": {"nhv_fused_encode":
                        [_P, _P, _I, _I] + [_I] * 7 + [_P, _P, _P, _I]},
     # residual, modes, batch, height, width, n, bit_depth, strong_thresh,
-    # filter_mask, recon, work, grids, stream, device
+    # filter_mask, group_rows, max_grid, recon, work, grids, stream,
+    # device; n, height, width, device
     "decode": {"nhv_wavefront_decode":
-               [_P, _P] + [_I] * 6 + [ctypes.c_ulonglong] + [_P] * 4 + [_I]},
+               [_P, _P] + [_I] * 6 + [ctypes.c_ulonglong] + [_I] * 2
+               + [_P] * 4 + [_I],
+               "nhv_decode_group_rows": [_I] * 4},
 }
 
 
@@ -172,20 +175,69 @@ def build_libraries() -> dict[str, BuildInfo]:
     return infos
 
 
-@lru_cache(maxsize=None)
-def load_library(name: str) -> tuple[ctypes.CDLL, BuildInfo]:
-    """Build if needed, load library `name` once, declare its C signatures."""
-    info = build_libraries()[name]
-    lib = ctypes.CDLL(str(info.path))
+def _load(path: Path, signatures: dict) -> ctypes.CDLL:
+    """Load the library at `path`, declare its table functions and
+    `signatures` ({function: argument types}, all returning int)."""
+    lib = ctypes.CDLL(str(path))
     if hasattr(lib, "nhv_upload_tables"):      # a __constant__ table
         lib.nhv_table_ints.argtypes = []
         lib.nhv_table_ints.restype = _I
         lib.nhv_upload_tables.argtypes = [_P, _I, _I]
         lib.nhv_upload_tables.restype = _I
-    for fn, args in SIGNATURES[name].items():
+    for fn, args in signatures.items():
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = _I
-    return lib, info
+    return lib
+
+
+@lru_cache(maxsize=None)
+def load_library(name: str) -> tuple[ctypes.CDLL, BuildInfo]:
+    """Build if needed, load library `name` once, declare its C signatures."""
+    info = build_libraries()[name]
+    return _load(info.path, SIGNATURES[name]), info
+
+
+def edited_copy(out: Path, edits, csrc: Path | None = None,
+                respell=None) -> Path:
+    """Copy every file of `csrc` (this package's csrc/ by default) into
+    out/csrc and apply `edits`, (file name, anchor, text put in its
+    place): each anchor must occur once, or, where `respell` is given,
+    its respelled form once (the text is then respelled alike).  Returns
+    the copy, for the tools that time or instrument an edited kernel."""
+    copy = out / "csrc"
+    shutil.rmtree(copy, ignore_errors=True)
+    shutil.copytree(csrc or _CSRC, copy)
+    for name, anchor, text in edits:
+        path = copy / name
+        src = path.read_text()
+        if src.count(anchor) != 1 and respell is not None:
+            anchor, text = respell(anchor), respell(text)
+        if src.count(anchor) != 1:
+            raise RuntimeError(f"{name}: anchor not found once: {anchor!r}")
+        path.write_text(src.replace(anchor, text))
+    return copy
+
+
+def build_copy(csrc: Path, name: str, out: Path,
+               signatures: dict | None = None
+               ) -> tuple[ctypes.CDLL, BuildInfo]:
+    """nvcc of csrc/<name>.cu (an edited copy, or another tree's
+    sources) with this package's flags and generated headers into
+    out/lib<name>.so; returns it loaded, with its table functions and
+    `signatures` (by default SIGNATURES[name]) declared, and its build."""
+    out.mkdir(parents=True, exist_ok=True)
+    _write_generated_headers()
+    lib_path = out / f"lib{name}.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(GENERATED_DIR), "-o",
+           str(lib_path), str(csrc / f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed (rc {proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stderr}")
+    info = BuildInfo(lib_path, time.perf_counter() - t0, proc.stderr, False)
+    sig = SIGNATURES[name] if signatures is None else signatures
+    return _load(lib_path, sig), info
 
 
 class KernelLibrary:
@@ -193,12 +245,14 @@ class KernelLibrary:
 
     `table` is None for a library without a constant table (the row
     kernels, whose tables are compiled in); `ensure_tables` then does
-    nothing.
+    nothing.  `built`, a (library, BuildInfo) from `build_copy`, stands
+    in for this package's library `name`.
     """
 
-    def __init__(self, name: str, table: np.ndarray | None = None):
+    def __init__(self, name: str, table: np.ndarray | None = None,
+                 built: tuple[ctypes.CDLL, BuildInfo] | None = None):
         self.name = name
-        self.lib, self.build_info = load_library(name)
+        self.lib, self.build_info = built or load_library(name)
         self.table = None
         if table is not None:
             self.table = np.ascontiguousarray(table, dtype=np.int32)

@@ -6,9 +6,10 @@ planes as one compiled program, a `jax.lax.scan` over the
 anti-diagonals vmapped over the batch
 (`nanohevc_tpu.models.wavefront.decode_planes`, the scan in
 `decode_plane`).  The kernel, `csrc/decode.cu`, is the port's
-counterpart of that single dispatch: one persistent launch per call on
-the closed-loop encoder's row schedule (`csrc/wavefront_sync.cuh`); its
-header says how it is laid out and what bounds it.
+counterpart of that single dispatch: one persistent launch per call, a
+team of 1, 2 or 4 warps a block row, groups of W block rows a thread
+block, tagged words for the hand-offs between rows; its header says how
+it is laid out and what bounds it.
 
 Both versions take the residual already dequantized and
 inverse-transformed, as (B, Hp, Wp) block-aligned int32 planes, and the
@@ -118,9 +119,62 @@ def _validate(residual: torch.Tensor, modes: torch.Tensor, n: int,
         raise ValueError(f"{what} needs modes in 0..34")
 
 
+def group_rows(n: int, hp: int, wp: int, device: int, lib=None) -> int:
+    """W, the block rows a thread block decodes together, for (Hp, Wp)
+    planes at block size n on card `device`, as the kernel's library
+    (`lib`, this package's by default) chooses it (csrc/decode.cu,
+    point 2)."""
+    lib = lib or cuda_kernels().lib
+    rows = lib.nhv_decode_group_rows(n, hp, wp, device)
+    if rows < 1:
+        raise RuntimeError(f"nhv_decode_group_rows failed: CUDA error "
+                           f"{-rows}")
+    return rows
+
+
+def work_ints(batch: int, hp: int, wp: int, n: int, rows: int) -> int:
+    """Zeroed int32 words the kernel needs at W = rows: the ticket
+    counter, then the edge buffer, a line of Wp words after each group
+    of rows of each plane but the last."""
+    groups = -(-(hp // n) // rows)
+    return 1 + batch * (groups - 1) * wp
+
+
+def _launch(lib, residual: torch.Tensor, modes: torch.Tensor, n: int, *,
+            bit_depth: int = 8, intra_smoothing: bool = False, rows: int = 0,
+            max_grid: int = 0) -> tuple[torch.Tensor, int]:
+    """One launch of `lib`'s nhv_wavefront_decode (this package's
+    library, or a tool's build of an edited copy, whose constant table
+    is set) on the current stream, at W = rows (0: the library's
+    choice) and a grid of at most max_grid (0: no cap): (recon, grids
+    launched)."""
+    b, hp, wp = residual.shape
+    dev = residual.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    rows = rows or group_rows(n, hp, wp, index, lib)
+    recon = torch.empty_like(residual)     # the kernel writes every pixel
+    smooth = intra_smoothing and n > 4
+    # the strong filter's flatness threshold (N = 32 only), computed as
+    # the plain version computes it
+    thresh = 1 << (bit_depth - 5) if smooth and n == 32 else 0
+    work = torch.zeros(work_ints(b, hp, wp, n, rows), dtype=torch.int32,
+                       device=dev)
+    grids = ctypes.c_int(0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.nhv_wavefront_decode(
+        residual.data_ptr(), modes.data_ptr(), b, hp, wp, n, bit_depth,
+        thresh, filter_mask(n, smooth), rows, max_grid,
+        recon.data_ptr(), work.data_ptr(), ctypes.addressof(grids), stream,
+        index,
+    )
+    if rc != 0:
+        raise RuntimeError(f"nhv_wavefront_decode failed: CUDA error {rc}")
+    return recon, grids.value
+
+
 def decode_blocks(residual: torch.Tensor, modes: torch.Tensor, n: int, *,
-                  bit_depth: int = 8,
-                  intra_smoothing: bool = False) -> torch.Tensor:
+                  bit_depth: int = 8, intra_smoothing: bool = False,
+                  _max_grid: int = 0) -> torch.Tensor:
     """(B, Hp, Wp) block-aligned int32 residual planes and (B, nb) int32
     modes -> (B, Hp, Wp) int32 recon, as `decode_blocks_reference`
     describes.
@@ -129,37 +183,24 @@ def decode_blocks(residual: torch.Tensor, modes: torch.Tensor, n: int, *,
     grid launch per call, on the current stream (no synchronisation),
     adds one to `decode_blocks.launches` and the grids the C call
     launched to `decode_blocks.grids`; on a CPU tensor it runs the plain
-    version.
+    version.  `_max_grid`, a cap on the grid (0: none), is for the
+    tests of the kernel's schedule on small grids.
     """
     _validate(residual, modes, n, bit_depth)
     if residual.device.type == "cpu":
         return decode_blocks_reference(residual, modes, n, bit_depth=bit_depth,
                                        intra_smoothing=intra_smoothing)
-    b, hp, wp = residual.shape
+    if residual.numel() == 0:
+        return torch.empty_like(residual)
     dev = residual.device
-    recon = torch.empty_like(residual)     # the kernel writes every pixel
-    if recon.numel() == 0:
-        return recon
-    smooth = intra_smoothing and n > 4
-    # the strong filter's flatness threshold (N = 32 only), computed as
-    # the plain version computes it
-    thresh = 1 << (bit_depth - 5) if smooth and n == 32 else 0
     kern = cuda_kernels()
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    kern.ensure_tables(index)
-    # the ticket counter, then one progress flag per block row
-    work = torch.zeros(1 + b * (hp // n), dtype=torch.int32, device=dev)
-    grids = ctypes.c_int(0)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = kern.lib.nhv_wavefront_decode(
-        residual.data_ptr(), modes.data_ptr(), b, hp, wp, n, bit_depth,
-        thresh, filter_mask(n, smooth), recon.data_ptr(), work.data_ptr(),
-        ctypes.addressof(grids), stream, index,
-    )
-    if rc != 0:
-        raise RuntimeError(f"nhv_wavefront_decode failed: CUDA error {rc}")
+    kern.ensure_tables(dev.index if dev.index is not None
+                       else torch.cuda.current_device())
+    recon, grids = _launch(kern.lib, residual, modes, n, bit_depth=bit_depth,
+                           intra_smoothing=intra_smoothing,
+                           max_grid=_max_grid)
     decode_blocks.launches += 1
-    decode_blocks.grids += grids.value
+    decode_blocks.grids += grids
     return recon
 
 

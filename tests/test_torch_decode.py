@@ -9,8 +9,11 @@ block, random levels, a QP per frame, smoothing on and off at N 8, 16
 and 32 (the strong filter included), 10-bit, misaligned geometries.  A
 numpy model of `csrc/decode.cu`'s arithmetic (raster order, the
 availability rule written instead of read, one projection array per
-block) must equal the plain version too, and the decode routes must
-make one `decode_blocks` call a plane batch.  The tolerance is 0.
+block) must equal the plain version too, and so must a numpy model of
+its schedule (groups of W block rows, tagged words handed between rows
+in shared memory, an edge buffer between groups, walked in a random
+order that the polls allow); the decode routes must make one
+`decode_blocks` call a plane batch.  The tolerance is 0.
 """
 
 import numpy as np
@@ -112,28 +115,102 @@ def test_decode_matches_jax_scan(case):
 
 # --- a model of csrc/decode.cu's arithmetic ----------------------------------
 
+class BlockModel:
+    """decode.cu's arithmetic for one block in numpy: the [1 2 1] and
+    strong filters where the mode's bit of `filter_mask` is set, one
+    projection array for the block's mode, a mode outside 0..34 read as 2
+    (below) or 34 (above), the residual added and the sum clipped."""
+
+    def __init__(self, n, bit_depth=8, intra_smoothing=False):
+        self.n = n
+        tab = angle_table().astype(np.int64)
+        self.angles, self.invs = tab[:33], tab[33:]
+        self.mask = kd.filter_mask(n, intra_smoothing and n > 4)
+        self.boundary = 1 << (bit_depth - 1)
+        self.max_pix = (1 << bit_depth) - 1
+        self.thresh = (1 << (bit_depth - 5) if intra_smoothing and n == 32
+                       else 0)
+        self.strong = 0     # blocks that took the strong filter, not flat
+
+    def __call__(self, ref, mode, res):
+        """(4N+2,) references in extract_refs' layout (corner at 0 and at
+        2N+1), the signalled mode, the (N, N) residual -> (N, N) recon."""
+        n = self.n
+        r_, l_ = 2 * n + 1, 3 * n + 1
+        shift = n.bit_length()                  # log2(N) + 1
+        ii, jj = np.mgrid[0:n, 0:n]
+        mode = int(mode)
+        if mode not in (0, 1):
+            mode = min(max(mode, 2), 34)
+        if n > 4 and (self.mask >> mode) & 1:
+            fc = (ref[r_ + 1] + 2 * ref[0] + ref[1] + 2) >> 2
+            fref = np.empty_like(ref)
+            for arm in (0, r_):
+                a = ref[arm:arm + r_]
+                fref[arm] = fc
+                fref[arm + 1:arm + 2 * n] = (a[:-2] + 2 * a[1:-1]
+                                             + a[2:] + 2) >> 2
+                fref[arm + 2 * n] = a[2 * n]
+            c = ref[0]
+            if n == 32 and (
+                    abs(c + ref[2 * n] - 2 * ref[n]) < self.thresh
+                    and abs(c + ref[r_ + 2 * n] - 2 * ref[r_ + n])
+                    < self.thresh):
+                self.strong += (c != ref[2 * n]) or (c != ref[4 * n + 1])
+                k = np.arange(1, 2 * n)
+                for arm in (0, r_):
+                    end = ref[arm + 2 * n]
+                    fref[arm] = c
+                    fref[arm + 1:arm + 2 * n] = (
+                        (2 * n - k) * c + k * end + n) >> shift
+            ref = fref
+        top, left = ref[:r_], ref[r_:]
+        if mode == 0:
+            pred = ((n - 1 - jj) * left[1 + ii] + (jj + 1) * top[n]
+                    + (n - 1 - ii) * top[1 + jj] + (ii + 1) * left[n]
+                    + n) >> shift
+        elif mode == 1:
+            pred = np.full((n, n), (top[1:n + 1].sum()
+                                    + left[1:n + 1].sum() + n) // (2 * n))
+        else:
+            angle = int(self.angles[mode - 2])
+            inv = int(self.invs[mode - 2])
+            vertical = mode >= 18
+            prim, sec = (0, r_) if vertical else (r_, 0)
+            proj = np.empty(l_, np.int64)
+            for e in range(l_):
+                pos = e - n
+                if pos >= 0:
+                    proj[e] = ref[prim + pos]
+                elif angle < 0 and pos >= (n * angle) >> 5:
+                    proj[e] = ref[sec + (((pos + 1) * inv + 128) >> 8)]
+                else:
+                    proj[e] = ref[0]
+            scan, base = (ii, jj) if vertical else (jj, ii)
+            p = (scan + 1) * angle
+            frac = p & 31
+            idx = n + base + 1 + (p >> 5)
+            nxt = proj[np.minimum(idx + 1, 3 * n)]
+            pred = ((32 - frac) * proj[idx] + frac * nxt + 16) >> 5
+        return np.clip(pred + res, 0, self.max_pix)
+
+
 def kernel_model(residual, modes, n, bit_depth=8, intra_smoothing=False):
-    """decode.cu's algorithm in numpy: blocks in raster order (the order
-    its rows advance), references by the availability rule with the
-    extensions written, never read; the [1 2 1] and strong filters where
-    the mode's bit of `filter_mask` is set; one projection array for the
-    block's mode; a mode outside 0..34 read as 2 (below) or 34 (above).
+    """decode.cu's algorithm in numpy, in raster order (each row after
+    the row above, as a row's blocks see their top arms): references by
+    the availability rule with the extensions written, never read, then
+    `BlockModel`'s arithmetic.  `schedule_model` models the order the
+    kernel's threads take: groups of rows, tagged words, the edge buffer.
     Returns (recon (B, Hp, Wp) int64, the blocks that took the strong
     filter with an arm that is not constant)."""
     res = residual.numpy().astype(np.int64)
     modes = modes.numpy().astype(np.int64)
     b, hp, wp = res.shape
     nby, nbx = hp // n, wp // n
-    r_, l_ = 2 * n + 1, 3 * n + 1
-    tab = angle_table().astype(np.int64)
-    angles, invs = tab[:33], tab[33:]
-    mask = kd.filter_mask(n, intra_smoothing and n > 4)
-    boundary, max_pix = 1 << (bit_depth - 1), (1 << bit_depth) - 1
-    thresh = 1 << (bit_depth - 5) if intra_smoothing and n == 32 else 0
-    shift = n.bit_length()                  # log2(N) + 1
-    ii, jj = np.mgrid[0:n, 0:n]
+    r_ = 2 * n + 1
+    block = BlockModel(n, bit_depth, intra_smoothing)
+    boundary = block.boundary
     recon = np.zeros_like(res)
-    strong = 0
     for f in range(b):
         for by in range(nby):
             for bx in range(nbx):
@@ -154,62 +231,199 @@ def kernel_model(residual, modes, n, bit_depth=8, intra_smoothing=False):
                                         if by == nby - 1 else 0)
                 ref[0] = ref[r_] = (boundary if by == 0 or bx == 0
                                     else rec[y0 - 1, x0 - 1])
-                mode = int(modes[f, by * nbx + bx])
-                if mode not in (0, 1):
-                    mode = min(max(mode, 2), 34)
-                if n > 4 and (mask >> mode) & 1:
-                    fc = (ref[r_ + 1] + 2 * ref[0] + ref[1] + 2) >> 2
-                    fref = np.empty_like(ref)
-                    for arm in (0, r_):
-                        a = ref[arm:arm + r_]
-                        fref[arm] = fc
-                        fref[arm + 1:arm + 2 * n] = (a[:-2] + 2 * a[1:-1]
-                                                     + a[2:] + 2) >> 2
-                        fref[arm + 2 * n] = a[2 * n]
-                    c = ref[0]
-                    if n == 32 and (
-                            abs(c + ref[2 * n] - 2 * ref[n]) < thresh
-                            and abs(c + ref[r_ + 2 * n] - 2 * ref[r_ + n])
-                            < thresh):
-                        strong += (c != ref[2 * n]) or (c != ref[4 * n + 1])
-                        k = np.arange(1, 2 * n)
-                        for arm in (0, r_):
-                            end = ref[arm + 2 * n]
-                            fref[arm] = c
-                            fref[arm + 1:arm + 2 * n] = (
-                                (2 * n - k) * c + k * end + n) >> shift
-                    ref = fref
-                top, left = ref[:r_], ref[r_:]
-                if mode == 0:
-                    pred = ((n - 1 - jj) * left[1 + ii] + (jj + 1) * top[n]
-                            + (n - 1 - ii) * top[1 + jj] + (ii + 1) * left[n]
-                            + n) >> shift
-                elif mode == 1:
-                    pred = np.full((n, n), (top[1:n + 1].sum()
-                                            + left[1:n + 1].sum() + n)
-                                   // (2 * n))
-                else:
-                    angle, inv = int(angles[mode - 2]), int(invs[mode - 2])
-                    vertical = mode >= 18
-                    prim, sec = (0, r_) if vertical else (r_, 0)
-                    proj = np.empty(l_, np.int64)
-                    for e in range(l_):
-                        pos = e - n
-                        if pos >= 0:
-                            proj[e] = ref[prim + pos]
-                        elif angle < 0 and pos >= (n * angle) >> 5:
-                            proj[e] = ref[sec + (((pos + 1) * inv + 128) >> 8)]
-                        else:
-                            proj[e] = ref[0]
-                    scan, base = (ii, jj) if vertical else (jj, ii)
-                    p = (scan + 1) * angle
-                    frac = p & 31
-                    idx = n + base + 1 + (p >> 5)
-                    nxt = proj[np.minimum(idx + 1, 3 * n)]
-                    pred = ((32 - frac) * proj[idx] + frac * nxt + 16) >> 5
-                rec[y0:y0 + n, x0:x0 + n] = np.clip(
-                    pred + res[f, y0:y0 + n, x0:x0 + n], 0, max_pix)
-    return recon, strong
+                rec[y0:y0 + n, x0:x0 + n] = block(
+                    ref, modes[f, by * nbx + bx],
+                    res[f, y0:y0 + n, x0:x0 + n])
+    return recon, block.strong
+
+
+TAG_SHIFT = 17         # a shared line word: (tag << 17) | (pixel + 1)
+
+
+def schedule_model(residual, modes, n, bit_depth=8, intra_smoothing=False,
+                   *, rows, grid, seed, tags=32767):
+    """decode.cu's schedule in numpy, its threads' steps taken in a
+    random order (seeded) that the words they poll allow.
+
+    `grid` thread blocks take groups of `rows` block rows of one plane by
+    ticket, (group outer, plane inner), and a new ticket only once every
+    row of their group is done.  A row of a group hands its bottom line
+    to the row below through its thread block's line buffer, words
+    (tag << 17) | (pixel + 1) with the tag 1 + (groups taken - 1) %
+    `tags`, the lines cleared when it wraps and never otherwise; the
+    group's last row hands it to the next group through the edge buffer
+    of pixel + 1 words, zeroed once.  A row goes ahead with block bx once
+    the N words above it carry their tag (or are nonzero), and builds its
+    references from those words, the corner and the left arm it kept,
+    and the availability rule; the recon is written and never read.  It
+    asserts that every word read was written by the block above, with
+    that block's pixel, and that the walk ends with every block done.
+    Returns (recon, blocks that took the strong filter non-flat)."""
+    res = residual.numpy().astype(np.int64)
+    modes = modes.numpy().astype(np.int64)
+    b, hp, wp = res.shape
+    nby, nbx = hp // n, wp // n
+    r_ = 2 * n + 1
+    groups = -(-nby // rows)
+    block = BlockModel(n, bit_depth, intra_smoothing)
+    boundary = block.boundary
+    rng = np.random.default_rng(seed)
+    recon = np.full_like(res, -1)
+    done = np.zeros((b, nby, nbx), bool)
+    # the wrapper's zeroed work buffer: the ticket, then the edge buffer
+    work = np.zeros(kd.work_ints(b, hp, wp, n, rows), np.int64)
+    edge = work[1:].reshape(b, groups - 1, wp)
+    blocks = [dict(lines=rng.integers(0, 1 << 32, (rows - 1, wp)),
+                   local=0, group=None, teams=[]) for _ in range(grid)]
+    for tb in blocks:                   # the kernel clears them first
+        tb["lines"][:] = 0
+    ticket = 0
+
+    def ready(tb, w, team):
+        f, gi = tb["group"]
+        by, bx = gi * rows + w, team["bx"]
+        if by == 0:
+            return True
+        x0 = bx * n
+        if w == 0:
+            return bool((edge[f, gi - 1, x0:x0 + n] != 0).all())
+        return bool((tb["lines"][w - 1, x0:x0 + n] >> TAG_SHIFT
+                     == tb["tag"]).all())
+
+    def step(tb, w, team):
+        f, gi = tb["group"]
+        by, bx = gi * rows + w, team["bx"]
+        y0, x0 = by * n, bx * n
+        ref = np.zeros(2 * r_, np.int64)
+        if by == 0:
+            ref[:r_] = boundary
+        else:
+            if w == 0:
+                top = edge[f, gi - 1, x0:x0 + n] - 1
+            else:
+                top = (tb["lines"][w - 1, x0:x0 + n]
+                       & ((1 << TAG_SHIFT) - 1)) - 1
+            assert done[f, by - 1, bx], "a word read before it was written"
+            assert np.array_equal(top, recon[f, y0 - 1, x0:x0 + n]), (
+                "a word read that the block above did not write")
+            ref[1:n + 1] = top
+            ref[n + 1:r_] = top[n - 1] if bx == nbx - 1 else 0
+        if bx == 0:
+            ref[r_:] = boundary
+        else:
+            ref[r_ + 1:r_ + n + 1] = team["left"]
+            ref[r_ + n + 1:] = team["left"][n - 1] if by == nby - 1 else 0
+        ref[0] = ref[r_] = (boundary if by == 0 or bx == 0
+                            else team["corner"])
+        out = block(ref, modes[f, by * nbx + bx],
+                    res[f, y0:y0 + n, x0:x0 + n])
+        recon[f, y0:y0 + n, x0:x0 + n] = out
+        if by < nby - 1:                # publish the bottom line
+            if w == rows - 1:
+                edge[f, gi, x0:x0 + n] = out[n - 1] + 1
+            else:
+                tb["lines"][w, x0:x0 + n] = ((tb["tag"] << TAG_SHIFT)
+                                             | (out[n - 1] + 1))
+        team["corner"], team["left"] = ref[n], out[:, n - 1]
+        team["bx"] += 1
+        done[f, by, bx] = True
+
+    while True:
+        moves = []
+        for tb in blocks:
+            active = [w for w, team in enumerate(tb["teams"])
+                      if team["bx"] < nbx]
+            if not active and ticket < b * groups:
+                moves.append((tb, None, None))
+            moves += [(tb, w, tb["teams"][w]) for w in active
+                      if ready(tb, w, tb["teams"][w])]
+        if not moves:
+            break
+        tb, w, team = moves[rng.integers(len(moves))]
+        if w is not None:
+            step(tb, w, team)
+            continue
+        tb["local"] += 1
+        tb["tag"] = 1 + (tb["local"] - 1) % tags
+        if tb["local"] > 1 and tb["tag"] == 1:
+            tb["lines"][:] = 0
+        tb["group"] = (ticket % b, ticket // b)
+        ticket += 1
+        gi = tb["group"][1]
+        tb["teams"] = [dict(bx=0 if gi * rows + w < nby else nbx,
+                            corner=boundary, left=None)
+                       for w in range(rows)]
+    assert done.all(), "the schedule stopped with blocks left"
+    return recon, block.strong
+
+
+# (n, smoothing, block rows, block columns, W, grid, batch, bit depth,
+#  DC-only levels, tags): N 4-32, smoothing off and on, row counts that
+# are and are not multiples of W, a batch of 3, grids of 1 to 3, the
+# line tags wrapping, one DC-only N=32 case that takes the strong filter.
+SCHEDULE_CASES = [
+    (4, False, 5, 6, 2, 2, 3, 8, False, 32767),
+    (8, True, 6, 5, 3, 1, 1, 8, False, 32767),
+    (8, False, 7, 4, 4, 3, 3, 10, False, 2),
+    (16, True, 4, 3, 2, 2, 2, 8, False, 32767),
+    (16, False, 5, 3, 4, 1, 1, 8, False, 3),
+    (32, False, 3, 2, 2, 2, 1, 8, False, 32767),
+    (32, True, 4, 1, 3, 2, 3, 10, True, 32767),
+]
+
+
+@pytest.mark.parametrize(
+    "n,smoothing,nby,nbx,rows,grid,batch,bit_depth,dc_only,tags",
+    SCHEDULE_CASES,
+    ids=[f"n{c[0]}{'-smooth' if c[1] else ''}-{c[2]}x{c[3]}-w{c[4]}-g{c[5]}"
+         f"-b{c[6]}{'-dc' if c[8] else ''}{'-wrap' if c[9] < 99 else ''}"
+         for c in SCHEDULE_CASES])
+def test_schedule_model_matches_plain(n, smoothing, nby, nbx, rows, grid,
+                                      batch, bit_depth, dc_only, tags):
+    """The kernel's schedule (groups of W rows, tagged words in the line
+    buffers, the edge buffer between groups) in a random order that its
+    polls allow == the plain diagonal walk, pixel for pixel."""
+    h, w = nby * n, nbx * n
+    levels, modes = adversarial_stream(batch, h, w, n, seed=11 * n + nby,
+                                       sparse=0.9 if n == 32 else 0.5,
+                                       dc_only=dc_only)
+    qps = [22, 37, 30][:batch]
+    res = residual_planes(levels, modes, qps, n, h, w, use_dst=n == 4)
+    modes_t = torch.from_numpy(modes)
+    want = kd.decode_blocks_reference(res, modes_t, n, bit_depth=bit_depth,
+                                      intra_smoothing=smoothing)
+    got, strong = schedule_model(res, modes_t, n, bit_depth, smoothing,
+                                 rows=rows, grid=grid, seed=nby + grid,
+                                 tags=tags)
+    assert np.array_equal(got, want.numpy())
+    if dc_only:
+        assert strong > 0, "no block took the strong filter"
+
+
+@pytest.mark.cuda
+def test_group_rows_fits_shared_memory():
+    """W is the library's default (4, or 2 at N=32) where the plane has
+    the rows and the lines fit, fewer on short or very wide planes, at
+    least 1, and the kernel decodes at the W it chose."""
+    if not torch.cuda.is_available():
+        pytest.skip("W is chosen by the kernel's library, which needs a "
+                    "CUDA card; on the GPU machine chip_smoke.py phase 3f "
+                    "reads it")
+    dev = torch.cuda.current_device()
+    assert [kd.group_rows(n, 1088, 1920, dev) for n in (4, 8, 16, 32)] == [
+        4, 4, 4, 2]
+    assert kd.group_rows(16, 32, 1920, dev) == 2
+    assert kd.group_rows(4, 4, 64, dev) == 1
+    for n, wp in ((4, 20000), (32, 60000), (16, 100000)):
+        rows = kd.group_rows(n, 1088, wp, dev)
+        assert 1 <= rows < kd.group_rows(n, 1088, 1920, dev)
+        levels, modes = adversarial_stream(1, 2 * rows * n + n, wp, n,
+                                           seed=n, sparse=0.9)
+        res = residual_planes(levels, modes, [22], n, 2 * rows * n + n, wp,
+                              use_dst=n == 4).cuda()
+        modes_t = torch.from_numpy(modes).cuda()
+        assert torch.equal(kd.decode_blocks(res, modes_t, n),
+                           kd.decode_blocks_reference(res, modes_t, n))
 
 
 # (n, bit depth, smoothing, blocks (rows, columns), DC-only levels)
@@ -387,12 +601,17 @@ def test_cuda_kernel_matches_plain(n, smoothing):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; on the GPU machine chip_smoke.py "
                     "phase 3f runs this check")
-    levels, modes = adversarial_stream(3, 3 * n, 5 * n, n, seed=n,
-                                       sparse=0.9 if n == 32 else 0.5)
-    res = residual_planes(levels, modes, [22, 30, 37], n, 3 * n, 5 * n,
-                          use_dst=n == 4).cuda()
-    modes_t = torch.from_numpy(modes).cuda()
-    got = kd.decode_blocks(res, modes_t, n, intra_smoothing=smoothing)
-    want = kd.decode_blocks_reference(res, modes_t, n,
-                                      intra_smoothing=smoothing)
-    assert torch.equal(got, want)
+    # 3 block rows (one group), and 11, which W (4, or 2 at N=32) does
+    # not divide
+    for nby in (3, 11):
+        assert nby == 3 or nby % kd.group_rows(n, nby * n, 5 * n,
+                                               torch.cuda.current_device())
+        levels, modes = adversarial_stream(3, nby * n, 5 * n, n, seed=n,
+                                           sparse=0.9 if n == 32 else 0.5)
+        res = residual_planes(levels, modes, [22, 30, 37], n, nby * n, 5 * n,
+                              use_dst=n == 4).cuda()
+        modes_t = torch.from_numpy(modes).cuda()
+        got = kd.decode_blocks(res, modes_t, n, intra_smoothing=smoothing)
+        want = kd.decode_blocks_reference(res, modes_t, n,
+                                          intra_smoothing=smoothing)
+        assert torch.equal(got, want)
