@@ -33,7 +33,17 @@ over a 16-frame file at batch 8.  It checks them end to end:
    and three lambda scales, 8/10/12-bit, both dequant modes and the four
    QPs on a 135x240 and a 45x200 crop, then the 1080p luma plane under
    RDOQ and with the smoothed search, three more times each, each equal
-   to the first; the fused blocks kernel
+   to the first; the RD closed loop's kernel (3h), DC/planar and the 35
+   modes at N 4 DST, 4, 8, 16 and 32 with smoothing off and on, RDOQ
+   rotated over every scan and three lambda scales, 8/10/12-bit, both
+   dequant modes and the four QPs on a 135x240 and a 45x200 crop at
+   batch 1 and 2, then the 1080p luma plane at N=8 under both mode sets
+   and 7d's RD batches (8 1080p luma planes at N=8, 16 540x960 chroma
+   planes at N=4), == the plain loop and three more times each == the
+   first, and its
+   prices against the host's over every pair of counts with n <= 4096
+   and 10^7 seeded pairs up to 2^21, 0 bits differing; the fused blocks
+   kernel
    (3e) over N 4-32, 8/10-bit and
    the four QPs on two 1080p planes and a 45x200 plane, and against the
    slab kernel (DCT, parity) on the 1080p plane's full block rows.  The
@@ -101,32 +111,39 @@ over a 16-frame file at batch 8.  It checks them end to end:
    `decode_frame`'s split (host parse, device busy share), each row of
    what the kernel took over from the XLA scan per 1080p luma plane at
    N=8 through a CUDA graph beside the plain loop and its bound (6g),
-   and the sequence
+   the RD kernel per 1080p luma plane at every N under both mode sets
+   through a CUDA graph, at N=8 beside the empty-body kernel with the
+   same grid and barriers, its bound and the plain loop (6h), and the
+   sequence
    under all four configs (6f: throughput, stages, whether drain
    overlaps the next batch, device busy share, entropy_tiles=4,
    `decode_sequence`);
-7. runs the RD stages, plain PyTorch on the card as the JAX package
-   runs them on its XLA path, except the closed loop's RDOQ, which runs
-   in the wavefront kernel (one launch a plane, no plain-loop entry; the
-   open loop's RD stages and decision="rd" launch no kernel): 7a the
-   1080p frame under rdo_cbf+rdoq (default and mode search) and
-   decision="rd", each equal to the port on the CPU (recon, levels,
-   modes, nnz, bytes), with its frame call and device part; 7b the
-   35-mode RD decision (open loop) and the closed loop with RDOQ and
-   with decision="rd" on a 256x256 and a 138x250 crop, card == CPU;
-   7c both closed-loop RD encodes at 1080p (RDOQ's frame call also
-   warm), decoded on the card pixel for pixel; 7d 16-frame sequences
-   at batch 8 with rdo_cbf+rdoq (open loop) and rdoq (closed loop),
-   every frame equal to its single-frame encode, bytes and mean
-   Y-PSNR beside the runs without RD; 7e the CLI's `encode --rdo
-   --rdoq` and `encode --decision rd`, bytes equal to the API's;
+7. runs the RD stages: the open loop's plain PyTorch on the card as
+   the JAX package runs them on its XLA path (no kernel launch); the
+   closed loop's RDOQ in the wavefront kernel and its decision="rd" in
+   the RD kernel (one launch an encode_planes_closed_loop call, no
+   plain-loop entry): 7a the 1080p frame under rdo_cbf+rdoq (default
+   and mode search) and decision="rd", each equal to the port on the
+   CPU (recon, levels, modes, nnz, bytes), with its frame call and
+   device part; 7b the 35-mode RD decision (open loop) and the closed
+   loop with RDOQ, with decision="rd" (DC/planar, the 35 modes with
+   smoothing and RDOQ, a fixed chroma mode set on the wavefront
+   kernel's fixed body) on a 256x256 and a 138x250 crop, card == CPU,
+   each closed-loop stream decoded on the card to its recon; 7c both
+   closed-loop RD encodes at 1080p, == the CPU, frame call first and
+   warm, decoded on the card pixel for pixel; 7d 16-frame sequences at
+   batch 8 with rdo_cbf+rdoq (open loop), rdoq and decision="rd"
+   (closed loop), every frame equal to its single-frame encode, bytes
+   and mean Y-PSNR beside the runs without RD; 7e the CLI's `encode
+   --rdo --rdoq` and `encode --decision rd`, bytes equal to the API's;
 8. runs the in-loop filters, which launch no kernel of their own (plain
    PyTorch on the card, as the JAX package runs them on XLA) after the
    wavefront kernel: 8a the closed loop with deblock, sao, sao_ctb
    (tiles of 32 and 64), deblock+sao and deblock+sao_ctb under the
    default config and the mode search, and deblock+sao_ctb at 10 bits,
    on a 256x256 and a 138x250 crop, and deblock+sao_ctb with RDOQ and
-   with decision="rd" on the 138x250 crop: card == CPU in recon and
+   with decision="rd" (the RD kernel once a plane, no plain-loop entry)
+   on the 138x250 crop: card == CPU in recon and
    bytes, each stream decoded on the card to its recon; 8b the 1080p frame with deblock+sao and deblock+sao_ctb
    under both configs: the wavefront kernel launches once a plane and
    nothing else launches, the stream decodes on the card to the recon,
@@ -159,7 +176,8 @@ over a 16-frame file at batch 8.  It checks them end to end:
 Prints one JSON line of kernel results before the last line (the
 wavefront kernel has an entry per body, each with its launches, and one
 for each row of what it took over from JAX's XLA scan, SCAN_ROWS, whose
-launches are 4i's and 7b-7d's; the
+launches are 4i's and 7b-7d's; the RD kernel has an entry per mode
+set, whose launches are 7b-7d's and 8a's; the
 decode kernel's entry counts the decode gates' launches), and
 as the last line {"ok": true, "device": {...}}.  Exits non-zero, without that
 line, when there is no CUDA card or a phase fails.
@@ -170,7 +188,7 @@ SXM's float32 rate outside the tensor cores, which no int32 add or
 multiply exceeds), counted per pixel as `kernel_bound` (`fused_bound`
 for the fused blocks kernel, `decode_bound` for the decode kernel,
 `scan_bound` for the XLA scan's rows, RDOQ's float32 operations at the
-same rate) says.
+same rate, `rd_bound` for the RD kernel) says.
 """
 
 from __future__ import annotations
@@ -218,6 +236,8 @@ try:
         wavefront_encode_planes,
         wavefront_encode_planes_reference,
     )
+    from nanohevc_tpu_torch.kernels import wavefront_rd as krd
+    from nanohevc_tpu_torch.ops import rate
     from nanohevc_tpu_torch.models import sequence as seq
     from nanohevc_tpu_torch.models import wavefront as torch_wf
     from nanohevc_tpu_torch.models.all_intra import (
@@ -253,6 +273,20 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 H, W = 1080, 1920
 SEED = 0
 MODE_SEARCH = EncoderConfig(mode_set="all", decision="satd")
+
+
+def rd_plain(planes, qp, n, *, mode_set="dc_planar", bit_depth=8,
+             use_dst=False, dequant_rescale=False, intra_smoothing=False,
+             rdoq=False, scan="diag", rd_lambda_scale=1.0):
+    """The RD kernel's plain version, `_encode_planes_rd` (looked up by
+    name at the call), with the wrapper's keywords."""
+    return torch_wf._encode_planes_rd(
+        planes, qp, n, mode_set=mode_set, use_dst=use_dst,
+        bit_depth=bit_depth, scan=scan, dequant_rescale=dequant_rescale,
+        intra_smoothing=intra_smoothing, rdoq=rdoq,
+        rd_lambda_scale=rd_lambda_scale)
+
+
 # (kernel wrapper, plain version, source, TPU kernel(s) it replaces)
 KERNELS = {
     "slab_encode_plane": (
@@ -278,6 +312,13 @@ KERNELS = {
         fused_encode_blocks, fused_encode_blocks_reference,
         "nanohevc_tpu_torch/csrc/fused_pipeline.cu",
         "nanohevc_tpu/kernels/fused_pipeline.py:136",
+    ),
+    "wavefront_rd_encode_planes": (
+        krd.wavefront_rd_encode_planes, rd_plain,
+        "nanohevc_tpu_torch/csrc/wavefront_rd.cu",
+        "nanohevc_tpu/models/wavefront.py:368 (the decision=\"rd\" branch "
+        "of encode_planes_closed_loop's jax.lax.scan, vmapped over frames "
+        "at :421; an XLA scan, no Pallas kernel)",
     ),
     "decode_blocks": (
         decode_blocks, decode_blocks_reference,
@@ -320,6 +361,12 @@ SCAN_ROWS = {
 # Main-path launches of each row (4i, 7b-7d), from the wrapper's
 # launches_by_config.
 SCAN_LAUNCHES = dict.fromkeys(SCAN_ROWS, 0)
+# The RD closed loop's kernel: its kernels-line rows by mode set, and
+# their main-path launches (7b-7d, 8a), from the wrapper's
+# launches_by_config.
+RD_SETS = {"dc_planar": "wavefront_rd_encode_planes",
+           "all": "wavefront_rd_encode_planes (35 modes)"}
+RD_LAUNCHES = dict.fromkeys(RD_SETS, 0)
 
 
 def log(*args):
@@ -432,6 +479,7 @@ def reset_launches() -> None:
     for name in KERNELS:
         KERNELS[name][0].launches = 0
     wavefront_encode_planes.launches_by_config.clear()
+    krd.wavefront_rd_encode_planes.launches_by_config.clear()
 
 
 def scan_row(mode_set: str, decision: str, smoothing: bool, rdoq: bool):
@@ -1150,6 +1198,215 @@ def phase_wavefront_scan_vs_plain(dev) -> dict:
         f"QP 0/22/37/51; {cases_s:.1f} s), 0 values differing; at full "
         f"size == plain and three repeats == the first: {'; '.join(done)}")
     return worst
+
+
+# --- the RD closed loop's kernel (3h, the price sweep, 6h) -------------------
+
+def phase_wavefront_rd_vs_plain(dev) -> dict:
+    """3h: the RD closed loop's kernel == its plain loop
+    (`_encode_planes_rd`) on the card, 0 values differing in recon,
+    levels and modes: DC/planar and the 35 modes at N 4 DST, 4, 8, 16
+    and 32, each with smoothing off and on; RDOQ rotated over the cases
+    (off and every scan) with lambda scales 1, 2.5 and 0.5; 8/10/12-bit
+    and the dequant rescale rotated; QP 0/22/37/51 rotated; a 135x240
+    and a 45x200 crop (padded), each at batch 1 and 2.  Then,
+    each against the plain loop and run three more times, each == the
+    first: the 1080p luma plane at N=8 under each mode set, and 7d's
+    batches under decision="rd" as encode_sequence gives them, a batch's
+    8 luma planes (1080p, N=8) and its 16 chroma planes (540x960, N=4).
+    Returns the worst error by mode set."""
+    kernel = krd.wavefront_rd_encode_planes
+    rng = np.random.default_rng(SEED + 9)
+    sizes = ((4, True), (4, False), (8, False), (16, False), (32, False))
+    rdoq_scans = (None, "diag", "horizontal", "vertical", "mode")
+    combos = [(bd, rs) for bd in (8, 10, 12) for rs in (False, True)]
+    cases = []
+    t = 0
+    for mode_set in RD_SETS:
+        for n, use_dst in sizes:
+            for smoothing in (False, True):
+                bd, rescale = combos[t % len(combos)]
+                cases.append((((H // 8, W // 8), (45, 200))[t % 2],
+                              (1, 2)[(t // 2) % 2], mode_set, n, use_dst,
+                              (0, 22, 37, 51)[t % 4], bd, rescale, smoothing,
+                              rdoq_scans[t % 5], (1.0, 2.5, 0.5)[t % 3]))
+                t += 1
+    planes = {}
+    worst = dict.fromkeys(RD_SETS, 0)
+    grids = set()
+    t0 = time.perf_counter()
+    for (shape, batch, mode_set, n, use_dst, qp, bd, rescale, smoothing,
+         scan, scale) in cases:
+        key = (shape, bd, batch, n)
+        if key not in planes:
+            planes[key] = stacked_planes(shape, bd, batch, n, dev, rng)
+        kw = dict(mode_set=mode_set, bit_depth=bd, use_dst=use_dst,
+                  dequant_rescale=rescale, intra_smoothing=smoothing,
+                  rdoq=scan is not None, scan=scan or "diag",
+                  rd_lambda_scale=scale)
+        got = kernel(planes[key], qp, n, **kw)
+        want = rd_plain(planes[key], qp, n, **kw)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err:
+            raise SystemExit(
+                f"wavefront_rd_encode_planes != plain at {shape} batch "
+                f"{batch} {mode_set} N={n} dst={use_dst} bd={bd} rescale="
+                f"{rescale} qp={qp} smoothing={smoothing} rdoq scan={scan} "
+                f"scale={scale}: max abs err {err}")
+        worst[mode_set] = max(worst[mode_set], err)
+    cases_s = time.perf_counter() - t0
+    y = stacked_planes((H, W), 8, 1, 8, dev, rng)
+    full = [(f"1080p luma N=8 {mode_set}", y, 8, dict(mode_set=mode_set))
+            for mode_set in RD_SETS]
+    seq_cfg = EncoderConfig(decision="rd")    # 7d's RD closed-loop run
+    for is_luma, shape, batch in ((True, (H, W), SEQ_BATCH),
+                                  (False, (H // 2, W // 2), 2 * SEQ_BATCH)):
+        args = torch_wf.plane_args(seq_cfg, is_luma)
+        kw = {k: args[k] for k in ("mode_set", "bit_depth", "use_dst",
+                                   "dequant_rescale", "intra_smoothing",
+                                   "rdoq", "scan")}
+        full.append((f"7d's {'luma' if is_luma else 'chroma'} batch, {batch} "
+                     f"{shape[0]}x{shape[1]} planes N={args['n']} "
+                     f"{args['mode_set']}",
+                     stacked_planes(shape, 8, batch, args["n"], dev, rng),
+                     args["n"], kw))
+    done = []
+    for label, planes, n, kw in full:
+        t1 = time.perf_counter()
+        first = kernel(planes, 22, n, **kw)
+        want = rd_plain(planes, 22, n, **kw)
+        torch.cuda.synchronize()
+        err = max_abs_err(first, want)
+        if err:
+            raise SystemExit(f"wavefront_rd_encode_planes {label}: != plain, "
+                             f"max abs err {err}")
+        for rep in range(3):
+            again = kernel(planes, 22, n, **kw)
+            torch.cuda.synchronize()
+            if max_abs_err(again, first):
+                raise SystemExit(f"wavefront_rd_encode_planes {label}: repeat "
+                                 f"{rep + 1} differs from the first run")
+        modes_used = int((torch.bincount(first["modes"].flatten().long(),
+                                         minlength=35) > 0).sum())
+        done.append(f"{label} ({modes_used} modes used; "
+                    f"{time.perf_counter() - t1:.1f} s)")
+    log(f"[3h] wavefront_rd_encode_planes == plain on CUDA in {len(cases)} "
+        f"cases (DC/planar and 35 modes x N 4 DST/4/8/16/32 x smoothing "
+        f"off/on; RDOQ off and in every scan, lambda scales 1/2.5/0.5; "
+        f"8/10/12-bit; both dequant modes; QP 0/22/37/51; 135x240 and "
+        f"45x200 at batch 1 and 2; {cases_s:.1f} s), 0 values differing; "
+        f"at full size == plain and three repeats == the first: "
+        f"{'; '.join(done)}")
+    return worst
+
+
+def all_count_pairs(top: int) -> tuple:
+    """Every (n1, n) with 0 <= n1 <= n <= top, as int64 arrays."""
+    n = np.repeat(np.arange(top + 1), np.arange(1, top + 2))
+    starts = np.concatenate([[0], np.cumsum(np.arange(1, top + 1))])
+    return np.arange(n.size) - starts[n], n
+
+
+def phase_rd_prices(dev, gpu: str) -> None:
+    """The device's per-context prices (the function the RD kernel
+    prices every context with) against the host's `ops.rate._prices` on
+    this machine, 0 bits differing: every (n1, n) with n <= 4096, then
+    10^7 seeded pairs with n up to 2^21."""
+    rng = np.random.default_rng(SEED + 11)
+    n_r = rng.integers(0, (1 << 21) + 1, 10 ** 7)
+    n1_r = np.minimum((rng.random(n_r.size) * (n_r + 1)).astype(np.int64),
+                      n_r)
+    sweeps = {"every pair with n <= 4096": all_count_pairs(4096),
+              "10^7 seeded pairs, n <= 2^21": (n1_r, n_r)}
+    t0 = time.perf_counter()
+    dev_s = 0.0
+    parts = []
+    for label, (n1, n) in sweeps.items():
+        bad = 0
+        examples = []
+        for s0 in range(0, n.size, 1 << 22):
+            a1, a = n1[s0:s0 + (1 << 22)], n[s0:s0 + (1 << 22)]
+            t1 = time.perf_counter()
+            got = krd.device_prices(
+                torch.from_numpy(a1.astype(np.int32)).to(dev),
+                torch.from_numpy(a.astype(np.int32)).to(dev))
+            got = [g.cpu().numpy() for g in got]
+            dev_s += time.perf_counter() - t1
+            want = rate._prices(a1.astype(np.float32), a.astype(np.float32))
+            for g, w_ in zip(got, want):
+                diff = g.view(np.int32) != w_.view(np.int32)
+                bad += int(diff.sum())
+                for k in np.flatnonzero(diff)[:4]:
+                    examples.append((int(a1[k]), int(a[k]), float(w_[k]),
+                                     float(g[k])))
+        if bad:
+            raise SystemExit(f"device prices differ from the host's in {bad} "
+                             f"values over {label}; (n1, n, host, device): "
+                             f"{examples[:8]}")
+        parts.append(f"{label} ({n.size} pairs)")
+    log(f"[3h] RD price sweep: device prices == the host's _prices bit for "
+        f"bit (ones and zeros) over {'; '.join(parts)} "
+        f"({time.perf_counter() - t0:.1f} s, {dev_s:.1f} s of it device "
+        f"calls and copies) [{gpu}]")
+
+
+def rd_bound(mode_set: str, n: int, pixels: int, diagonals: int) -> tuple:
+    """(bound ms, "bytes" or "operations") of one RD closed-loop encode
+    of `pixels` pixels at block size n over `diagonals` anti-diagonals:
+    bytes as kernel_bound's (12 a pixel, 4 a block); operations a pixel,
+    for each of the 2 (35) candidates the transform tail 8N + 18 plus 40
+    (prediction and residual 10, SSE 2, bin counts 8, its bits 20), and
+    the chosen block's tail 8N + 18 again; and the prices, 45 contexts of
+    4 float64 transcendentals at about 20 operations, once a batch and
+    diagonal, as the function needs them (the kernel prices them again
+    in each thread block of phase B: that repetition is its own cost)."""
+    cands, batches = (35, 2) if mode_set == "all" else (2, 1)
+    ops = ((cands * (8 * n + 18 + 40) + 8 * n + 18) * pixels
+           + batches * 45 * 4 * 20 * diagonals)
+    t_bytes = (12 * pixels + 4 * pixels // (n * n)) / 3.35e12 * 1e3
+    t_ops = ops / 67e12 * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rd_times(dev, gpu: str) -> dict:
+    """6h: the RD kernel per seeded 1080p luma plane at N 4 (DST), 8, 16
+    and 32, QP 22, under each mode set; at N=8 beside it the empty-body
+    kernel with the same grid and barriers, the bound and the plain
+    loop once.  Returns {mode_set: (kernel ms, plain ms)} at N=8."""
+    kernel = krd.wavefront_rd_encode_planes
+    rng = np.random.default_rng(SEED + 1)
+    out = {}
+    for n, use_dst in ((4, True), (8, False), (16, False), (32, False)):
+        y = stacked_planes((H, W), 8, 1, n, dev, rng)
+        depth = y.shape[1] // n + y.shape[2] // n - 1
+        for mode_set in RD_SETS:
+            kw = dict(mode_set=mode_set, use_dst=use_dst)
+            k_ms = graph_ms(lambda: kernel(y, 22, n, **kw), iters=3,
+                            replays=3)
+            bound_ms, by = rd_bound(mode_set, n, H * W, depth)
+            line = (f"[6h] {RD_SETS[mode_set]} 1080p luma N={n}"
+                    f"{' DST' if use_dst else ''}: kernel {k_ms:.4f} ms "
+                    f"(CUDA graph; {depth} diagonals, {2 * depth} grid "
+                    f"barriers, "
+                    f"{1e3 * k_ms / depth:.2f} us a diagonal), bound "
+                    f"{1e3 * bound_ms:.2f} us ({by}, "
+                    f"{100 * bound_ms / k_ms:.3f} % of it)")
+            if n == 8:
+                blocks = krd.barriers_only(y, n, mode_set)
+                b_ms = graph_ms(lambda: krd.barriers_only(y, n, mode_set),
+                                iters=3, replays=3)
+                t1 = time.perf_counter()
+                rd_plain(y, 22, n, **kw)
+                torch.cuda.synchronize()
+                p_ms = 1e3 * (time.perf_counter() - t1)
+                out[mode_set] = (k_ms, p_ms)
+                line += (f"; empty body, same grid ({blocks} thread blocks) "
+                         f"and barriers {b_ms:.4f} ms (CUDA graph; "
+                         f"{100 * b_ms / k_ms:.1f} % of the kernel); plain "
+                         f"loop {p_ms:.1f} ms")
+            log(line + f" [{gpu}]")
+    return out
 
 
 def phase_closed_loop(dev, frame: Frame, config: EncoderConfig, tag: str):
@@ -2373,6 +2630,11 @@ RD_CROP_CONFIGS = {
         EncoderConfig(mode_set="all", decision="rd"), False),
     "rdoq (closed loop)": (EncoderConfig(rdoq=True), True),
     'decision="rd" (closed loop)': (EncoderConfig(decision="rd"), True),
+    'mode_set="all", decision="rd", smoothing, rdoq (closed loop)': (
+        EncoderConfig(mode_set="all", decision="rd", intra_smoothing=True,
+                      rdoq=True), True),
+    'decision="rd", chroma_mode_set="dc" (closed loop)': (
+        EncoderConfig(decision="rd", chroma_mode_set="dc"), True),
 }
 # Results of the non-RD sequence runs (4f, 4g), printed beside 7d's.
 SEQ_RESULTS = {}
@@ -2402,6 +2664,47 @@ def wavefront_calls(what: str, calls: int, entries: PlainLoopEntries) -> None:
         raise SystemExit(f"{what} launched {launches} with {entries.count} "
                          f"plain-loop entries; expected {want} and none")
     add_scan_launches()
+
+
+def rd_planes(cfg: EncoderConfig) -> tuple:
+    """(RD kernel launches, wavefront launches) of one closed-loop frame
+    under decision="rd": a plane whose mode set is decided (dc_planar,
+    all) runs the RD kernel, a fixed mode set the wavefront kernel's
+    fixed body."""
+    rd = sum(plane_args(cfg, is_luma)["mode_set"] in RD_SETS
+             for is_luma in (True, False, False))
+    return rd, 3 - rd
+
+
+def rd_calls(what: str, rd: int, wavefront: int,
+             entries: PlainLoopEntries) -> None:
+    """The closed loop under decision="rd": the RD kernel exactly once
+    per encode_planes_closed_loop call of a decided mode set (`rd` since
+    the counts were reset), the wavefront kernel `wavefront` times, no
+    other kernel, and no plain-loop entry.  Adds the launches to the
+    kernels-line rows."""
+    launches = read_launches()
+    want = {k: rd if k == "wavefront_rd_encode_planes" else
+            wavefront if k == "wavefront_encode_planes" else 0
+            for k in KERNELS}
+    if launches != want or entries.count:
+        raise SystemExit(f"{what} launched {launches} with {entries.count} "
+                         f"plain-loop entries; expected {want} and none")
+    for (mode_set, _, _), count in \
+            krd.wavefront_rd_encode_planes.launches_by_config.items():
+        RD_LAUNCHES[mode_set] += count
+    add_scan_launches()
+
+
+def closed_rd(what: str, frame: Frame, cfg: EncoderConfig, dev) -> tuple:
+    """encode_frame_closed_loop under decision="rd" on the card with
+    every count at 0, gated by rd_calls; returns (recon, bytes)."""
+    reset_launches()
+    with PlainLoopEntries() as entries:
+        out = encode_frame_closed_loop(frame, cfg, device=dev)
+        torch.cuda.synchronize()
+    rd_calls(what, *rd_planes(cfg), entries)
+    return out
 
 
 def phase_rd_open(dev, frame: Frame, gpu: str) -> dict:
@@ -2449,29 +2752,34 @@ def phase_rd_open(dev, frame: Frame, gpu: str) -> dict:
 
 
 def phase_rd_crops(dev, frame: Frame, gpu: str) -> None:
-    """7b: the 35-mode RD decision (open loop) and the closed loop with
-    RDOQ and with decision="rd" on a 256x256 crop and a 138x250 one
-    (not block-aligned): card == CPU, bytes and recon; RDOQ through the
-    wavefront kernel (one launch a plane), the RD decisions with no
-    kernel launch."""
+    """7b: the 35-mode RD decision (open loop, no kernel launch) and the
+    closed loop with RDOQ (the wavefront kernel, one launch a plane) and
+    with decision="rd" (DC/planar; the 35 modes with smoothing and RDOQ;
+    a fixed chroma mode set: the RD kernel once a decided plane, the
+    wavefront kernel's fixed body once a fixed one) on a 256x256 crop and
+    a 138x250 one (not block-aligned): card == CPU, bytes and recon; the
+    closed loop's streams decode on the card to their recon."""
     for h, w in ((256, 256), (138, 250)):
         small = crop(frame, h, w)
         for label, (cfg, closed) in RD_CROP_CONFIGS.items():
             reset_launches()
             t0 = time.perf_counter()
             if closed:
-                with PlainLoopEntries() as entries:
-                    card = encode_frame_closed_loop(small, cfg, device=dev)
-                    torch.cuda.synchronize()
-                card_s = time.perf_counter() - t0
-                if cfg.rdoq:            # the wavefront kernel, Y, U, V
+                if cfg.decision == "rd":
+                    card = closed_rd(f"[7b] {label}", small, cfg, dev)
+                else:
+                    with PlainLoopEntries() as entries:
+                        card = encode_frame_closed_loop(small, cfg,
+                                                        device=dev)
+                        torch.cuda.synchronize()
                     wavefront_calls(label, 3, entries)
-                else:                   # decision="rd": the slot batches
-                    no_launches(label)
+                card_s = time.perf_counter() - t0
                 cpu = encode_frame_closed_loop(small, cfg, device="cpu")
-                same = card[1] == cpu[1] and all(
-                    np.array_equal(getattr(card[0], p).data,
-                                   getattr(cpu[0], p).data) for p in "yuv")
+                decoded = counted_decode(
+                    f"[7b] {label} decode_frame", 3,
+                    lambda: decode_frame(card[1], device=dev))
+                same = card[1] == cpu[1] and same_frames(card[0], cpu[0]) \
+                    and same_frames(decoded, card[0])
                 size = len(card[1])
             else:
                 card = encode_frame_full(small, cfg, device=dev)
@@ -2491,37 +2799,39 @@ def phase_rd_crops(dev, frame: Frame, gpu: str) -> None:
 
 def phase_rd_closed_full(dev, frame: Frame, gpu: str) -> None:
     """7c: the closed loop with RDOQ (the wavefront kernel, one launch a
-    plane, no plain-loop entry; recon and bytes == the port on the CPU)
-    and with decision="rd" (no kernel launch) on the 1080p frame on the
-    card; each stream decodes on the card to the recon pixel for pixel;
-    the frame call, first and warm (median of 3)."""
+    plane) and with decision="rd" (the RD kernel, one launch a plane) on
+    the 1080p frame on the card, no plain-loop entry; recon and bytes ==
+    the port on the CPU; each stream decodes on the card to the recon
+    pixel for pixel; the frame call, first and warm (median of 3)."""
     for label, cfg in (("rdoq", EncoderConfig(rdoq=True)),
                        ('decision="rd"', EncoderConfig(decision="rd"))):
-        reset_launches()
         t0 = time.perf_counter()
-        with PlainLoopEntries() as entries:
-            recon, bits = encode_frame_closed_loop(frame, cfg, device=dev)
-            torch.cuda.synchronize()
-        enc_s = time.perf_counter() - t0
-        if cfg.rdoq:
-            wavefront_calls(f"closed loop ({label})", 3, entries)
+        if cfg.decision == "rd":
+            recon, bits = closed_rd(f"[7c] closed loop ({label})", frame,
+                                    cfg, dev)
         else:
-            no_launches(f"closed loop ({label})")
-        warm = ""
-        if cfg.rdoq:    # the kernel's frame == the plain loop's on the CPU
+            reset_launches()
+            with PlainLoopEntries() as entries:
+                recon, bits = encode_frame_closed_loop(frame, cfg,
+                                                       device=dev)
+                torch.cuda.synchronize()
+            wavefront_calls(f"closed loop ({label})", 3, entries)
+        enc_s = time.perf_counter() - t0
+        # the kernel's frame == the plain loop's on the CPU
+        t0 = time.perf_counter()
+        cpu = encode_frame_closed_loop(frame, cfg, device="cpu")
+        if cpu[1] != bits or not same_frames(cpu[0], recon):
+            raise SystemExit(f"closed loop ({label}): the card differs "
+                             "from the CPU")
+        cpu_s = time.perf_counter() - t0
+        walls = []
+        for _ in range(3):
             t0 = time.perf_counter()
-            cpu = encode_frame_closed_loop(frame, cfg, device="cpu")
-            if cpu[1] != bits or not same_frames(cpu[0], recon):
-                raise SystemExit(f"closed loop ({label}): the card differs "
-                                 "from the CPU")
-            warm = (f", == the CPU in recon and bytes (CPU "
-                    f"{time.perf_counter() - t0:.1f} s)")
-            walls = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                encode_frame_closed_loop(frame, cfg, device=dev)
-                walls.append(time.perf_counter() - t0)
-            warm += f", warm {1e3 * sorted(walls)[1]:.2f} ms (median of 3)"
+            encode_frame_closed_loop(frame, cfg, device=dev)
+            walls.append(time.perf_counter() - t0)
+        warm = (f", == the CPU in recon and bytes (CPU {cpu_s:.1f} s), "
+                f"warm frame call {1e3 * sorted(walls)[1]:.2f} ms (median "
+                f"of 3)")
         t0 = time.perf_counter()
         decoded = counted_decode(f"[7c] {label} decode_frame", 3,
                                  lambda: decode_frame(bits, device=dev))
@@ -2541,27 +2851,33 @@ def phase_rd_closed_full(dev, frame: Frame, gpu: str) -> None:
 def phase_rd_sequences(dev, tmp: str, src: str, frames: list,
                        gpu: str) -> dict:
     """7d: encode_sequence of the 16-frame 1080p file at batch 8 with
-    rdo_cbf+rdoq (open loop, no kernel launch) and rdoq (closed loop:
-    the wavefront kernel once a batch's luma and once its chroma stack,
-    one launch a plane in the single-frame encodes, no plain-loop entry):
-    every frame parses back to its single-frame encode on the card;
-    bytes and mean Y-PSNR beside the same runs without RD (4f, 4g)."""
+    rdo_cbf+rdoq (open loop, no kernel launch), rdoq (closed loop: the
+    wavefront kernel once a batch's luma and once its chroma stack, one
+    launch a plane in the single-frame encodes) and decision="rd"
+    (closed loop: the RD kernel alike), no plain-loop entry: every frame
+    parses back to its single-frame encode on the card; bytes and mean
+    Y-PSNR beside the same runs without RD (4f, 4g)."""
     out = {}
     for label, cfg, closed, base in (
             ("open loop, rdo_cbf+rdoq", EncoderConfig(rdo_cbf=True, rdoq=True),
              False, "default"),
             ("closed loop, rdoq", EncoderConfig(rdoq=True), True,
+             "closed loop default"),
+            ('closed loop, decision="rd"', EncoderConfig(decision="rd"), True,
              "closed loop default")):
-        bits = os.path.join(tmp, f"rd_{int(closed)}.bin")
+        rd = cfg.decision == "rd"
+        bits = os.path.join(tmp, f"rd_{len(out)}.bin")
         reset_launches()
         t0 = time.perf_counter()
         with PlainLoopEntries() as entries:
             res = run_sequence(dev, src, bits, cfg, closed)
             torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        if closed:      # one launch a batch's luma, one its chroma stack
-            wavefront_calls(f"sequence ({label})",
-                            2 * -(-SEQ_FRAMES // SEQ_BATCH), entries)
+        batch_calls = 2 * -(-SEQ_FRAMES // SEQ_BATCH)
+        if rd:          # one launch a batch's luma, one its chroma stack
+            rd_calls(f"sequence ({label})", batch_calls, 0, entries)
+        elif closed:
+            wavefront_calls(f"sequence ({label})", batch_calls, entries)
         else:
             no_launches(f"sequence ({label})")
         parsed = seq.decode_sequence_levels(bits)
@@ -2578,7 +2894,10 @@ def phase_rd_sequences(dev, tmp: str, src: str, frames: list,
                     raise SystemExit(f"RD sequence ({label}) frame {i} "
                                      "differs from its single-frame encode")
         frames_s = time.perf_counter() - t1
-        if closed:
+        if rd:
+            rd_calls(f"single-frame encodes ({label})", 3 * len(frames), 0,
+                     entries)
+        elif closed:
             wavefront_calls(f"single-frame encodes ({label})",
                             3 * len(frames), entries)
         else:
@@ -2674,7 +2993,10 @@ def phase_filters_crops(dev, frame: Frame, gpu: str) -> None:
                   EncoderConfig(deblock=True, sao_ctb=True, decision="rd")))
     sizes = {}
     for label, small, cfg in cases:
-        card = encode_frame_closed_loop(small, cfg, device=dev)
+        if cfg.decision == "rd":
+            card = closed_rd(f"[8a] {label}", small, cfg, dev)
+        else:
+            card = encode_frame_closed_loop(small, cfg, device=dev)
         cpu = encode_frame_closed_loop(small, cfg, device="cpu")
         if card[1] != cpu[1] or not same_frames(card[0], cpu[0]):
             raise SystemExit(f"8a: {label} on a {small.height}x{small.width} "
@@ -3204,8 +3526,11 @@ def main() -> int:
         "wavefront_encode_planes": phase_wavefront_vs_plain(dev),
         **{f"scan {row}": err
            for row, err in phase_wavefront_scan_vs_plain(dev).items()},
+        **{f"rd {mode_set}": err
+           for mode_set, err in phase_wavefront_rd_vs_plain(dev).items()},
         "fused_encode_blocks": phase_fused_vs_plain(dev),
     }
+    phase_rd_prices(dev, gpu)
     frame = make_frame(np.random.default_rng(SEED))
     config = EncoderConfig()
     launches = {}
@@ -3271,6 +3596,7 @@ def main() -> int:
     }
     wf = wavefront_times(dev, gpu)
     scan_ms = scan_times(dev, gpu)
+    rd_ms = rd_times(dev, gpu)
     frame_times(dev, frame, config, "default config:", gpu)
     frame_times(dev, frame, MODE_SEARCH, "mode search:", gpu)
     closed_loop_times(dev, frame, config, "default config:", gpu)
@@ -3318,6 +3644,16 @@ def main() -> int:
         rows.append((label, scan_ms[row], SCAN_LAUNCHES[row],
                      worst[f"scan {row}"], scan_bound(row, n8, H * W),
                      XLA_SCAN))
+    # the RD closed loop's kernel, a row a mode set: main-path launches
+    # of 7b-7d and 8a
+    rd_diagonals = -(-H // n8) - (-W // n8) - 1
+    for mode_set, label in RD_SETS.items():
+        if not RD_LAUNCHES[mode_set]:
+            raise SystemExit(f"{label}: no launch on the main paths")
+        rows.append((label, rd_ms[mode_set], RD_LAUNCHES[mode_set],
+                     worst[f"rd {mode_set}"],
+                     rd_bound(mode_set, n8, H * W, rd_diagonals),
+                     KERNELS["wavefront_rd_encode_planes"][3]))
     rows.append(("fused_encode_blocks", times["fused_encode_blocks"][n8],
                  launches["fused_encode_blocks"], worst["fused_encode_blocks"],
                  fused_bound(n8, H * W), KERNELS["fused_encode_blocks"][3]))

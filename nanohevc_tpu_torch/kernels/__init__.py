@@ -30,6 +30,7 @@ from nanohevc_tpu_torch.kernels.wavefront import (
     wavefront_encode_planes_reference,
     wavefront_supported,
 )
+from nanohevc_tpu_torch.kernels.wavefront_rd import wavefront_rd_encode_planes
 
 __all__ = [
     "decode_blocks",
@@ -46,5 +47,6 @@ __all__ = [
     "slab_supported",
     "wavefront_encode_planes",
     "wavefront_encode_planes_reference",
+    "wavefront_rd_encode_planes",
     "wavefront_supported",
 ]

@@ -59,6 +59,20 @@ SIGNATURES = {
     # blocks, refs, nb, n, 7 QpScalars, recon, levels, stream, device
     "fused_pipeline": {"nhv_fused_encode":
                        [_P, _P, _I, _I] + [_I] * 7 + [_P, _P, _P, _I]},
+    # planes, batch, height, width, n, all_modes, use_dst, 7 QpScalars,
+    # strong_thresh, filter_mask, rdoq_scan, tables, rdoq_scalars (host),
+    # lam, log_gamma, ln2, recon, levels, modes, work, info, stream,
+    # device; batch, height, width, n, all_modes (work ints; then work,
+    # info, stream, device for the barriers); n1, n, count, log_gamma,
+    # ln2, c1, c0, stream, device
+    "wavefront_rd": {
+        "nhv_wavefront_rd":
+            [_P] + [_I] * 6 + [_I] * 7 + [_I, ctypes.c_ulonglong, _I]
+            + [_P] * 2 + [ctypes.c_float] * 3 + [_P] * 4 + [_P, _P, _I],
+        "nhv_wavefront_rd_work_ints": [_I] * 5,
+        "nhv_wavefront_rd_barriers": [_I] * 5 + [_P, _P, _P, _I],
+        "nhv_rd_prices": [_P, _P, _I] + [ctypes.c_float] * 2 + [_P] * 3
+                         + [_I]},
     # residual, modes, batch, height, width, n, bit_depth, strong_thresh,
     # filter_mask, group_rows, max_grid, recon, work, grids, stream,
     # device; n, height, width, device

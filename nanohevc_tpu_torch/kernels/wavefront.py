@@ -13,10 +13,12 @@ Port of the three TPU kernels of the closed loop, as reached through
   search, which differ only in TPU layout;
 
 and of the JAX package's closed-loop XLA scan (the `jax.lax.scan` of
-that function), which codes everything else but `decision="rd"`: the
-mode sets `dc`, `planar`, `dc_planar` and `all` under the decisions
-`energy`, `sad` and `satd`, luma reference smoothing, and RDOQ in every
-scan with its lambda scale (`wavefront_covers`).
+that function), which codes everything else but the RD decision of
+`dc_planar` and `all` (`kernels.wavefront_rd`): the mode sets `dc`,
+`planar`, `dc_planar` and `all` under the decisions `energy`, `sad` and
+`satd`, `dc` and `planar` under `rd` too (JAX's `decide_modes` returns
+before it prices a fixed mode), luma reference smoothing, and RDOQ in
+every scan with its lambda scale (`wavefront_covers`).
 
 One kernel, `csrc/wavefront.cu`, serves all of them, templated on N,
 on the body's shape (one fixed mode, DC/planar, the 35-mode sweep) and
@@ -58,7 +60,8 @@ from nanohevc_tpu_torch.params import encoder_tables, qp_scalars
 BODIES = {("dc_planar", "energy"): 0, ("all", "satd"): 1}
 # The kernel's body shape of each mode set (0 one fixed mode, 1 the pair
 # DC / planar, 2 the 35-mode sweep), the fixed body's mode, and its
-# costs; decision="rd" has none.
+# costs; decision="rd" has none (the fixed body, which reads no cost,
+# takes it).
 SHAPES = {"planar": 0, "dc": 0, "dc_planar": 1, "all": 2}
 FIXED_MODES = {"planar": 0, "dc": 1}
 COSTS = {"energy": 0, "sad": 1, "satd": 2}
@@ -77,10 +80,13 @@ def wavefront_supported(n: int, mode_set: str, decision: str,
 def wavefront_covers(n: int, mode_set: str, decision: str,
                      use_dst: bool) -> bool:
     """Whether the kernel codes this configuration: every mode set and
-    per-block decision but `decision="rd"`, at every N (DST at 4 only),
-    with or without smoothing and RDOQ."""
-    return (mode_set in SHAPES and decision in COSTS and n in BLOCK_SIZES
-            and (not use_dst or n == 4))
+    per-block decision, `decision="rd"` with the fixed mode sets `dc`
+    and `planar` only, at every N (DST at 4 only), with or without
+    smoothing and RDOQ."""
+    return (mode_set in SHAPES
+            and (decision in COSTS
+                 or (decision == "rd" and mode_set in FIXED_MODES))
+            and n in BLOCK_SIZES and (not use_dst or n == 4))
 
 
 def filter_mask(n: int, intra_smoothing: bool) -> int:
@@ -143,8 +149,9 @@ def wavefront_encode_planes_reference(
     `extract_refs_at` for the diagonal's blocks, `decide_modes` (any
     mode set and per-block decision it takes, smoothing included),
     `code_residual` (RDOQ included, in `scan` order, lambda scaled by
-    rd_lambda_scale), then the blocks written back.  The RD decision,
-    which prices a batch, runs in `models.wavefront` instead.
+    rd_lambda_scale), then the blocks written back.  The RD decision of
+    `dc_planar` and `all`, which prices a batch, runs in
+    `kernels.wavefront_rd` instead.
     """
     # models.all_intra imports the kernels' modules, so its mode
     # decision is imported at call time.
@@ -166,7 +173,7 @@ def wavefront_encode_planes_reference(
         refs = ops.extract_refs_at(recon, by, bx, n, boundary)
         pred, mode = decide_modes(blk, refs.reshape(b * m, 4 * n + 2), n,
                                   mode_set, decision, smoothing=intra_smoothing,
-                                  bit_depth=bit_depth)
+                                  bit_depth=bit_depth, qp=qp)
         lev, rec = code_residual(
             blk, pred, qp, n, use_dst=use_dst, bit_depth=bit_depth,
             dequant_rescale=dequant_rescale, rdoq=rdoq, scan=scan,
@@ -236,19 +243,20 @@ def rdoq_scalars(qp: int, n: int, use_dst: bool, dequant_rescale: bool,
                      t.gt1_0, t.gt1_1, t.gt2_0, t.gt2_1], dtype=np.float32)
 
 
-def _validate(planes: torch.Tensor, n: int, mode_set: str, decision: str,
-              use_dst: bool, bit_depth: int, scan: str) -> None:
-    what = "wavefront_encode_planes"
+def validate_planes(what: str, planes: torch.Tensor, n: int, bit_depth: int,
+                    scan: str, covered: bool, config: str) -> None:
+    """The closed-loop kernels' checks of their input: (B, Hp, Wp)
+    contiguous block-aligned int32 planes on the CPU or a card, a
+    configuration the kernel covers (`covered`, described by `config`),
+    a known scan and bit depth."""
     if not isinstance(planes, torch.Tensor) or planes.dim() != 3:
         raise ValueError(f"{what} needs a 3-D (B, H, W) tensor")
     if planes.dtype != torch.int32:
         raise TypeError(f"{what} needs int32, got {planes.dtype}")
     if not planes.is_contiguous():
         raise ValueError(f"{what} needs contiguous planes")
-    if not wavefront_covers(n, mode_set, decision, use_dst):
-        raise ValueError(
-            f"{what} does not cover n={n}, mode_set={mode_set!r}, "
-            f"decision={decision!r}, use_dst={use_dst}")
+    if not covered:
+        raise ValueError(f"{what} does not cover {config}")
     if scan not in SCANS:
         raise ValueError(f"unknown scan: {scan!r}")
     if planes.shape[1] % n or planes.shape[2] % n:
@@ -282,7 +290,10 @@ def wavefront_encode_planes(planes: torch.Tensor, qp: int, n: int, *,
     version.  `scan` matters under `rdoq` only (the levels come back in
     raster order).
     """
-    _validate(planes, n, mode_set, decision, use_dst, bit_depth, scan)
+    validate_planes("wavefront_encode_planes", planes, n, bit_depth, scan,
+                    wavefront_covers(n, mode_set, decision, use_dst),
+                    f"n={n}, mode_set={mode_set!r}, decision={decision!r}, "
+                    f"use_dst={use_dst}")
     kw = dict(mode_set=mode_set, decision=decision, bit_depth=bit_depth,
               use_dst=use_dst, dequant_rescale=dequant_rescale,
               intra_smoothing=intra_smoothing, rdoq=rdoq, scan=scan,
@@ -316,7 +327,8 @@ def wavefront_encode_planes(planes: torch.Tensor, qp: int, n: int, *,
     grids = ctypes.c_int(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = kern.lib.nhv_wavefront_encode(
-        planes.data_ptr(), b, hp, wp, n, SHAPES[mode_set], COSTS[decision],
+        planes.data_ptr(), b, hp, wp, n, SHAPES[mode_set],
+        COSTS.get(decision, 0),
         FIXED_MODES.get(mode_set, 0), int(use_dst), *q, thresh,
         filter_mask(n, smooth), SCANS[scan] if rdoq else -1,
         tables.data_ptr() if rdoq else None,

@@ -1,0 +1,214 @@
+"""The closed loop under `decision="rd"`: CUDA kernel wrapper; its plain
+version is `models.wavefront._encode_planes_rd`.
+
+Port of the RD branch of the JAX package's closed-loop XLA scan
+(`nanohevc_tpu/models/wavefront.py`, `encode_planes_closed_loop`'s
+`jax.lax.scan` with decision="rd", vmapped over frames; no Pallas
+kernel): each frame's anti-diagonals in order, every diagonal deciding
+all nby slots of JAX's skewed layout (the slots off the plane included)
+by SSE + lambda * bits, the bits from the adaptive rate model over the
+diagonal's candidates (`ops.rate`), plus lambda times each candidate's
+exact MPM bits; then the chosen block's encode tail (RDOQ in `scan`
+order when set).
+
+One kernel, `csrc/wavefront_rd.cu`, codes the whole plane batch in one
+persistent cooperative launch: per diagonal, phase A evaluates every
+(frame, slot, candidate) and counts its bins, a grid barrier, phase B
+prices the counts on the card (`csrc/rate_model.cuh`, the host's
+float32 arithmetic, each transcendental in float64 rounded once),
+decides and codes each slot, a grid barrier.  No host round trip inside
+the launch.  Its header says how it is laid out and what bounds it.
+
+`wavefront_rd_encode_planes` dispatches on the device of its input: a
+CPU tensor goes to the plain loop, a CUDA tensor to the kernel (or an
+exception).  There is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from nanohevc_tpu_torch.kernels.mode_search import angle_table
+from nanohevc_tpu_torch.kernels.slab_pipeline import BLOCK_SIZES, transform_table
+from nanohevc_tpu_torch.kernels.wavefront import (
+    SCANS,
+    filter_mask,
+    rdoq_scalars,
+    rdoq_tables,
+    validate_planes,
+)
+from nanohevc_tpu_torch.ops import rate
+from nanohevc_tpu_torch.params import qp_scalars
+
+# The mode sets whose decision prices candidates: the pair DC / planar,
+# and the 35 modes.
+MODE_SETS = {"dc_planar": 0, "all": 1}
+
+
+# The rate model's float32 constants, as `ops.rate` rounds them:
+# log(31/32) and log(2).
+RATE_CONSTS = (float(np.float32(np.log(rate._GAMMA))),
+               float(np.float32(rate._LN2)))
+
+
+@lru_cache(maxsize=None)
+def cuda_kernels():
+    """Build (at first use) and load this kernel's CUDA library."""
+    from nanohevc_tpu_torch.kernels.build import KernelLibrary
+
+    return KernelLibrary("wavefront_rd",
+                         np.concatenate([transform_table(), angle_table()]))
+
+
+def _validate(planes: torch.Tensor, n: int, mode_set: str, use_dst: bool,
+              bit_depth: int, scan: str) -> None:
+    validate_planes(
+        "wavefront_rd_encode_planes", planes, n, bit_depth, scan,
+        mode_set in MODE_SETS and n in BLOCK_SIZES and (not use_dst or n == 4),
+        f"n={n}, mode_set={mode_set!r} (it decides {sorted(MODE_SETS)}), "
+        f"use_dst={use_dst}")
+
+
+def _launch(planes: torch.Tensor, qp: int, n: int, mode_set: str,
+            bit_depth: int, use_dst: bool, dequant_rescale: bool,
+            intra_smoothing: bool, rdoq: bool, scan: str,
+            rd_lambda_scale: float) -> tuple:
+    """One launch of the kernel on the planes' card: (the output dict,
+    the grid's thread blocks)."""
+    b, hp, wp = planes.shape
+    nb = (hp // n) * (wp // n)
+    dev = planes.device
+    out = {"recon": torch.empty_like(planes),   # every pixel is written
+           "levels": torch.empty((b, nb, n, n), dtype=torch.int32,
+                                 device=dev),
+           "modes": torch.empty((b, nb), dtype=torch.int32, device=dev)}
+    if b * nb == 0:
+        return out, 0
+    kern = cuda_kernels()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    kern.ensure_tables(index)
+    all_modes = MODE_SETS[mode_set]
+    words = kern.lib.nhv_wavefront_rd_work_ints(b, hp, wp, n, all_modes)
+    if words < 0:
+        raise ValueError(f"wavefront_rd_encode_planes: {b} planes of "
+                         f"{hp}x{wp} at N={n} exceed the kernel's work buffer")
+    work = torch.zeros(words, dtype=torch.int32, device=dev)
+    q = qp_scalars(qp, n, bit_depth, dequant_rescale)
+    smooth = intra_smoothing and n > 4
+    thresh = 1 << (bit_depth - 5) if smooth and n == 32 else 0
+    tables = rdoq_tables(n, use_dst, torch.device("cuda", index))
+    scalars = (rdoq_scalars(qp, n, use_dst, dequant_rescale, rd_lambda_scale)
+               if rdoq else None)
+    info = (ctypes.c_int * 2)(0, 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = kern.lib.nhv_wavefront_rd(
+        planes.data_ptr(), b, hp, wp, n, all_modes, int(use_dst), *q, thresh,
+        filter_mask(n, smooth), SCANS[scan] if rdoq else -1,
+        tables.data_ptr(), scalars.ctypes.data if rdoq else None,
+        float(rate._rd_lambda(qp, 1.0)), *RATE_CONSTS,
+        out["recon"].data_ptr(), out["levels"].data_ptr(),
+        out["modes"].data_ptr(), work.data_ptr(), ctypes.addressof(info),
+        stream, index,
+    )
+    if rc != 0:
+        raise RuntimeError(f"nhv_wavefront_rd failed: CUDA error {rc}")
+    return out, info[1]
+
+
+def wavefront_rd_encode_planes(planes: torch.Tensor, qp: int, n: int, *,
+                               mode_set: str = "dc_planar",
+                               bit_depth: int = 8, use_dst: bool = False,
+                               dequant_rescale: bool = False,
+                               intra_smoothing: bool = False,
+                               rdoq: bool = False, scan: str = "diag",
+                               rd_lambda_scale: float = 1.0) -> dict:
+    """(B, Hp, Wp) block-aligned int32 planes -> dict(recon (B, Hp, Wp),
+    levels (B, nb, N, N) raster blocks, modes (B, nb)), all int32: the
+    closed loop under decision="rd" with mode_set "dc_planar" or "all",
+    each frame decided on its own slot batches.
+
+    qp is a static Python int; the decision's lambda is unscaled and
+    rd_lambda_scale reaches RDOQ only.  On a CUDA tensor this runs the
+    hand-written kernel, one persistent cooperative launch per call, on
+    the current stream (no synchronisation), adds one to
+    `wavefront_rd_encode_planes.launches` and the grids it launched to
+    `.grids`, and counts the launch in `.launches_by_config` under
+    (mode_set, smoothing at n > 4, rdoq); on a CPU tensor it runs the
+    plain loop `models.wavefront._encode_planes_rd`.  `scan` matters
+    under `rdoq` only (the levels come back in raster order).
+    """
+    _validate(planes, n, mode_set, use_dst, bit_depth, scan)
+    kw = dict(mode_set=mode_set, bit_depth=bit_depth, use_dst=use_dst,
+              dequant_rescale=dequant_rescale,
+              intra_smoothing=intra_smoothing, rdoq=rdoq, scan=scan,
+              rd_lambda_scale=rd_lambda_scale)
+    if planes.device.type == "cpu":
+        # looked up at call time: models.wavefront imports this module
+        from nanohevc_tpu_torch.models import wavefront as models_wf
+
+        return models_wf._encode_planes_rd(planes, int(qp), n, **kw)
+    out, blocks = _launch(planes, int(qp), n, **kw)
+    if blocks:
+        fn = wavefront_rd_encode_planes
+        fn.launches += 1
+        fn.grids += 1
+        key = (mode_set, intra_smoothing and n > 4, bool(rdoq))
+        fn.launches_by_config[key] = fn.launches_by_config.get(key, 0) + 1
+    return out
+
+
+wavefront_rd_encode_planes.launches = 0
+wavefront_rd_encode_planes.grids = 0
+# launches by (mode_set, smoothing at n > 4, rdoq)
+wavefront_rd_encode_planes.launches_by_config = {}
+
+
+def barriers_only(planes: torch.Tensor, n: int, mode_set: str) -> int:
+    """Launch the encoder's grid for these CUDA planes through its
+    2 (nby + nbx - 1) grid barriers with an empty body (what the
+    kernel's synchronisation costs alone); writes no output and counts
+    no launch.  Returns the grid's thread blocks."""
+    _validate(planes, n, mode_set, False, 8, "diag")
+    if planes.device.type != "cuda":
+        raise ValueError("barriers_only runs on a CUDA card only")
+    b, hp, wp = planes.shape
+    dev = planes.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    work = torch.zeros(1, dtype=torch.int32, device=dev)
+    info = (ctypes.c_int * 2)(0, 0)
+    rc = cuda_kernels().lib.nhv_wavefront_rd_barriers(
+        b, hp, wp, n, MODE_SETS[mode_set], work.data_ptr(),
+        ctypes.addressof(info), torch.cuda.current_stream(dev).cuda_stream,
+        index)
+    if rc != 0:
+        raise RuntimeError(f"nhv_wavefront_rd_barriers failed: CUDA error "
+                           f"{rc}")
+    return info[1]
+
+
+def device_prices(n1: torch.Tensor, n: torch.Tensor) -> tuple:
+    """The kernel's per-context prices (ones, zeros) of the bin-count
+    pairs (n1 ones of n bins), int32 CUDA tensors with n < 2^24, as
+    float32 tensors on the card: the device function every context is
+    priced with.  Its plain version is `ops.rate._prices` on the host."""
+    if n1.device.type != "cuda" or n1.shape != n.shape or \
+            n1.dtype != torch.int32 or n.dtype != torch.int32:
+        raise ValueError("device_prices needs two int32 CUDA tensors of one "
+                         "shape")
+    n1, n = n1.contiguous(), n.contiguous()
+    kern = cuda_kernels()
+    dev = n1.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    c1 = torch.empty(n1.shape, dtype=torch.float32, device=dev)
+    c0 = torch.empty_like(c1)
+    rc = kern.lib.nhv_rd_prices(
+        n1.data_ptr(), n.data_ptr(), n1.numel(), *RATE_CONSTS,
+        c1.data_ptr(), c0.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream, index)
+    if rc != 0:
+        raise RuntimeError(f"nhv_rd_prices failed: CUDA error {rc}")
+    return c1, c0

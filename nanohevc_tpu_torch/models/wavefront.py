@@ -15,10 +15,12 @@ the corner there, read 1 << (bd - 1).
 
 Routing (`encode_planes_closed_loop`), one rule:
 
-- Every configuration but `decision="rd"` goes to
-  `kernels.wavefront.wavefront_encode_planes`: every mode set (`dc`,
-  `planar`, `dc_planar`, `all`) under every per-block decision
-  (`energy`, `sad`, `satd`), with or without luma reference smoothing
+- Every configuration but the RD decision of `dc_planar` and `all`
+  goes to `kernels.wavefront.wavefront_encode_planes`: every mode set
+  (`dc`, `planar`, `dc_planar`, `all`) under every per-block decision
+  (`energy`, `sad`, `satd`), the fixed sets `dc` and `planar` under
+  `rd` too (JAX's `decide_modes` returns before it prices a fixed
+  mode), with or without luma reference smoothing
   and RDOQ (in `scan` order, lambda scaled by rd_lambda_scale), at
   every batch size.  On the card that is the hand-written CUDA kernel,
   one persistent launch per call: the port's counterpart of JAX's
@@ -29,11 +31,16 @@ Routing (`encode_planes_closed_loop`), one rule:
   `allow_fast=True` keeps JAX's refusals: `rdoq`, `intra_smoothing`
   and the configurations no Pallas kernel of JAX takes raise
   ValueError (models/wavefront.py:301 there).
-- `decision="rd"` prices its candidates with the adaptive rate model,
-  over the batch it is given (on the host), so it runs JAX's own
-  batches: frame by frame, each diagonal on all nby slots of the JAX
-  package's skewed layout, invalid slots included, with the skew tables
-  and skewed boundary buffers ported for it (`_encode_planes_rd`).
+- `decision="rd"` with `dc_planar` or `all` prices its candidates
+  with the adaptive rate model over the batch it is given, so it runs
+  JAX's own batches: frame by frame, each diagonal on all nby slots of
+  the JAX package's skewed layout, invalid slots included, with the skew
+  tables and skewed boundary buffers ported for it.  It goes to
+  `kernels.wavefront_rd.wavefront_rd_encode_planes`: on the card the
+  hand-written CUDA kernel, one persistent cooperative launch per call
+  that prices the batches on the card (the port's counterpart of the RD
+  branch of JAX's XLA scan); on the CPU the plain loop
+  `_encode_planes_rd`.
 - `kernel_split` and `unroll` are TPU layout knobs and are not taken.
 
 The in-loop filters follow every route, on the padded recon and in
@@ -63,10 +70,12 @@ from nanohevc_tpu_torch import ops, resolve_device
 from nanohevc_tpu_torch.frame import Frame
 from nanohevc_tpu_torch.kernels.decode import decode_blocks
 from nanohevc_tpu_torch.kernels.wavefront import (
+    FIXED_MODES,
     code_residual,
     wavefront_encode_planes,
     wavefront_supported,
 )
+from nanohevc_tpu_torch.kernels.wavefront_rd import wavefront_rd_encode_planes
 from nanohevc_tpu_torch.ops.mode_rate import mpm_mode_bits
 from nanohevc_tpu_torch.ops.sao import apply_sao, estimate_sao
 from nanohevc_tpu_torch.ops.sao_ctb import apply_sao_ctb, estimate_sao_ctb
@@ -170,7 +179,8 @@ def _encode_planes_rd(planes: torch.Tensor, qp: int, n: int, *,
                       rd_lambda_scale: float) -> dict:
     """The closed loop under decision="rd", frame by frame on JAX's
     slot batches: (B, Hp, Wp) block-aligned planes -> the dict of
-    `wavefront_encode_planes_reference`.
+    `wavefront_encode_planes_reference`.  The plain version of
+    `kernels.wavefront_rd.wavefront_rd_encode_planes`.
 
     Each diagonal decides all nby slots in one `decide_modes` call, with
     the exact MPM bits of the slots' left and above neighbours (the
@@ -259,8 +269,9 @@ def encode_planes_closed_loop(
     Returns {"recon" (B, H, W) int32, "levels" (B, nb, N*N) int32
     scan-packed in raster block order, "modes" (B, nb) int32} on the
     planes' device; nb counts the blocks of the padded geometry.  qp is
-    a Python int.  Every configuration but decision="rd" runs
-    `wavefront_encode_planes` (on the card, the kernel), whatever
+    a Python int.  decision="rd" with mode_set "dc_planar" or "all" runs
+    `wavefront_rd_encode_planes`, every other configuration
+    `wavefront_encode_planes` (on the card, a kernel each), whatever
     allow_fast says, except that allow_fast=True refuses, as JAX does,
     what no Pallas kernel of JAX takes (rdoq, intra_smoothing, other
     mode sets and decisions).  rdoq re-decides each block's levels
@@ -287,10 +298,10 @@ def encode_planes_closed_loop(
     src = pad_to_blocks(planes.to(torch.int32), n)
     loop = dict(intra_smoothing=intra_smoothing, rdoq=rdoq, scan=scan,
                 rd_lambda_scale=rd_lambda_scale)
-    if decision == "rd":
-        out = _encode_planes_rd(src, int(qp), n, mode_set=mode_set,
-                                use_dst=use_dst, bit_depth=bit_depth,
-                                dequant_rescale=dequant_rescale, **loop)
+    if decision == "rd" and mode_set not in FIXED_MODES:
+        out = wavefront_rd_encode_planes(
+            src, int(qp), n, mode_set=mode_set, use_dst=use_dst,
+            bit_depth=bit_depth, dequant_rescale=dequant_rescale, **loop)
     else:
         out = wavefront_encode_planes(
             src, int(qp), n, mode_set=mode_set, decision=decision,
