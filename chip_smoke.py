@@ -37,10 +37,13 @@ over a 16-frame file at batch 8.  It checks them end to end:
    modes at N 4 DST, 4, 8, 16 and 32 with smoothing off and on, RDOQ
    rotated over every scan and three lambda scales, 8/10/12-bit, both
    dequant modes and the four QPs on a 135x240 and a 45x200 crop at
-   batch 1 and 2, then the 1080p luma plane at N=8 under both mode sets
-   and 7d's RD batches (8 1080p luma planes at N=8, 16 540x960 chroma
-   planes at N=4), == the plain loop and three more times each == the
-   first, and its
+   batch 1 and 2, and N 16 and 32 without RDOQ, then the 1080p luma
+   plane at N=8 under both mode sets, 7d's RD batches (8 1080p luma
+   planes at N=8, 16 540x960 chroma planes at N=4) and a batch of mixed
+   texture, == the plain loop and three more times each == the first,
+   then 32 1080p luma planes under the 35 modes, more than the grid
+   holds at once (frames in turns), its first and last frame == the
+   plain loop, and its
    prices against the host's over every pair of counts with n <= 4096
    and 10^7 seeded pairs up to 2^21, 0 bits differing; the fused blocks
    kernel
@@ -112,8 +115,9 @@ over a 16-frame file at batch 8.  It checks them end to end:
    what the kernel took over from the XLA scan per 1080p luma plane at
    N=8 through a CUDA graph beside the plain loop and its bound (6g),
    the RD kernel per 1080p luma plane at every N under both mode sets
-   through a CUDA graph, at N=8 beside the empty-body kernel with the
-   same grid and barriers, its bound and the plain loop (6h), and the
+   through a CUDA graph, at N=8 and on 7d's two batches beside its
+   synchronisation alone on the same grid, its bound and the plain loop
+   (6h), and the
    sequence
    under all four configs (6f: throughput, stages, whether drain
    overlaps the next batch, device busy share, entropy_tiles=4,
@@ -1202,6 +1206,37 @@ def phase_wavefront_scan_vs_plain(dev) -> dict:
 
 # --- the RD closed loop's kernel (3h, the price sweep, 6h) -------------------
 
+def rd_batches(dev, rng) -> list:
+    """7d's two RD plane batches as encode_sequence gives them under
+    EncoderConfig(decision="rd"): [(label, planes, n, keywords)], a
+    batch's SEQ_BATCH luma planes (1080p, N=8) and its 2 x SEQ_BATCH
+    chroma planes (540x960, N=4), seeded textured planes."""
+    seq_cfg = EncoderConfig(decision="rd")
+    out = []
+    for is_luma, shape, batch in ((True, (H, W), SEQ_BATCH),
+                                  (False, (H // 2, W // 2), 2 * SEQ_BATCH)):
+        args = torch_wf.plane_args(seq_cfg, is_luma)
+        kw = {k: args[k] for k in ("mode_set", "bit_depth", "use_dst",
+                                   "dequant_rescale", "intra_smoothing",
+                                   "rdoq", "scan")}
+        out.append((f"7d's {'luma' if is_luma else 'chroma'} batch, {batch} "
+                    f"{shape[0]}x{shape[1]} planes N={args['n']} "
+                    f"{args['mode_set']}",
+                    stacked_planes(shape, 8, batch, args["n"], dev, rng),
+                    args["n"], kw))
+    return out
+
+
+def mixed_planes(shape, n: int, dev, rng):
+    """(3, Hp, Wp) int32 planes on `dev`: a textured plane, a flat one
+    and uniform noise, padded to blocks."""
+    h, w = shape
+    planes = np.stack([textured(h, w, 8, rng),
+                       np.full((h, w), 128, np.int32),
+                       rng.integers(0, 256, (h, w)).astype(np.int32)])
+    return pad_to_blocks(torch.from_numpy(planes), n).to(dev)
+
+
 def phase_wavefront_rd_vs_plain(dev) -> dict:
     """3h: the RD closed loop's kernel == its plain loop
     (`_encode_planes_rd`) on the card, 0 values differing in recon,
@@ -1209,12 +1244,21 @@ def phase_wavefront_rd_vs_plain(dev) -> dict:
     and 32, each with smoothing off and on; RDOQ rotated over the cases
     (off and every scan) with lambda scales 1, 2.5 and 0.5; 8/10/12-bit
     and the dequant rescale rotated; QP 0/22/37/51 rotated; a 135x240
-    and a 45x200 crop (padded), each at batch 1 and 2.  Then,
+    and a 45x200 crop (padded), each at batch 1 and 2; and, since the
+    rotation meets N 16 and 32 only under RDOQ, both mode sets at N 16
+    and 32 without it on the 135x240 crop (the candidates kept in their
+    lanes' registers, the pair decided by a shuffle).  Then,
     each against the plain loop and run three more times, each == the
     first: the 1080p luma plane at N=8 under each mode set, and 7d's
     batches under decision="rd" as encode_sequence gives them, a batch's
-    8 luma planes (1080p, N=8) and its 16 chroma planes (540x960, N=4).
-    Returns the worst error by mode set."""
+    8 luma planes (1080p, N=8) and its 16 chroma planes (540x960, N=4),
+    and a batch of 270x480 planes of mixed texture (textured, flat,
+    noise: frames whose blocks decide differently, so one frame runs
+    ahead of another) under each mode set.  Last, 32 1080p luma planes
+    under the 35 modes at N=8, more than the grid holds at once, so that
+    its thread blocks code the frames in turns: the first and the last
+    frame against the plain loop, three repeats == the first.  Returns
+    the worst error by mode set."""
     kernel = krd.wavefront_rd_encode_planes
     rng = np.random.default_rng(SEED + 9)
     sizes = ((4, True), (4, False), (8, False), (16, False), (32, False))
@@ -1231,6 +1275,10 @@ def phase_wavefront_rd_vs_plain(dev) -> dict:
                               (0, 22, 37, 51)[t % 4], bd, rescale, smoothing,
                               rdoq_scans[t % 5], (1.0, 2.5, 0.5)[t % 3]))
                 t += 1
+    for mode_set in RD_SETS:
+        for n, smoothing in ((16, False), (32, True)):
+            cases.append(((H // 8, W // 8), 1, mode_set, n, False, 22, 8,
+                          False, smoothing, None, 1.0))
     planes = {}
     worst = dict.fromkeys(RD_SETS, 0)
     grids = set()
@@ -1259,18 +1307,11 @@ def phase_wavefront_rd_vs_plain(dev) -> dict:
     y = stacked_planes((H, W), 8, 1, 8, dev, rng)
     full = [(f"1080p luma N=8 {mode_set}", y, 8, dict(mode_set=mode_set))
             for mode_set in RD_SETS]
-    seq_cfg = EncoderConfig(decision="rd")    # 7d's RD closed-loop run
-    for is_luma, shape, batch in ((True, (H, W), SEQ_BATCH),
-                                  (False, (H // 2, W // 2), 2 * SEQ_BATCH)):
-        args = torch_wf.plane_args(seq_cfg, is_luma)
-        kw = {k: args[k] for k in ("mode_set", "bit_depth", "use_dst",
-                                   "dequant_rescale", "intra_smoothing",
-                                   "rdoq", "scan")}
-        full.append((f"7d's {'luma' if is_luma else 'chroma'} batch, {batch} "
-                     f"{shape[0]}x{shape[1]} planes N={args['n']} "
-                     f"{args['mode_set']}",
-                     stacked_planes(shape, 8, batch, args["n"], dev, rng),
-                     args["n"], kw))
+    full += rd_batches(dev, rng)
+    mixed = mixed_planes((H // 4, W // 4), 8, dev, rng)
+    full += [(f"a batch of {mixed.shape[0]} {H // 4}x{W // 4} planes of "
+              f"mixed texture (textured, flat, noise) N=8 {mode_set}", mixed,
+              8, dict(mode_set=mode_set)) for mode_set in RD_SETS]
     done = []
     for label, planes, n, kw in full:
         t1 = time.perf_counter()
@@ -1291,14 +1332,49 @@ def phase_wavefront_rd_vs_plain(dev) -> dict:
                                          minlength=35) > 0).sum())
         done.append(f"{label} ({modes_used} modes used; "
                     f"{time.perf_counter() - t1:.1f} s)")
+    done.append(rd_in_turns(dev, rng))
     log(f"[3h] wavefront_rd_encode_planes == plain on CUDA in {len(cases)} "
         f"cases (DC/planar and 35 modes x N 4 DST/4/8/16/32 x smoothing "
         f"off/on; RDOQ off and in every scan, lambda scales 1/2.5/0.5; "
         f"8/10/12-bit; both dequant modes; QP 0/22/37/51; 135x240 and "
-        f"45x200 at batch 1 and 2; {cases_s:.1f} s), 0 values differing; "
-        f"at full size == plain and three repeats == the first: "
-        f"{'; '.join(done)}")
+        f"45x200 at batch 1 and 2; N 16 and 32 without RDOQ; "
+        f"{cases_s:.1f} s), 0 values differing; at full size == plain and "
+        f"three repeats == the first: {'; '.join(done)}")
     return worst
+
+
+def rd_in_turns(dev, rng, batch: int = 32) -> str:
+    """3h's batch of `batch` 1080p luma planes under the 35 modes at N=8:
+    more frames than the kernel's grid holds at once (it fails unless
+    so), so its thread blocks code them in turns.  The first and the last
+    frame == the plain loop, and three repeats == the first; returns the
+    clause of 3h's line."""
+    t0 = time.perf_counter()
+    planes = stacked_planes((H, W), 8, batch, 8, dev, rng)
+    kw = dict(mode_set="all", bit_depth=8, use_dst=False,
+              dequant_rescale=False, intra_smoothing=False, rdoq=False,
+              scan="diag", rd_lambda_scale=1.0)
+    first, blocks, frames = krd._launch(planes, 22, 8, **kw)
+    label = (f"{batch} 1080p luma planes N=8 all, {frames} frames at once "
+             f"({blocks} thread blocks)")
+    if frames >= batch:
+        raise SystemExit(f"wavefront_rd_encode_planes {label}: the grid "
+                         "holds every frame, so no turns are checked")
+    ends = [0, batch - 1]
+    want = rd_plain(planes[ends], 22, 8, mode_set="all")
+    torch.cuda.synchronize()
+    err = max_abs_err({k: v[ends] for k, v in first.items()}, want)
+    if err:
+        raise SystemExit(f"wavefront_rd_encode_planes {label}: != plain, "
+                         f"max abs err {err}")
+    for rep in range(3):
+        again = krd._launch(planes, 22, 8, **kw)[0]
+        torch.cuda.synchronize()
+        if max_abs_err(again, first):
+            raise SystemExit(f"wavefront_rd_encode_planes {label}: repeat "
+                             f"{rep + 1} differs from the first run")
+    return (f"{label}, frames 1 and {batch} == plain "
+            f"({time.perf_counter() - t0:.1f} s)")
 
 
 def all_count_pairs(top: int) -> tuple:
@@ -1371,9 +1447,13 @@ def rd_bound(mode_set: str, n: int, pixels: int, diagonals: int) -> tuple:
 
 def rd_times(dev, gpu: str) -> dict:
     """6h: the RD kernel per seeded 1080p luma plane at N 4 (DST), 8, 16
-    and 32, QP 22, under each mode set; at N=8 beside it the empty-body
-    kernel with the same grid and barriers, the bound and the plain
-    loop once.  Returns {mode_set: (kernel ms, plain ms)} at N=8."""
+    and 32, QP 22, under each mode set; at N=8 beside it the kernel's
+    synchronisation alone (the same grid through the same message
+    polls, counter adds and counter polls with an empty body), the
+    bound and the
+    plain loop once.  Then 7d's two plane batches, the kernel beside its
+    synchronisation alone.  Returns {mode_set: (kernel ms, plain ms)} at
+    N=8."""
     kernel = krd.wavefront_rd_encode_planes
     rng = np.random.default_rng(SEED + 1)
     out = {}
@@ -1387,26 +1467,43 @@ def rd_times(dev, gpu: str) -> dict:
             bound_ms, by = rd_bound(mode_set, n, H * W, depth)
             line = (f"[6h] {RD_SETS[mode_set]} 1080p luma N={n}"
                     f"{' DST' if use_dst else ''}: kernel {k_ms:.4f} ms "
-                    f"(CUDA graph; {depth} diagonals, {2 * depth} grid "
-                    f"barriers, "
-                    f"{1e3 * k_ms / depth:.2f} us a diagonal), bound "
-                    f"{1e3 * bound_ms:.2f} us ({by}, "
+                    f"(CUDA graph; {depth} diagonals, one synchronisation a "
+                    f"diagonal, {1e3 * k_ms / depth:.2f} us a diagonal), "
+                    f"bound {1e3 * bound_ms:.2f} us ({by}, "
                     f"{100 * bound_ms / k_ms:.3f} % of it)")
             if n == 8:
-                blocks = krd.barriers_only(y, n, mode_set)
-                b_ms = graph_ms(lambda: krd.barriers_only(y, n, mode_set),
-                                iters=3, replays=3)
+                line += rd_sync_note(y, n, mode_set, k_ms)
                 t1 = time.perf_counter()
                 rd_plain(y, 22, n, **kw)
                 torch.cuda.synchronize()
                 p_ms = 1e3 * (time.perf_counter() - t1)
                 out[mode_set] = (k_ms, p_ms)
-                line += (f"; empty body, same grid ({blocks} thread blocks) "
-                         f"and barriers {b_ms:.4f} ms (CUDA graph; "
-                         f"{100 * b_ms / k_ms:.1f} % of the kernel); plain "
-                         f"loop {p_ms:.1f} ms")
+                line += f"; plain loop {p_ms:.1f} ms"
             log(line + f" [{gpu}]")
+    for label, planes, n, kw in rd_batches(dev, rng):
+        b, hp, wp = planes.shape
+        depth = hp // n + wp // n - 1
+        k_ms = graph_ms(lambda: kernel(planes, 22, n, **kw), iters=3,
+                        replays=3)
+        # the prices: once a frame, batch and diagonal
+        bound_ms, by = rd_bound(kw["mode_set"], n, b * hp * wp, b * depth)
+        log(f"[6h] {label}: kernel {k_ms:.4f} ms (CUDA graph; {depth} "
+            f"diagonals), bound {1e3 * bound_ms:.2f} us ({by}, "
+            f"{100 * bound_ms / k_ms:.3f} % of it)"
+            + rd_sync_note(planes, n, kw["mode_set"], k_ms) + f" [{gpu}]")
     return out
+
+
+def rd_sync_note(planes, n: int, mode_set: str, k_ms: float) -> str:
+    """The RD kernel's synchronisation alone on these planes' grid, as
+    a clause of a 6h line: its thread blocks, its time and its share of
+    the kernel's k_ms."""
+    blocks = krd.barriers_only(planes, n, mode_set)
+    s_ms = graph_ms(lambda: krd.barriers_only(planes, n, mode_set), iters=3,
+                    replays=3)
+    return (f"; synchronisation alone, same grid ({blocks} thread blocks) "
+            f"{s_ms:.4f} ms (CUDA graph; {100 * s_ms / k_ms:.1f} % of the "
+            f"kernel)")
 
 
 def phase_closed_loop(dev, frame: Frame, config: EncoderConfig, tag: str):

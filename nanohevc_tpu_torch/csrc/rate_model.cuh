@@ -12,12 +12,16 @@
 //   a row's bits at those prices, in the order of adaptive_bits, the
 //     per-position sum in ordered_sum's runs of 32 (EG0's floor(log2)
 //     with XLA's deviations: rdoq_tail.cuh's eg0_bits).
+// Layout (row_tail.cuh's): a candidate block is a group of N
+// neighbouring lanes of one warp, lane i holding row i; the counts and
+// the bits are warp-level work with no thread-block barrier.
 // Float32 as the host computes it: every add, multiply and divide is
 // written __fadd_rn / __fsub_rn / __fmul_rn / __fdiv_rn, which nvcc
 // never contracts into an FMA, in the host's association; each
 // transcendental (log2, log, pow(31/32, t)) is taken in float64 and
 // rounded once to float32, as numpy does on the host.  CUDA's float64
-// log, log2 and pow are within 1-2 ulp of the exact value, so the
+// log and log2, and pow_31_32's exp2 form, are within 1-2 ulp of the
+// exact value, so the
 // float32 result is the host's unless the float64 value lies within a
 // few float64 ulp of a float32 rounding midpoint; chip_smoke.py's price
 // sweep holds the device prices to the host's over every (n1, n) with
@@ -25,7 +29,7 @@
 
 #pragma once
 
-#include "rdoq_tail.cuh"   // eg0_bits, block_max
+#include <cuda_runtime.h>
 
 // The model's sizes for NN coefficients: M = floor(log2(max(NN-1, 2)))
 // prefix bins of the last position, KC counters, K priced contexts.
@@ -51,6 +55,19 @@ __device__ __forceinline__ float rounded_log2(float x) {
   return __double2float_rn(log2((double)x));
 }
 
+// 0.96875^x in float64, as pow(0.96875, x) gives it to a couple of ulp:
+// exp2 of x * log2(31/32), the product kept in double-double (log2(31/32)
+// as kHi + kLo, the rounding error of x * kHi recovered by an FMA), and
+// exp2(hi + lo) as exp2(hi) * (1 + lo * ln 2).  One exp2 instead of
+// pow's logarithm and exponential.
+__device__ __forceinline__ double pow_31_32(double x) {
+  constexpr double kHi = -0.04580368961312479, kLo = -2.5450972276520026e-18;
+  const double hi = x * kHi;
+  const double lo = fma(x, kHi, -hi) + x * kLo;
+  const double e = exp2(hi);
+  return fma(e, lo * 0.69314718055994531, e);
+}
+
 // _ctx_total of a context that saw n bins, n1 of them ones, with
 // p = (n1 + 0.5) / (n + 1) and l1 = log2(p), l0 = log2(1 - p) as the
 // caller rounded them.
@@ -58,12 +75,13 @@ __device__ __forceinline__ float ctx_total(float n1, float n, float p,
                                            float l1, float l0,
                                            const RateConsts& rc) {
   const float n0 = __fsub_rn(n, n1);
-  const float arg = __fdiv_rn(fmaxf(p, 1e-6f), 0.5f);
+  // x / 0.5 and x / 0.03125 below are x * 2 and x * 32, exactly
+  const float arg = __fmul_rn(fmaxf(p, 1e-6f), 2.0f);
   float ts = __fdiv_rn(__double2float_rn(log((double)arg)), rc.log_gamma);
   ts = fminf(fmaxf(ts, 0.0f), n);                     // np.clip(t, 0, n)
-  const float pw = __double2float_rn(pow(0.96875, (double)ts));
+  const float pw = __double2float_rn(pow_31_32((double)ts));
   const float trans = __fdiv_rn(
-      __fdiv_rn(__fmul_rn(0.5f, __fsub_rn(1.0f, pw)), 0.03125f), rc.ln2);
+      __fmul_rn(__fmul_rn(0.5f, __fsub_rn(1.0f, pw)), 32.0f), rc.ln2);
   const float e1 = n1 > 0.0f ? __fmul_rn(n1, l1) : 0.0f;
   const float e0 = n0 > 0.0f ? __fmul_rn(n0, l0) : 0.0f;
   const float ent = __fdiv_rn(-__fadd_rn(e1, e0), fmaxf(n, 1.0f));
@@ -97,155 +115,223 @@ struct Prices {
   float cum1[M + 1], lp0[M + 1];
 };
 
-// Price a batch from its KC counters (device memory written by other
-// thread blocks: read through L2) into `P`, with the T threads of the
-// thread block; every thread must call it (it holds barriers).
-template <int NN, int T>
-__device__ __forceinline__ void price_batch(const int* counts,
-                                            Prices<RateDims<NN>::M>& P,
-                                            float* s_pref, int t,
-                                            const RateConsts& rc) {
+// The counters context k of a batch is priced from: (n1, n).
+template <int NN>
+__device__ __forceinline__ void context_counters(int k, int& i1, int& i0) {
   using D = RateDims<NN>;
   constexpr int M = D::M;
-  for (int k = t; k < D::K; k += T) {
-    int i1, i0;                          // counters of (n1, n)
-    if (k == 0) {
-      i1 = D::kCoded, i0 = D::kRows;
-    } else if (k == 1) {
-      i1 = D::kFull, i0 = D::kCoded;
-    } else if (k < 2 + M) {
-      i1 = D::kPrefOnes + k - 2, i0 = D::kPrefTot + k - 2;
-    } else if (k < 34 + M) {
-      i1 = D::kSigOnes + k - 2 - M, i0 = D::kSigTot + k - 2 - M;
-    } else if (k == 34 + M) {
-      i1 = D::kGt1, i0 = D::kSig;
-    } else {
-      i1 = D::kGt2, i0 = D::kGt1;
-    }
-    float c1, c0;
-    ctx_prices(__int2float_rn(__ldcg(counts + i1)),
-               __int2float_rn(__ldcg(counts + i0)), rc, c1, c0);
-    if (k == 0) {
-      P.cbf1 = c1, P.cbf0 = c0;
-    } else if (k == 1) {
-      P.lf1 = c1, P.lf0 = c0;
-    } else if (k < 2 + M) {
-      s_pref[k - 2] = c1, P.lp0[k - 2] = c0;
-    } else if (k < 34 + M) {
-      P.sig1[k - 2 - M] = c1, P.sig0[k - 2 - M] = c0;
-    } else if (k == 34 + M) {
-      P.g11 = c1, P.g10 = c0;
-    } else {
-      P.g21 = c1, P.g20 = c0;
-    }
+  if (k == 0) {
+    i1 = D::kCoded, i0 = D::kRows;
+  } else if (k == 1) {
+    i1 = D::kFull, i0 = D::kCoded;
+  } else if (k < 2 + M) {
+    i1 = D::kPrefOnes + k - 2, i0 = D::kPrefTot + k - 2;
+  } else if (k < 34 + M) {
+    i1 = D::kSigOnes + k - 2 - M, i0 = D::kSigTot + k - 2 - M;
+  } else if (k == 34 + M) {
+    i1 = D::kGt1, i0 = D::kSig;
+  } else {
+    i1 = D::kGt2, i0 = D::kGt1;
   }
-  __syncthreads();
-  if (t == 0) {                          // a sequential float32 scan
+}
+
+// Price context k (0 .. K-1) of a batch from its counters n1 and n
+// (context_counters' pair) into `P`.  The prefix contexts' ones prices
+// (k = 2 .. M+1) go into no field: they are returned through c1 for the
+// caller's cum1 scan.
+template <int NN>
+__device__ __forceinline__ void price_context(int k, int n1, int n,
+                                              Prices<RateDims<NN>::M>& P,
+                                              const RateConsts& rc,
+                                              float& c1) {
+  constexpr int M = RateDims<NN>::M;
+  float c0;
+  ctx_prices(__int2float_rn(n1), __int2float_rn(n), rc, c1, c0);
+  if (k == 0) {
+    P.cbf1 = c1, P.cbf0 = c0;
+  } else if (k == 1) {
+    P.lf1 = c1, P.lf0 = c0;
+  } else if (k < 2 + M) {
+    P.lp0[k - 2] = c0;
+  } else if (k < 34 + M) {
+    P.sig1[k - 2 - M] = c1, P.sig0[k - 2 - M] = c0;
+  } else if (k == 34 + M) {
+    P.g11 = c1, P.g10 = c0;
+  } else {
+    P.g21 = c1, P.g20 = c0;
+  }
+}
+
+// The cum1 scan of adaptive_prices, by the warp whose lanes 2 .. M+1
+// priced the prefix contexts (their ones prices in c1): a sequential
+// float32 sum in lane 0.  Every lane of the warp must call it.
+template <int M>
+__device__ __forceinline__ void prefix_scan(float c1, int lane,
+                                            Prices<M>& P) {
+  float v[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) v[i] = __shfl_sync(0xffffffffu, c1, 2 + i);
+  if (lane == 0) {
     float acc = 0.0f;
     P.cum1[0] = acc;
-    for (int i = 0; i < M; ++i) P.cum1[i + 1] = acc = __fadd_rn(acc, s_pref[i]);
+#pragma unroll
+    for (int i = 0; i < M; ++i) P.cum1[i + 1] = acc = __fadd_rn(acc, v[i]);
     P.lp0[M] = 0.0f;
   }
-  __syncthreads();
 }
 
-// Add one row's counts to the thread block's KC counters `s_cnt`
-// (shared, zeroed by the caller): thread t < NN holds diag-packed
-// position t's level magnitude `a`; threads t >= NN mirror and add
-// nothing.  `last` is the row's last significant position (-1 for none),
-// the same in every thread.
-template <int NN, int T>
-__device__ __forceinline__ void count_row(int a, int last, int t,
-                                          int* s_cnt) {
-  static_assert(T % 32 == 0 && T >= NN, "whole warps, a thread a position");
-  using D = RateDims<NN>;
-  constexpr unsigned kMask = T >= 32 ? 0xffffffffu : (1u << T) - 1u;
-  const bool coded = last >= 0;
-  const int lastidx = coded ? last : NN - 1;
-  const bool mine = t < NN;
-  if (t == 0) {
-    int klen = 0;
+// A level's magnitude as the bits need it, in a byte: 0, 1, 2, or 3 + e
+// for a > 2 with e EG0's floor(log2(a - 2)) and XLA's deviations
+// (eg0_bits(a) == 2e + 1).
+__device__ __forceinline__ int level_code(int a) {
+  const int x = max(a - 2, 1);
+  const int e = 31 - __clz(x) - (x == 8192 || x == 32768) +
+                (x == 2097151 || x == 4194303);
+  return a <= 2 ? a : 3 + e;
+}
+
+// What a candidate block's bins need, reduced over its N lanes (every
+// lane of the group gets it): the last significant diag-packed
+// position (-1 for none), the significance of positions 0..30 as bits,
+// (significant | > 1 << 16) counts and the > 2 count.
+struct RowStats {
+  int last;
+  unsigned sig31;
+  int sig_gt1, gt2;
+};
+
+// The bins of a warp's candidate blocks, lane by lane: lane k < 31
+// holds sig context k (emitted, significant), lane k < M the last
+// position's prefix bin k (ones, totals), and each group's first lane
+// the group's scalars (16-bit fields), by batch.
+template <int NB>
+struct WarpBins {
+  int tot[NB] = {}, ones[NB] = {}, p1[NB] = {}, p0[NB] = {};
+  int sa[NB] = {}, sb[NB] = {}, sc[NB] = {}, sd[NB] = {};
+};
+
+// Add the bins of the warp's candidate blocks (32 / N groups of N lanes,
+// each lane holding its group's stats; `info`: bit 0 valid, bit 1 its
+// batch) to the warp's registers: each group's counts as bit masks (sig
+// contexts 0..30 emitted and significant, the prefix bins), lane k
+// gathering bit k of every group's masks, and the group's scalars in
+// its first lane.  No shared memory, no branch on the lane.  Every lane
+// of the warp must call it.
+template <int N, int NB>
+__device__ __forceinline__ void count_candidates(const RowStats& st, int info,
+                                                 int lane, WarpBins<NB>& acc) {
+  constexpr int NN = N * N, GW = 32 / N;
+  constexpr int M = RateDims<NN>::M;
+  constexpr unsigned kAll = 0xffffffffu;
+  const bool coded = st.last >= 0;
+  const int li = coded ? st.last : NN - 1;
+  int klen = 0;
 #pragma unroll
-    for (int k = 1; k <= D::M; ++k) klen += (lastidx + 1) >= (1 << k);
-    const bool full = coded && lastidx == NN - 1;
-    const bool nf = coded && !full;
-    s_cnt[D::kRows] += 1;
-    s_cnt[D::kCoded] += coded;
-    s_cnt[D::kFull] += full;
+  for (int k = 1; k <= M; ++k) klen += (li + 1) >= (1 << k);
+  const bool full = coded && li == NN - 1, nf = coded && !full;
+  // positions 0..30 emitted (k < last), and of them the significant
+  const unsigned em = !coded ? 0u : li >= 31 ? 0x7fffffffu : (1u << li) - 1u;
+  const unsigned one = em & st.sig31;
+  // prefix bins: ones at i < klen, totals at i <= klen
+  const unsigned pm =
+      nf ? ((1u << klen) - 1u) | (((2u << klen) - 1u) << 16) : 0u;
+  const int nsig = st.sig_gt1 & 0xffff;
+  const int tot31 = coded ? max(li - 31, 0) : 0;
+  const int one31 = coded ? nsig - __popc(st.sig31) - (li >= 31) : 0;
 #pragma unroll
-    for (int i = 0; i < D::M; ++i) {
-      s_cnt[D::kPrefOnes + i] += nf && klen > i;
-      s_cnt[D::kPrefTot + i] += nf && klen >= i;
+  for (int h = 0; h < GW; ++h) {
+    const int src = h * N;
+    const unsigned e = __shfl_sync(kAll, em, src);
+    const unsigned o = __shfl_sync(kAll, one, src);
+    const unsigned pv = __shfl_sync(kAll, pm, src);
+    const int iv = __shfl_sync(kAll, info, src);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const bool take = (iv & 1) && (iv >> 1) == b;
+      acc.tot[b] += take ? (e >> lane) & 1u : 0u;
+      acc.ones[b] += take ? (o >> lane) & 1u : 0u;
+      acc.p1[b] += take && lane < M ? (pv >> lane) & 1u : 0u;
+      acc.p0[b] += take && lane < M ? (pv >> (16 + (lane & 15))) & 1u : 0u;
     }
   }
-  const bool emitted = mine && coded && t < lastidx;
-  const bool sig_em = emitted && a > 0;
-  if (t < 31) {                          // contexts 0..30: one position each
-    if (emitted) atomicAdd(s_cnt + D::kSigTot + t, 1);
-    if (sig_em) atomicAdd(s_cnt + D::kSigOnes + t, 1);
-  }
-  // context 31 (positions >= 31) and the level totals: warp sums
-  const int tot31 = __reduce_add_sync(kMask, (int)(emitted && t >= 31));
-  const int one31 = __reduce_add_sync(kMask, (int)(sig_em && t >= 31));
-  const int n_sig = __reduce_add_sync(kMask, (int)(mine && a > 0));
-  const int n_gt1 = __reduce_add_sync(kMask, (int)(mine && a > 1));
-  const int n_gt2 = __reduce_add_sync(kMask, (int)(mine && a > 2));
-  if ((t & 31) == 0) {
-    if (tot31) atomicAdd(s_cnt + D::kSigTot + 31, tot31);
-    if (one31) atomicAdd(s_cnt + D::kSigOnes + 31, one31);
-    if (n_sig) atomicAdd(s_cnt + D::kSig, n_sig);
-    if (n_gt1) atomicAdd(s_cnt + D::kGt1, n_gt1);
-    if (n_gt2) atomicAdd(s_cnt + D::kGt2, n_gt2);
+  const bool lead = (info & 1) && (lane % N) == 0;
+  // 16-bit fields: a warp's groups hold 32 N <= 1024 positions a round;
+  // the fields are summed over the warp once, at the flush
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    const bool mine = lead && (info >> 1) == b;
+    acc.sa[b] += mine ? tot31 | one31 << 16 : 0;
+    acc.sb[b] += mine ? st.sig_gt1 : 0;
+    acc.sc[b] += mine ? st.gt2 | 1 << 16 : 0;
+    acc.sd[b] += mine ? coded | full << 16 : 0;
   }
 }
 
-// adaptive_bits of one row, by one warp (`lane` 0..31): `lev` its NN
-// diag-packed levels (device memory written by other thread blocks:
-// read through L2), `last` its last significant position (-1 for
-// none), `s_per` the warp's NN + NN/32 floats of shared scratch.
-// Returns the bits in every lane.
-template <int NN>
-__device__ __forceinline__ float row_bits(const int* lev, int last,
-                                          const Prices<RateDims<NN>::M>& P,
-                                          float* s_per, int lane) {
-  constexpr int M = RateDims<NN>::M;
-  constexpr int E = NN < 32 ? 1 : NN / 32;   // positions a lane
+// Store the warp's bins into its own KC counters a batch (`s_w`, NB x
+// KC ints), each counter by exactly one lane, zeros included: lanes
+// 24..31 the scalars, summed over the warp.  Every lane must call it.
+template <int N, int NB>
+__device__ __forceinline__ void store_bins(const WarpBins<NB>& acc, int lane,
+                                           int* s_w) {
+  using D = RateDims<N * N>;
+  constexpr int M = D::M;
+  constexpr unsigned kAll = 0xffffffffu;
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    const int sa = __reduce_add_sync(kAll, acc.sa[b]);
+    const int sb = __reduce_add_sync(kAll, acc.sb[b]);
+    const int sc = __reduce_add_sync(kAll, acc.sc[b]);
+    const int sd = __reduce_add_sync(kAll, acc.sd[b]);
+    int* c = s_w + b * D::KC;
+    if (lane < 31) {
+      c[D::kSigTot + lane] = acc.tot[b];
+      c[D::kSigOnes + lane] = acc.ones[b];
+    }
+    if (lane < M) {
+      c[D::kPrefOnes + lane] = acc.p1[b];
+      c[D::kPrefTot + lane] = acc.p0[b];
+    }
+    // the scalars, one a lane of lanes 24..31, chosen without a branch
+    const int sv = lane == 31 ? sa & 0xffff : lane == 30 ? sa >> 16
+                 : lane == 29 ? sb & 0xffff : lane == 28 ? sb >> 16
+                 : lane == 27 ? sc & 0xffff : lane == 26 ? sc >> 16
+                 : lane == 25 ? sd & 0xffff : sd >> 16;
+    const int si = lane == 31 ? D::kSigTot + 31 : lane == 30 ? D::kSigOnes + 31
+                 : lane == 29 ? D::kSig : lane == 28 ? D::kGt1
+                 : lane == 27 ? D::kGt2 : lane == 26 ? D::kRows
+                 : lane == 25 ? D::kCoded : D::kFull;
+    if (lane >= 24) c[si] = sv;
+  }
+}
+
+// The tail of adaptive_bits of a candidate block, by its group of N
+// lanes, once each position's cost is in s_per (position k at
+// k + k / 32): ordered_sum's runs of 32 (16 at N = 4) left to right, one
+// lane a run, the runs left to right, then the last position's and the
+// cbf bits.  Returns the bits in every lane of the group; every lane of
+// the warp must call it.
+template <int N>
+__device__ __forceinline__ float sum_bits(const float* s_per, int last,
+                                          const Prices<RateDims<N * N>::M>& P,
+                                          int i, int base) {
+  constexpr int NN = N * N, M = RateDims<NN>::M;
   constexpr int RUN = NN < 32 ? NN : 32;     // ordered_sum's runs
   constexpr int NR = NN / RUN;
-  const bool coded = last >= 0;
-  const int lastidx = coded ? last : NN - 1;
-#pragma unroll 4
-  for (int e = 0; e < E; ++e) {
-    const int k = 32 * e + lane;
-    if (k < NN) {
-      const int l = __ldcg(lev + k);
-      const int a = l < 0 ? -l : l;
-      const int ctx = k < 31 ? k : 31;
-      const float cost_sig =
-          coded && k < lastidx ? (a > 0 ? P.sig1[ctx] : P.sig0[ctx]) : 0.0f;
-      float tail = 0.0f;
-      if (a > 0) {
-        const float gt =
-            a > 1 ? __fadd_rn(P.g11, a > 2 ? __fadd_rn(P.g21, eg0_bits(a))
-                                           : P.g20)
-                  : P.g10;
-        tail = __fadd_rn(gt, 1.0f);
-      }
-      s_per[k + (k >> 5)] = __fadd_rn(cost_sig, tail);
-    }
-  }
   __syncwarp();
   float run = 0.0f;
-  if (lane < NR) {                       // run `lane`, left to right
-    const float* r = s_per + RUN * lane + lane;
+  if (i < NR) {                          // run i, left to right
+    const float* r = s_per + RUN * i + i;
     run = r[0];
 #pragma unroll 8
-    for (int i = 1; i < RUN; ++i) run = __fadd_rn(run, r[i]);
+    for (int e = 1; e < RUN; ++e) run = __fadd_rn(run, r[e]);
   }
-  float sum = __shfl_sync(0xffffffffu, run, 0);
-#pragma unroll 1
-  for (int i = 1; i < NR; ++i) sum = __fadd_rn(sum, __shfl_sync(0xffffffffu, run, i));
+  float sum = __shfl_sync(0xffffffffu, run, base);
+#pragma unroll
+  for (int r = 1; r < NR; ++r)
+    sum = __fadd_rn(sum, __shfl_sync(0xffffffffu, run, base + r));
   __syncwarp();                          // s_per's reads end
+  const bool coded = last >= 0;
+  const int lastidx = coded ? last : NN - 1;
   int klen = 0;
 #pragma unroll
   for (int k = 1; k <= M; ++k) klen += (lastidx + 1) >= (1 << k);
@@ -254,4 +340,48 @@ __device__ __forceinline__ float row_bits(const int* lev, int last,
   const float last_cost =
       full ? P.lf1 : __fadd_rn(__fadd_rn(P.lf0, prefix), (float)klen);
   return coded ? __fadd_rn(__fadd_rn(P.cbf1, last_cost), sum) : P.cbf0;
+}
+
+// The cost of one position under adaptive_bits: its significance bin
+// where it is emitted (before the last position), then > 1, > 2 and
+// EG0's bits (level_code's `code`), and the sign.
+template <int M>
+__device__ __forceinline__ float position_bits(int code, int k, bool coded,
+                                               int lastidx,
+                                               const Prices<M>& P) {
+  const int ctx = k < 31 ? k : 31;
+  const float cost_sig =
+      coded && k < lastidx ? (code > 0 ? P.sig1[ctx] : P.sig0[ctx]) : 0.0f;
+  float tail = 0.0f;
+  if (code > 0) {
+    const float eg0 = __fadd_rn(__fmul_rn(2.0f, (float)(code - 3)), 1.0f);
+    const float gt =
+        code > 1 ? __fadd_rn(P.g11, code > 2 ? __fadd_rn(P.g21, eg0) : P.g20)
+                 : P.g10;
+    tail = __fadd_rn(gt, 1.0f);
+  }
+  return __fadd_rn(cost_sig, tail);
+}
+
+// adaptive_bits of one candidate block by its group of N lanes (lane i
+// of the group, `base` the warp lane of its row 0): `codes` its NN
+// level_code bytes by diag-packed position, `last` its last
+// significant position (-1 for none), `s_per` the group's NN + NN/32
+// floats of shared scratch; lane i prices positions i, i + N, ....
+// Returns the bits in every lane of the group; every lane of the warp
+// must call it.
+template <int N>
+__device__ __forceinline__ float group_bits(const unsigned char* codes,
+                                            int last,
+                                            const Prices<RateDims<N * N>::M>& P,
+                                            float* s_per, int i, int base) {
+  constexpr int NN = N * N;
+  const bool coded = last >= 0;
+  const int lastidx = coded ? last : NN - 1;
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    const int k = i + N * e;
+    s_per[k + (k >> 5)] = position_bits(codes[k], k, coded, lastidx, P);
+  }
+  return sum_bits<N>(s_per, last, P, i, base);
 }

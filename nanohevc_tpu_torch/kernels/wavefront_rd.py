@@ -12,12 +12,27 @@ exact MPM bits; then the chosen block's encode tail (RDOQ in `scan`
 order when set).
 
 One kernel, `csrc/wavefront_rd.cu`, codes the whole plane batch in one
-persistent cooperative launch: per diagonal, phase A evaluates every
-(frame, slot, candidate) and counts its bins, a grid barrier, phase B
-prices the counts on the card (`csrc/rate_model.cuh`, the host's
-float32 arithmetic, each transcendental in float64 rounded once),
-decides and codes each slot, a grid barrier.  No host round trip inside
-the launch.  Its header says how it is laid out and what bounds it.
+persistent cooperative launch.  A thread block owns W consecutive slots
+of a frame; the grid holds the thread blocks of F frames, F the whole
+batch where it fits the card at once, and a block codes frames f0, f0 +
+F, ... in turn (W and F chosen so that the grid is co-resident; the
+launch is refused, and this wrapper raises, only where not one frame's
+thread blocks fit).  Per diagonal it takes its first slot's top arm, corner and the
+mode above from the tagged message of the block above, evaluates every
+candidate of its slots (`csrc/row_tail.cuh`'s row-per-lane body) and
+adds their bins to the frame's counters of that diagonal, each counter
+counting its own arrivals; once every thread block of the frame has
+added, it prices the counts on the card (`csrc/rate_model.cuh`, the
+host's float32 arithmetic, each transcendental in float64 rounded
+once), decides and codes its slots, sends its message to the block
+below and builds its next references from windows of JAX's skewed
+buffers kept in shared memory.  One synchronisation a frame and
+diagonal, no grid barrier and no fence, frames never wait for one
+another, no host round trip inside the launch.  It uses
+`csrc/intra_smooth.cuh`, `mode_sweep.cuh`'s predictors, `row_tail.cuh`
+(with `encode_tail.cuh`), `rate_model.cuh`, `rdoq_tail.cuh` and
+`wavefront_sync.cuh`; its header says how it is laid out and what
+bounds it.
 
 `wavefront_rd_encode_planes` dispatches on the device of its input: a
 CPU tensor goes to the plain loop, a CUDA tensor to the kernel (or an
@@ -49,6 +64,10 @@ from nanohevc_tpu_torch.params import qp_scalars
 MODE_SETS = {"dc_planar": 0, "all": 1}
 
 
+# cudaErrorCooperativeLaunchTooLarge: no grid of this geometry fits the
+# card at once.
+COOPERATIVE_TOO_LARGE = 720
+
 # The rate model's float32 constants, as `ops.rate` rounds them:
 # log(31/32) and log(2).
 RATE_CONSTS = (float(np.float32(np.log(rate._GAMMA))),
@@ -76,9 +95,11 @@ def _validate(planes: torch.Tensor, n: int, mode_set: str, use_dst: bool,
 def _launch(planes: torch.Tensor, qp: int, n: int, mode_set: str,
             bit_depth: int, use_dst: bool, dequant_rescale: bool,
             intra_smoothing: bool, rdoq: bool, scan: str,
-            rd_lambda_scale: float) -> tuple:
+            rd_lambda_scale: float, kern=None) -> tuple:
     """One launch of the kernel on the planes' card: (the output dict,
-    the grid's thread blocks)."""
+    the grid's thread blocks, the frames F it holds at once).  `kern`, a KernelLibrary with this C
+    entry, stands in for this package's library (another tree's build,
+    timed against this one)."""
     b, hp, wp = planes.shape
     nb = (hp // n) * (wp // n)
     dev = planes.device
@@ -87,8 +108,8 @@ def _launch(planes: torch.Tensor, qp: int, n: int, mode_set: str,
                                  device=dev),
            "modes": torch.empty((b, nb), dtype=torch.int32, device=dev)}
     if b * nb == 0:
-        return out, 0
-    kern = cuda_kernels()
+        return out, 0, 0
+    kern = kern or cuda_kernels()
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     kern.ensure_tables(index)
     all_modes = MODE_SETS[mode_set]
@@ -103,7 +124,7 @@ def _launch(planes: torch.Tensor, qp: int, n: int, mode_set: str,
     tables = rdoq_tables(n, use_dst, torch.device("cuda", index))
     scalars = (rdoq_scalars(qp, n, use_dst, dequant_rescale, rd_lambda_scale)
                if rdoq else None)
-    info = (ctypes.c_int * 2)(0, 0)
+    info = (ctypes.c_int * 3)(0, 0, 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = kern.lib.nhv_wavefront_rd(
         planes.data_ptr(), b, hp, wp, n, all_modes, int(use_dst), *q, thresh,
@@ -114,9 +135,13 @@ def _launch(planes: torch.Tensor, qp: int, n: int, mode_set: str,
         out["modes"].data_ptr(), work.data_ptr(), ctypes.addressof(info),
         stream, index,
     )
+    if rc == COOPERATIVE_TOO_LARGE:
+        raise RuntimeError(f"nhv_wavefront_rd: the thread blocks of one "
+                           f"{hp}x{wp} plane at N={n} cannot be co-resident "
+                           f"on this card (CUDA error {rc})")
     if rc != 0:
         raise RuntimeError(f"nhv_wavefront_rd failed: CUDA error {rc}")
-    return out, info[1]
+    return out, info[1], info[2]
 
 
 def wavefront_rd_encode_planes(planes: torch.Tensor, qp: int, n: int, *,
@@ -151,7 +176,7 @@ def wavefront_rd_encode_planes(planes: torch.Tensor, qp: int, n: int, *,
         from nanohevc_tpu_torch.models import wavefront as models_wf
 
         return models_wf._encode_planes_rd(planes, int(qp), n, **kw)
-    out, blocks = _launch(planes, int(qp), n, **kw)
+    out, blocks, _ = _launch(planes, int(qp), n, **kw)
     if blocks:
         fn = wavefront_rd_encode_planes
         fn.launches += 1
@@ -167,20 +192,28 @@ wavefront_rd_encode_planes.grids = 0
 wavefront_rd_encode_planes.launches_by_config = {}
 
 
-def barriers_only(planes: torch.Tensor, n: int, mode_set: str) -> int:
-    """Launch the encoder's grid for these CUDA planes through its
-    2 (nby + nbx - 1) grid barriers with an empty body (what the
-    kernel's synchronisation costs alone); writes no output and counts
-    no launch.  Returns the grid's thread blocks."""
+def barriers_only(planes: torch.Tensor, n: int, mode_set: str,
+                  kern=None) -> int:
+    """Launch the encoder's grid (without RDOQ) for these CUDA planes
+    through its synchronisation alone: per diagonal the message of the
+    block above, the frame's counters and the message for the block
+    below, with an empty body (what the kernel's synchronisation costs
+    alone); writes no output and counts no launch.  Returns the grid's thread blocks.  `kern` as
+    `_launch`'s."""
     _validate(planes, n, mode_set, False, 8, "diag")
     if planes.device.type != "cuda":
         raise ValueError("barriers_only runs on a CUDA card only")
     b, hp, wp = planes.shape
     dev = planes.device
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    work = torch.zeros(1, dtype=torch.int32, device=dev)
-    info = (ctypes.c_int * 2)(0, 0)
-    rc = cuda_kernels().lib.nhv_wavefront_rd_barriers(
+    lib = (kern or cuda_kernels()).lib
+    words = lib.nhv_wavefront_rd_work_ints(b, hp, wp, n, MODE_SETS[mode_set])
+    if words < 0:
+        raise ValueError(f"barriers_only: {b} planes of {hp}x{wp} at N={n} "
+                         f"exceed the kernel's work buffer")
+    work = torch.zeros(words, dtype=torch.int32, device=dev)
+    info = (ctypes.c_int * 3)(0, 0, 0)
+    rc = lib.nhv_wavefront_rd_barriers(
         b, hp, wp, n, MODE_SETS[mode_set], work.data_ptr(),
         ctypes.addressof(info), torch.cuda.current_stream(dev).cuda_stream,
         index)
