@@ -1112,12 +1112,14 @@ def phase_wavefront_scan_vs_plain(dev) -> dict:
     rescale rotated; QP 0/22/37/51 rotated; on a 135x240 and a 45x200
     crop (padded).  The scan turns with the body as well as with (N,
     smoothing), so that each body meets every scan with smoothing off
-    and on.  Then, each against the plain loop and run three more times,
-    each == the first: two 1080p luma planes at N=8, the DC/planar body
-    under RDOQ (diag) and the smoothed 35-mode search; and 7d's batches
-    under RDOQ as encode_sequence gives them, a batch's 8 luma planes
-    (1080p, N=8) and its 16 chroma planes (540x960, N=4).
-    Returns the worst error of each kernels-line row."""
+    and on.  Then the row schedule on grids capped at 1 and 2 thread
+    blocks: each body under RDOQ on a 138x250 crop.  Then, each against
+    the plain loop and run three more times, each == the first: two
+    1080p luma planes at N=8, the DC/planar body under RDOQ (diag) and
+    the smoothed 35-mode search; and 7d's batches under RDOQ as
+    encode_sequence gives them, a batch's 8 luma planes (1080p, N=8) and
+    its 16 chroma planes (540x960, N=4), the chroma batch on a grid of 2
+    too.  Returns the worst error of each kernels-line row."""
     kernel, plain = KERNELS["wavefront_encode_planes"][:2]
     rng = np.random.default_rng(SEED + 5)
     sizes = ((4, True), (4, False), (8, False), (16, False), (32, False))
@@ -1162,6 +1164,29 @@ def phase_wavefront_scan_vs_plain(dev) -> dict:
         if row is not None:
             worst[row] = max(worst[row], err)
     cases_s = time.perf_counter() - t0
+    # the row schedule on grids of 1 and 2 thread blocks (the word
+    # hand-off with every row waiting on a thread block that codes rows
+    # one after another): each body under RDOQ on a 138x250 crop, N and
+    # scan turning with the body
+    capped = 0
+    for b, body in enumerate(SCAN_BODIES):
+        n, use_dst = sizes[b % len(sizes)]
+        scan = rdoq_scans[1 + b % 4]
+        mode_set, decision = SCAN_BODIES[body]
+        crop_planes = stacked_planes((138, 250), 8, 1, n, dev, rng)
+        kw = dict(mode_set=mode_set, decision=decision, use_dst=use_dst,
+                  rdoq=True, scan=scan)
+        want = plain(crop_planes, 30, n, **kw)
+        for cap in (1, 2):
+            got = kernel(crop_planes, 30, n, _max_grid=cap, **kw)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            if err:
+                raise SystemExit(
+                    f"wavefront_encode_planes != plain on a grid of {cap}: "
+                    f"138x250 body={body} N={n} rdoq scan={scan}: max abs "
+                    f"err {err}")
+            capped += 1
     y = stacked_planes((H, W), 8, 1, 8, dev, rng)
     full = [(f"1080p luma N=8, {label}", y, 8, SCAN_ROWS[row][1])
             for label, row in (("DC/planar under RDOQ (diag)", "rdoq"),
@@ -1194,13 +1219,21 @@ def phase_wavefront_scan_vs_plain(dev) -> dict:
             if max_abs_err(again, first):
                 raise SystemExit(f"wavefront_encode_planes {label}: repeat "
                                  f"{rep + 1} differs from the first run")
+        if label.startswith("7d's chroma"):     # and on a grid of 2
+            err = max_abs_err(kernel(planes, 22, n, _max_grid=2, **kw), want)
+            if err:
+                raise SystemExit(f"wavefront_encode_planes {label} on a grid "
+                                 f"of 2: != plain, max abs err {err}")
+            label += ", == plain on a grid of 2 too"
         done.append(f"{label} ({time.perf_counter() - t1:.1f} s)")
     log(f"[3g] wavefront_encode_planes == plain on CUDA in {len(cases)} cases "
         f"of JAX's closed-loop XLA scan ({len(SCAN_BODIES)} bodies x N 4 "
         f"DST/4/8/16/32 x smoothing off/on; each body under RDOQ in every "
         f"scan, lambda scales 1/2.5/0.5; 8/10/12-bit; both dequant modes; "
-        f"QP 0/22/37/51; {cases_s:.1f} s), 0 values differing; at full "
-        f"size == plain and three repeats == the first: {'; '.join(done)}")
+        f"QP 0/22/37/51; {cases_s:.1f} s), 0 values differing; on grids of "
+        f"1 and 2 thread blocks in {capped} cases (each body under RDOQ, "
+        f"138x250); at full size == plain and three repeats == the first: "
+        f"{'; '.join(done)}")
     return worst
 
 

@@ -110,34 +110,11 @@
 
 #include "intra_smooth.cuh"
 #include "mode_sweep.cuh"   // c_tables and the predictors
+#include "wavefront_sync.cuh"   // the edge buffer's words, the clock
 
 constexpr int kMaxGroupRows = 8;       // W, the block rows of a group
 constexpr unsigned kTags = 32767;      // line tags 1..kTags
 constexpr int kTagShift = 17;          // pixel + 1 <= 65536 < 2^17
-
-__device__ __forceinline__ int load_relaxed(const int* p) {
-  int v;
-  asm volatile("ld.relaxed.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_relaxed(int* p, int v) {
-  asm volatile("st.relaxed.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// A spin that lasts a second is a schedule fault: end it in __trap(),
-// a CUDA error at the next synchronise, not a hang.
-__device__ __forceinline__ void check_spin(unsigned long long t0) {
-  if (global_ns() - t0 > 1000000000ull) __trap();
-}
 
 // The pixel of a shared line word once it carries `tag`.  The spin
 // reads the clock only every 1024 polls, so a word is seen one shared
@@ -152,29 +129,6 @@ __device__ __forceinline__ int poll_line(const unsigned* word, unsigned tag) {
     }
   }
   return (int)(v & ((1u << kTagShift) - 1u)) - 1;
-}
-
-// The pixel of an edge-buffer word once it is written (nonzero): 32
-// polls back to back, then __nanosleep backoff.
-__device__ __forceinline__ int poll_edge(const int* word) {
-  int v;
-  unsigned spins = 0, ns = 16;
-  unsigned long long t0 = 0;
-  while ((v = load_relaxed(word)) == 0) {
-    if (++spins < 32) continue;
-    if (t0 == 0) t0 = global_ns();
-    __nanosleep(ns);
-    if (ns < 128) ns <<= 1;
-    check_spin(t0);
-  }
-  return v - 1;
-}
-
-// The value, kept in a register: the compiler may not rematerialise it
-// (a special-register read or a parameter load) inside the block loop.
-__device__ __forceinline__ int pinned(int v) {
-  asm volatile("" : "+r"(v));
-  return v;
 }
 
 // The barrier of one block row's team: its warp, or its named barrier.
@@ -242,7 +196,7 @@ decode_kernel(const int* __restrict__ residual, const int* __restrict__ modes,
   max_pix = pinned(max_pix);
   boundary = pinned(boundary);
   const int lines_words = (group_rows - 1) * width;
-  const int tid = pinned(threadIdx.x);
+  const int tid = pinned((int)threadIdx.x);
   const int w = tid / THREADS;          // the team's row in the group
   const int t = tid % THREADS;
   const int lane = tid & 31;

@@ -27,6 +27,18 @@ struct QpScalars {
   int mf, qshift, qoffset, dscale, dq_shift, max_pix, boundary;
 };
 
+// The value, kept in a register: the compiler may not rematerialise it
+// (a special-register read, a parameter or table load) inside a loop.
+__device__ __forceinline__ int pinned(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
+__device__ __forceinline__ float pinned(float v) {
+  asm volatile("" : "+f"(v));
+  return v;
+}
+
 __device__ __forceinline__ int floor_div(int a, int b) {
   const int q = a / b;
   return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;

@@ -29,16 +29,35 @@
 // deviations (ops.rate.eg0_floor_log2).
 //
 // Layout: one thread a pixel (threads beyond N*N mirror pixel t % N*N
-// and write the same values).  A thread reads its coefficient's scan
-// position, transform gain and rate-table entries from `tables`, built
-// once per (N, DST, device) by the wrapper (kernels/wavefront.py,
-// rdoq_tables): gain by raster position, sig0, sig1 and the last
-// position's bits by scan position (float32 bits), then the scan
-// position of each raster position for the diagonal, horizontal and
-// vertical scans.  Under scan "mode" at N 4 and 8 the block's own mode
-// picks its scan (ops.scan.mode_scan_idx).  The per-position values go
-// to shared memory by scan position; block reductions find the last
-// significant position and the first minimum.
+// and write the same values).  Each thread loads its loop invariants
+// once, before the kernel's block loop (rdoq_regs): its pixel's
+// transform gain, and for each scan kind its scan position and the
+// rate-table entries there, from `tables`, built once per (N, DST,
+// device) by the wrapper (kernels/wavefront.py, rdoq_tables): gain by
+// raster position, sig0, sig1 and the last position's bits by scan
+// position (float32 bits), then the scan position of each raster
+// position for the diagonal, horizontal and vertical scans.  Under scan
+// "mode" at N 4 and 8 a thread keeps all three kinds and the block's own
+// mode picks one (ops.scan.mode_scan_idx); elsewhere it keeps one.  The
+// per-position values go to shared memory by scan position, with a pad
+// word after every 16 (rdoq_scratch_words).
+//
+// Lane roles, so that no warp runs two serial chains one after the
+// other: the distortion's and the bits' runs of 16 are one branch (lane
+// r < NN/16 takes run r of the distortion, lane NN/16 + r run r of the
+// bits, each through a pointer its lane chooses); the two carries are
+// one branch (lane 0 the distortion's, lane 1 the bits'); the total's
+// runs of 32 and their sum run in the first warp with no run of 16.
+// The carries read the runs' totals after a warp barrier (N <= 16: the
+// runs of 16 are warp 0) or a named barrier of the runs' warps (N = 32).
+// The last significant position (max) and the first minimum
+// (lexicographic, exact in any order: the least cost by an int key in
+// float order, then the least position holding it) are warp reductions
+// (redux.sync) with one exchange across the warps each.  Block-wide
+// barriers: one that ends the forward transform's reads and exchanges
+// the max, one after stage A's writes, one after the sums, one for the
+// minimum's exchange, whose reads end the scratch's (a one-warp block
+// syncs its warp instead).
 
 #pragma once
 
@@ -83,98 +102,137 @@ __device__ __forceinline__ float coef_rate(int a, float sig0, float sig1,
   return __fadd_rn(__fadd_rn(sig1, 1.0f), gt);
 }
 
-// The largest v over the thread block.
-template <int THREADS>
-__device__ __forceinline__ int block_max(int v, int t, int* s_red) {
-  constexpr unsigned kMask = THREADS >= 32 ? 0xffffffffu : (1u << THREADS) - 1u;
-  v = __reduce_max_sync(kMask, v);
-  if constexpr (THREADS > 32) {
-    if ((t & 31) == 0) s_red[t >> 5] = v;
-    __syncthreads();
-#pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) v = max(v, s_red[w]);
-  }
-  return v;
+// The words of each of the tail's three scratch arrays: N*N and a pad
+// word after every 16 positions (a scan position k lives at padded(k)),
+// so that the lanes of a warp that walk runs of 16 (17 words apart) or
+// of 32 (34 apart) fall in different shared-memory banks.
+template <int N>
+__host__ __device__ constexpr int rdoq_scratch_words() {
+  return N * N + N * N / 16;
 }
 
-// The lexicographic minimum of (c, k) over the thread block: the first
-// minimum of c, as torch.argmin takes it (float compares: -0 == +0).
-template <int THREADS>
-__device__ __forceinline__ void block_argmin(float& c, int& k, int t,
-                                             float* s_c, int* s_k) {
-  constexpr unsigned kMask = THREADS >= 32 ? 0xffffffffu : (1u << THREADS) - 1u;
-  constexpr int SPAN = THREADS < 32 ? THREADS : 32;
+__device__ __forceinline__ int padded(int k) { return k + (k >> 4); }
+
+// A thread's loop invariants (layout above): the gain of its pixel and,
+// for each scan kind it keeps, the pixel's scan position and the rate
+// table's sig0, sig1 and last-position bits there.
+template <int N>
+struct RdoqRegs {
+  static constexpr int KINDS = N <= 8 ? 3 : 1;
+  float g;
+  int k[KINDS];
+  float sig0[KINDS], sig1[KINDS], last_bits[KINDS];
+};
+
+// Load pixel p's invariants (every kind the scan "mode" may pick at N
+// 4 and 8, else the launch's scan), pinned in registers so that the
+// compiler cannot load them again inside the caller's loop.
+template <int N>
+__device__ __forceinline__ RdoqRegs<N> rdoq_regs(const RdoqArgs& rq, int p) {
+  constexpr int NN = N * N;
+  const float* tf = reinterpret_cast<const float*>(rq.tables);
+  RdoqRegs<N> r;
+  r.g = pinned(__ldg(tf + p));
 #pragma unroll
-  for (int h = 1; h < SPAN; h <<= 1) {
-    const float oc = __shfl_xor_sync(kMask, c, h);
-    const int ok = __shfl_xor_sync(kMask, k, h);
-    if (oc < c || (oc == c && ok < k)) {
-      c = oc;
-      k = ok;
-    }
+  for (int c = 0; c < RdoqRegs<N>::KINDS; ++c) {
+    const int kind = rq.scan == 3 ? c : rq.scan;   // "mode" above 8: diag
+    const int k = __ldg(rq.tables + (4 + kind) * NN + p);
+    r.k[c] = pinned(k);
+    r.sig0[c] = pinned(__ldg(tf + NN + k));
+    r.sig1[c] = pinned(__ldg(tf + 2 * NN + k));
+    r.last_bits[c] = pinned(__ldg(tf + 3 * NN + k));
   }
-  if constexpr (THREADS > 32) {
-    if ((t & 31) == 0) {
-      s_c[t >> 5] = c;
-      s_k[t >> 5] = k;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) {
-      const float oc = s_c[w];
-      const int ok = s_k[w];
-      if (oc < c || (oc == c && ok < k)) {
-        c = oc;
-        k = ok;
-      }
-    }
+  return r;
+}
+
+// v[c] of a thread's kinds, by selects (no local memory).
+template <class T, int KINDS>
+__device__ __forceinline__ T of_kind(const T (&v)[KINDS], int c) {
+  if constexpr (KINDS == 1) {
+    return v[0];
+  } else {
+    return c == 0 ? v[0] : c == 1 ? v[1] : v[2];
   }
 }
 
-// The RDOQ level of pixel p (raster) of the block, from its transform
-// coefficient and deadzone level; `mode` is the block's decided mode.
-// Every thread of the thread block must call it (it holds barriers),
-// after the reads of the forward transform.  s_zg, s_cc and s_czg are
-// the block's three N*N-word shared scratch arrays (the tail's s_x,
-// s_a, s_b), free until its dequantizer: the distortion saved by
-// zeroing, the bits, and the prefix sums of the first.  Ends in a
-// barrier, so the caller may write them again.
+// The thread block's barrier: its warp where it has one.
+template <int THREADS>
+__device__ __forceinline__ void block_sync() {
+  if constexpr (THREADS <= 32) {
+    __syncwarp(THREADS == 32 ? 0xffffffffu : (1u << THREADS) - 1u);
+  } else {
+    __syncthreads();
+  }
+}
+
+// A float's key: ints in the order of float compares.  -0 becomes +0
+// first (x + 0 is x for every other x), so that -0 == +0 as the compares
+// have it; no NaN reaches it.
+__device__ __forceinline__ int float_key(float c) {
+  const int i = __float_as_int(__fadd_rn(c, 0.0f));
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+
+__device__ __forceinline__ float key_float(int key) {
+  return __int_as_float(key >= 0 ? key : key ^ 0x7fffffff);
+}
+
+// The first minimum of (key, k) over the warp's lanes in MASK, in every
+// one of them: the least key, then the least k of the lanes that hold it
+// (two warp reductions, exact in any order).
+template <unsigned MASK>
+__device__ __forceinline__ void warp_argmin(int& key, int& k) {
+  const int least = __reduce_min_sync(MASK, key);
+  k = __reduce_min_sync(MASK, key == least ? k : 0x7fffffff);
+  key = least;
+}
+
+// The RDOQ level of the block's pixel whose invariants `rr` holds, from
+// its transform coefficient and deadzone level; `mode` is the block's
+// decided mode.  Every thread of the thread block must call it (it holds
+// barriers), right after the forward transform: its first barrier ends
+// the transform's reads of the scratch.
+// s_zg, s_cc and s_czg are the block's three shared scratch arrays of
+// rdoq_scratch_words<N>() words (the tail's s_x, s_a, s_b), free until
+// its dequantizer: the distortion saved by zeroing, the bits, and the
+// prefix sums of the first, by padded scan position.  Every read of them
+// is done when it returns, so the caller may write them again.
 template <int N, int THREADS>
-__device__ __forceinline__ int rdoq_level(int coeff, int level, int p, int t,
+__device__ __forceinline__ int rdoq_level(int coeff, int level, int t,
                                           int mode, const RdoqArgs& rq,
+                                          const RdoqRegs<N>& rr,
                                           const QpScalars& q, float* s_zg,
                                           float* s_cc, float* s_czg) {
   constexpr int NN = N * N;
   constexpr int NR16 = NN / 16;         // prefix-sum runs
   constexpr int NR32 = NN / 32;         // total's runs (0 at N = 4)
-  constexpr int W = THREADS > 32 ? THREADS / 32 : 1;
-  // roles of the serial loops, in different warps where there are some
-  constexpr int TB = THREADS >= 64 ? 32 : 1;
-  constexpr int TC = THREADS >= 96 ? 64 : 2;
-  __shared__ int s_last[W];
-  __shared__ float s_min_c[W];
-  __shared__ int s_min_k[W];
-  __shared__ float s_tot_zg[NR16], s_tot_cc[NR16];
-  __shared__ float s_carry_zg[NR16], s_carry_cc[NR16];
+  constexpr int WARPS = THREADS > 32 ? THREADS / 32 : 1;
+  // the total's runs of 32: the first warp with no run of 16
+  constexpr int T32 = (2 * NR16 + 31) / 32 * 32;
+  static_assert(NN <= 16 || T32 + NR32 <= THREADS,
+                "the total's runs need a warp of their own");
+  static_assert(WARPS <= 32, "an exchange fits one warp");
+  const int xw = (t & 31) < WARPS ? t & 31 : 0;   // a lane's warp entry
+  __shared__ int s_last[WARPS];
+  __shared__ int s_min_key[WARPS];
+  __shared__ int s_min_k[WARPS];
+  __shared__ float s_tot[2 * NR16];     // the runs' totals: distortion, bits
+  __shared__ float s_carry[2 * NR16];   // their carries, alike
   __shared__ float s_run32[NR32 > 0 ? NR32 : 1];
   __shared__ float s_total;
 
-  const int kind =
-      rq.scan == 3 ? (N <= 8 ? mode_scan_kind(mode) : 0) : rq.scan;
-  const float* tf = reinterpret_cast<const float*>(rq.tables);
-  const int k = __ldg(rq.tables + (4 + kind) * NN + p);
-  const float g = __ldg(tf + p);
-  const float sig0 = __ldg(tf + NN + k);
-  const float sig1 = __ldg(tf + 2 * NN + k);
-  const float last_bits = __ldg(tf + 3 * NN + k);
+  const int kind = RdoqRegs<N>::KINDS == 3 && rq.scan == 3
+                       ? mode_scan_kind(mode) : 0;
+  const int k = of_kind(rr.k, kind);
+  const float g = rr.g;
+  const float sig0 = of_kind(rr.sig0, kind);
+  const float sig1 = of_kind(rr.sig1, kind);
+  const float last_bits = of_kind(rr.last_bits, kind);
   const int a = level < 0 ? -level : level;
   const int sgn = level > 0 ? 1 : level < 0 ? -1 : 0;
 
-  __syncthreads();                      // the forward transform's reads end
-  int last = block_max<THREADS>(a > 0 ? k : -1, t, s_last);
-  if (last < 0) last = NN - 1;
-
-  // --- stage A: the level trim ------------------------------------------
+  // --- stage A: the level trim; its costs first, while the block
+  // gathers at the max's exchange ----------------------------------------
   const float cf = __int2float_rn(coeff);
   auto dist = [&](int aa) {
     const float d =
@@ -185,78 +243,95 @@ __device__ __forceinline__ int rdoq_level(int coeff, int level, int p, int t,
   const float dist_down = dist(down);
   const float rate_down = coef_rate(down, sig0, sig1, rq);
   const float dist_a = dist(a), rate_a = coef_rate(a, sig0, sig1, rq);
-  const bool trim =
-      a > 0 && (a > 1 || k < last) &&
+  const bool cheaper_down =
       __fadd_rn(dist_down, __fmul_rn(rq.lam, rate_down)) <
-          __fadd_rn(dist_a, __fmul_rn(rq.lam, rate_a));
+      __fadd_rn(dist_a, __fmul_rn(rq.lam, rate_a));
+
+  // the last significant scan position: a warp's max, then one exchange,
+  // whose barrier also ends the forward transform's reads
+  constexpr unsigned kMask = THREADS >= 32 ? 0xffffffffu : (1u << THREADS) - 1u;
+  int last = __reduce_max_sync(kMask, a > 0 ? k : -1);
+  if constexpr (WARPS > 1) {
+    if ((t & 31) == 0) s_last[t >> 5] = last;
+  }
+  block_sync<THREADS>();
+  if constexpr (WARPS > 1)
+    last = __reduce_max_sync(0xffffffffu, s_last[xw]);
+  if (last < 0) last = NN - 1;
+
+  const bool trim = a > 0 && (a > 1 || k < last) && cheaper_down;
   const int kept = trim ? down : a;
   const float ccoef = trim ? rate_down : rate_a;
   const float dist_zero = __fmul_rn(__fmul_rn(g, cf), cf);
-  s_zg[k] = __fsub_rn(dist_zero, trim ? dist_down : dist_a);
-  s_cc[k] = ccoef;
-  __syncthreads();
+  s_zg[padded(k)] = __fsub_rn(dist_zero, trim ? dist_down : dist_a);
+  s_cc[padded(k)] = ccoef;
+  block_sync<THREADS>();
 
   // --- stage B: the sums in XLA's order -----------------------------------
   if constexpr (NN <= 16) {             // one left-to-right scan each
-    if (t == 0) {
-      float acc = s_zg[0];
-      s_czg[0] = acc;
-      for (int e = 1; e < NN; ++e) s_czg[e] = acc = __fadd_rn(acc, s_zg[e]);
-      s_total = acc;                    // a 16-term sum is the last prefix
+    if (t < 2) {                        // lane 0 the distortion, 1 the bits
+      const float* src = t ? s_cc : s_zg;
+      float* dst = t ? s_cc : s_czg;
+      float v[NN];                      // every load before the stores
+#pragma unroll
+      for (int e = 0; e < NN; ++e) v[e] = src[e];
+      float acc = v[0];
+      dst[0] = acc;
+#pragma unroll
+      for (int e = 1; e < NN; ++e) dst[e] = acc = __fadd_rn(acc, v[e]);
+      if (t == 0) s_total = acc;        // a 16-term sum is the last prefix
     }
-    if (t == TB) {
-      float acc = s_cc[0];
-      for (int e = 1; e < NN; ++e) s_cc[e] = acc = __fadd_rn(acc, s_cc[e]);
-    }
-    __syncthreads();
   } else {
-    if (t < NR16) {                     // the distortion's runs of 16
-      const int b = 16 * t;
-      float acc = s_zg[b];
-      s_czg[b] = acc;
+    if (t < 2 * NR16) {                 // the runs of 16, both arrays
+      const bool bits = t >= NR16;
+      const int b = 17 * (bits ? t - NR16 : t);   // padded(16 r)
+      const float* src = (bits ? s_cc : s_zg) + b;
+      float* dst = (bits ? s_cc : s_czg) + b;     // the bits in place
+      float v[16];                      // every load before the stores
 #pragma unroll
-      for (int e = 1; e < 16; ++e)
-        s_czg[b + e] = acc = __fadd_rn(acc, s_zg[b + e]);
-      s_tot_zg[t] = acc;
-    } else if (t < 2 * NR16) {          // the bits' runs of 16, in place
-      const int r = t - NR16, b = 16 * r;
-      float acc = s_cc[b];
+      for (int e = 0; e < 16; ++e) v[e] = src[e];
+      float acc = v[0];
+      dst[0] = acc;
 #pragma unroll
-      for (int e = 1; e < 16; ++e)
-        s_cc[b + e] = acc = __fadd_rn(acc, s_cc[b + e]);
-      s_tot_cc[r] = acc;
-    } else if (t < 2 * NR16 + NR32) {   // the total's runs of 32
-      const int r = t - 2 * NR16, b = 32 * r;
-      float acc = s_zg[b];
+      for (int e = 1; e < 16; ++e) dst[e] = acc = __fadd_rn(acc, v[e]);
+      s_tot[t] = acc;
+    } else if (t >= T32 && t < T32 + NR32) {      // the total's runs of 32
+      const float* src = s_zg + 34 * (t - T32);   // padded(32 r)
+      float acc = src[0];
 #pragma unroll
-      for (int e = 1; e < 32; ++e) acc = __fadd_rn(acc, s_zg[b + e]);
-      s_run32[r] = acc;
+      for (int e = 1; e < 16; ++e) acc = __fadd_rn(acc, src[e]);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) acc = __fadd_rn(acc, src[17 + e]);
+      s_run32[t - T32] = acc;
     }
-    __syncthreads();
-    if (t == 0) {                       // carries over the runs
-      float acc = s_tot_zg[0];
-      s_carry_zg[0] = acc;
-      for (int r = 1; r < NR16 - 1; ++r)
-        s_carry_zg[r] = acc = __fadd_rn(acc, s_tot_zg[r]);
+    // the runs' totals to the carries' lanes, the runs of 32 to theirs
+    if constexpr (2 * NR16 <= 32) {
+      if (t < 32) __syncwarp();
+    } else {
+      if (t < 2 * NR16)
+        asm volatile("bar.sync 1, %0;" ::"n"(2 * NR16) : "memory");
     }
-    if (t == TB) {
-      float acc = s_tot_cc[0];
-      s_carry_cc[0] = acc;
-      for (int r = 1; r < NR16 - 1; ++r)
-        s_carry_cc[r] = acc = __fadd_rn(acc, s_tot_cc[r]);
-    }
-    if (t == TC) {                      // the runs' sums, left to right
+    if (t >= T32 && t < T32 + 32) __syncwarp();
+    if (t < 2) {                        // lane 0 the distortion, 1 the bits
+      const float* src = s_tot + t * NR16;
+      float* dst = s_carry + t * NR16;
+      float acc = src[0];
+      dst[0] = acc;
+#pragma unroll 4
+      for (int r = 1; r < NR16 - 1; ++r) dst[r] = acc = __fadd_rn(acc, src[r]);
+    } else if (t == T32) {              // the runs' sums, left to right
       float acc = s_run32[0];
+#pragma unroll 4
       for (int r = 1; r < NR32; ++r) acc = __fadd_rn(acc, s_run32[r]);
       s_total = acc;
     }
-    __syncthreads();
   }
+  block_sync<THREADS>();
   const int run = k >> 4;
-  float cum_zg = s_czg[k], cum_cc = s_cc[k];
+  float cum_zg = s_czg[padded(k)], cum_cc = s_cc[padded(k)];
   if (NN > 16 && run > 0) {
-    cum_zg = __fadd_rn(s_carry_zg[run - 1], cum_zg);
-    cum_cc = __fadd_rn(s_carry_cc[run - 1], cum_cc);
+    cum_zg = __fadd_rn(s_carry[run - 1], cum_zg);
+    cum_cc = __fadd_rn(s_carry[NR16 + run - 1], cum_cc);
   }
   const float total = s_total;
   const float suffix = __fsub_rn(total, cum_zg);      // over positions > k
@@ -264,11 +339,25 @@ __device__ __forceinline__ int rdoq_level(int coeff, int level, int p, int t,
   const float rate_p =
       __fadd_rn(__fadd_rn(__fadd_rn(rq.cbf1, last_bits), prefix),
                 __fsub_rn(ccoef, sig1));
-  float best = kept > 0 ? __fadd_rn(__fmul_rn(rq.lam, rate_p), suffix)
-                        : CUDART_INF_F;
+  int best = float_key(kept > 0
+                           ? __fadd_rn(__fmul_rn(rq.lam, rate_p), suffix)
+                           : CUDART_INF_F);
   int best_k = k;
-  block_argmin<THREADS>(best, best_k, t, s_min_c, s_min_k);
-  const bool all_zero = __fadd_rn(rq.lam_cbf0, total) <= best;
-  __syncthreads();                      // the scratch's reads end
+
+  // --- the first minimum: a warp's, then one exchange -------------------
+  warp_argmin<kMask>(best, best_k);
+  if constexpr (WARPS > 1) {
+    if ((t & 31) == 0) {
+      s_min_key[t >> 5] = best;
+      s_min_k[t >> 5] = best_k;
+    }
+    __syncthreads();                    // also: the scratch's reads end
+    best = s_min_key[xw];
+    best_k = s_min_k[xw];
+    warp_argmin<0xffffffffu>(best, best_k);
+  } else {
+    block_sync<THREADS>();              // the scratch's reads end
+  }
+  const bool all_zero = __fadd_rn(rq.lam_cbf0, total) <= key_float(best);
   return k <= best_k && !all_zero ? sgn * kept : 0;
 }

@@ -20,9 +20,9 @@
 // One kernel, templated on N in {4, 8, 16, 32}, on the body's shape
 // (one fixed mode; the pair DC / planar, K4's energy body of
 // dc_planar.cuh or, by SAD or SATD, the pair through mode_sweep.cuh; the
-// 35-mode sweep of mode_sweep.cuh, shared with mode_search.cu) and on
-// the cost; smoothing (intra_smooth.cuh, shared with decode.cu), RDOQ
-// (rdoq_tail.cuh) and its scan are switches taken once a block.  Same
+// 35-mode sweep of mode_sweep.cuh, shared with mode_search.cu), on the
+// cost and on RDOQ (rdoq_tail.cuh); smoothing (intra_smooth.cuh, shared
+// with decode.cu) and RDOQ's scan are switches taken once a block.  Same
 // arithmetic, bit for bit, as the plain loop
 // kernels/wavefront.py::wavefront_encode_planes_reference, which codes
 // one anti-diagonal (by + bx == d) at a time.  A block's references
@@ -48,31 +48,37 @@
 // Design: one persistent launch per call.  The work unit is a block
 // row (plane f, row by).  A thread block takes a ticket from a global
 // counter, in the order (by outer, f inner), codes its row left to
-// right, and takes the next ticket.  Before block bx it waits until
-// progress[f][by-1] > bx; after it, it publishes progress[f][by] =
-// bx + 1.  A row waits only on a lower ticket, held by a thread block
-// that is already running, so the schedule cannot deadlock whatever the
-// grid size and occupancy; the grid is the occupancy limit times the SM
-// count (at most one thread block a row).  The left neighbour is this
-// thread block's own previous block: the threads of its right column
-// keep their pixel in a register for the next block's left arm, and
-// thread 0 keeps its T[N] as the next block's corner.  Only the top arm
-// comes from the reconstruction in device memory.  Levels go to
-// (B, nb, N, N) raster blocks, modes to (B, nb); the wrapper zeroes
-// the ticket and the progress flags, and every recon pixel is written
-// before it is read.
+// right, and takes the next ticket.  A row waits only on the row above
+// it, a lower ticket held by a thread block that is already running, so
+// the schedule cannot deadlock whatever the grid size and occupancy; the
+// grid is the occupancy limit times the SM count (at most one thread
+// block a row), or the caller's cap, which only the tests of the
+// schedule set.  The left neighbour is this thread block's own previous
+// block: the threads of its right column keep their pixel in a register
+// for the next block's left arm, and thread 0 keeps its T[N] as the next
+// block's corner.  Only the top arm comes from another thread block.
+// Levels go to (B, nb, N, N) raster blocks, modes to (B, nb).
 //
-// Memory ordering.  The L1 is not coherent across SMs.  Publish: the N
-// threads of the block's bottom row (the pixels the row below reads,
-// one warp's lanes) store their recon pixels, __syncwarp(), then one of
-// them makes a st.release.gpu of the flag (a release fence at device
-// scope, which orders the stores the warp barrier ordered before it).
-// Wait: thread 0 spins on ld.acquire.gpu with __nanosleep backoff (and
-// keeps the last value it read, so a row that is ahead costs no load),
-// then __syncwarp(); the lanes of warp 0 read the top arm with __ldcg
-// (L2, never L1) and a __syncthreads() hands it to the block.  A spin
-// that lasts a second ends in __trap(), so a schedule fault is a CUDA
-// error at the next synchronise, not a hang.  Shared memory needs no
+// The hand-off (wavefront_sync.cuh): self-announcing words, no flag and
+// no fence.  The work buffer holds, after the ticket, an edge buffer of
+// one line of `width` words under each block row of each plane but the
+// last, zeroed by the wrapper in the same allocation as the ticket.  The
+// N threads of a block's bottom row store their pixel + 1 into their
+// words with st.relaxed.gpu, first of the block's stores; lanes t < N of
+// warp 0 of the row below each poll their own word with ld.relaxed.gpu
+// (32 polls back to back, then __nanosleep backoff, __trap() after a
+// second) and take the pixel from it, so one L2 round trip both waits
+// and reads.  In the 35-mode sweep without RDOQ they also load the next
+// block's words while this block computes, so a row that trails the row
+// above finds them written and polls not at all (about 5 % off the search
+// at N=8 on an H100 80GB HBM3 at 700 W; no gain elsewhere,
+// tools/wavefront_variants.py).  Each word is written once a launch (a
+// recon pixel is coded once), after the zeroing, so "nonzero" is all the
+// tag it needs: a stale word cannot exist within a launch, and each word
+// carries its own data, so no release or acquire ordering is needed.
+// The recon, levels and modes are stored after the publish; nothing in
+// the launch reads them, and the kernel's end makes them visible.
+// Shared memory needs no
 // barrier between blocks: every shared read of a block comes before the
 // first barrier of its tail, every shared write of the next block after
 // the last one.
@@ -81,9 +87,12 @@
 // search body max(N*N, 16N), so that 16 (32 at N = 32) groups of N
 // lanes sweep the 35 modes in 3 (2) passes (mode_sweep.cuh); threads
 // beyond N*N mirror pixel t % N*N in the tail, writing the same values.
-// Smoothing adds one barrier a block; RDOQ adds block reductions and
-// serial float32 loops of up to 32 (within a run) and 63 (across runs)
-// adds to every block of the dependency chain.
+// Smoothing adds one barrier a block; RDOQ (rdoq_tail.cuh) adds four
+// block barriers (at N = 32 also a barrier of the four warps that hold
+// its runs of 16), warp reductions, and serial float32 loops of up to 32
+// (within a run) and 63 (across runs) adds, in lanes of different warps,
+// to every block of the dependency chain; each thread loads its RDOQ
+// table entries once, before the block loop, into registers.
 //
 // What bounds it on the card: the dependency chain, not bytes or
 // operations.  A plane is nby + nbx - 1 block latencies long (374 at
@@ -119,13 +128,13 @@ struct BodyArgs {
   unsigned long long filter_mask;
 };
 
-template <int N, int BODY, int COST>
+template <int N, int BODY, int COST, bool RDOQ>
 __global__ void __launch_bounds__(wavefront_threads<N, BODY>())
 wavefront_kernel(const int* __restrict__ planes, int* recon, int batch,
                  int height, int width, int nby, int nbx, int t_offset,
                  QpScalars q, BodyArgs body, RdoqArgs rq,
                  int* __restrict__ levels, int* __restrict__ modes,
-                 int* ticket, int* progress) {
+                 int* ticket, int* edge) {
   constexpr int NN = N * N;
   constexpr int R = 2 * N + 1;          // one reference arm, corner at 0
   constexpr int THREADS = wavefront_threads<N, BODY>();
@@ -137,26 +146,34 @@ wavefront_kernel(const int* __restrict__ planes, int* recon, int batch,
       BODY == kBodySweep || (BODY == kBodyPair && COST != kCostEnergy);
   using Scratch =
       typename std::conditional<SWEEP, SweepScratch<N, THREADS>, int>::type;
+  // the 35-mode sweep's blocks are long enough for the next block's words
+  // to land while they compute: without RDOQ it loads them ahead (5 % off
+  // the search at N=8; about 1 % slower under RDOQ and in the shorter
+  // bodies, tools/wavefront_variants.py)
+  constexpr bool PREFETCH = BODY == kBodySweep && !RDOQ;
+
+  // the tail's scratch, padded for RDOQ's runs
+  constexpr int SCR = RDOQ ? rdoq_scratch_words<N>() : NN;
 
   __shared__ int s_t[NN];               // T[i][k] at i*N + k
   __shared__ int s_tt[NN];              // T[j][k] at k*N + j
-  __shared__ int s_x[NN];
-  __shared__ int s_a[NN];
-  __shared__ int s_b[NN];
+  __shared__ int s_x[SCR];
+  __shared__ int s_a[SCR];
+  __shared__ int s_b[SCR];
   __shared__ int s_ref[2 * R];          // top arm | left arm
   __shared__ int s_fref[N > 4 ? 2 * R : 1];   // the same, filtered
   __shared__ int s_row;
   __shared__ Scratch s_sweep;
 
-  // warp 0 (the top arm), and the bottom row's lanes (the publish)
+  // warp 0, which reads the top arm
   constexpr unsigned kWarp0 = THREADS >= 32 ? 0xffffffffu : (1u << THREADS) - 1u;
-  constexpr unsigned kBottom =
-      N == 32 ? 0xffffffffu : ((1u << N) - 1u) << ((NN - N) % 32);
   const int t = threadIdx.x;
   const int p = t % NN;                 // pixel (threads >= N*N mirror)
   const int i = p / N, j = p % N;
   s_t[p] = c_tables[t_offset + p];
   s_tt[p] = c_tables[t_offset + j * N + i];
+  // the RDOQ tail's invariants, once, for every block of every row
+  const RdoqRegs<N> rr = RDOQ ? rdoq_regs<N>(rq, p) : RdoqRegs<N>{};
 
   const int rows = batch * nby;
   for (;;) {
@@ -168,11 +185,13 @@ wavefront_kernel(const int* __restrict__ planes, int* recon, int batch,
     const size_t plane_off = (size_t)f * height * width;
     const int* plane = planes + plane_off;
     int* rec = recon + plane_off;
-    const int* above = progress + (size_t)f * nby + by - 1;
-    int* mine = progress + (size_t)f * nby + by;
+    // the edge lines this row reads (by > 0) and writes (by < nby - 1)
+    const size_t line = (size_t)f * (nby - 1) + by;
+    const int* above = by > 0 ? edge + (line - 1) * width : nullptr;
+    int* below = by < nby - 1 ? edge + line * width : nullptr;
     const int y0 = by * N;
-    int seen = 0;       // thread 0: the last value of *above it read
     int corner = 0;     // thread 0: the previous block's T[N]
+    int ahead = 0;      // lanes t < N: block bx + 1's word, if written
     int right = 0;      // threads (i, N-1): the previous block's pixel
 
 #pragma unroll 1
@@ -182,11 +201,12 @@ wavefront_kernel(const int* __restrict__ planes, int* recon, int batch,
 
       // --- references (availability rule; extensions never read) -----
       if (t < 32) {                     // warp 0: the top arm
-        if (by > 0 && t == 0 && seen <= bx) seen = wait_above(above, bx);
-        __syncwarp(kWarp0);
         int v = q.boundary;
-        if (by > 0 && t < N)
-          v = __ldcg(rec + (size_t)(y0 - 1) * width + x0 + t);
+        if (by > 0 && t < N) {          // its own word, then the next's
+          v = ahead ? ahead - 1 : poll_edge(above + x0 + t);
+          if constexpr (PREFETCH)
+            ahead = bx + 1 < nbx ? load_relaxed(above + x0 + N + t) : 0;
+        }
         const int tn = __shfl_sync(kWarp0, v, N - 1);   // T[N]
         if (t < N) {
           s_ref[1 + t] = v;
@@ -249,10 +269,10 @@ wavefront_kernel(const int* __restrict__ planes, int* recon, int batch,
 
       // --- transform, quantize (RDOQ), reconstruct (shared tail) --------
       int level, r;
-      if (rq.scan >= 0) {               // uniform over the launch
+      if constexpr (RDOQ) {
         auto rdoq = [&](int coeff, int lev) {
           return rdoq_level<N, THREADS>(
-              coeff, lev, p, t, mode, rq, q, reinterpret_cast<float*>(s_x),
+              coeff, lev, t, mode, rq, rr, q, reinterpret_cast<float*>(s_x),
               reinterpret_cast<float*>(s_a), reinterpret_cast<float*>(s_b));
         };
         transform_quant_recon<N>(s_t, s_tt, s_x, s_a, s_b, i, j, x - pred,
@@ -262,13 +282,12 @@ wavefront_kernel(const int* __restrict__ planes, int* recon, int batch,
                                  pred, q, level, r);
       }
 
+      // --- the hand-off, then the outputs -------------------------------
       if (t < NN) {
+        if (i == N - 1 && below != nullptr)   // the row below reads these N
+          store_relaxed(below + x0 + j, r + 1);
         rec[(size_t)(y0 + i) * width + x0 + j] = r;
         if (j == N - 1) right = r;
-        if (i == N - 1) {               // the row below reads these N
-          __syncwarp(kBottom);
-          if (j == N - 1) store_release(mine, bx + 1);
-        }
         const size_t g = (size_t)f * nby * nbx + (size_t)by * nbx + bx;
         levels[g * NN + p] = level;
         if (p == 0) modes[g] = mode;
@@ -284,13 +303,14 @@ struct Launch {
   BodyArgs body;
   RdoqArgs rq;
   int *recon, *levels, *modes, *work, *grids;
+  int max_grid;
   cudaStream_t stream;
 };
 
 // One persistent launch on the call's stream; `grids` gets the grids
 // launched.
-template <int N, int BODY, int COST>
-static int run(const Launch& a) {
+template <int N, int BODY, int COST, bool RDOQ>
+static int launch(const Launch& a) {
   constexpr int threads = wavefront_threads<N, BODY>();
   const int nby = a.height / N, nbx = a.width / N;
   int device = 0, sms = 0, per_sm = 0;
@@ -299,17 +319,26 @@ static int run(const Launch& a) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, wavefront_kernel<N, BODY, COST>, threads, 0);
+        &per_sm, wavefront_kernel<N, BODY, COST, RDOQ>, threads, 0);
   if (err != cudaSuccess) return (int)err;
   const int rows = a.batch * nby;
   const int resident = per_sm * sms > 0 ? per_sm * sms : 1;
-  const int grid = rows < resident ? rows : resident;
-  wavefront_kernel<N, BODY, COST><<<grid, threads, 0, a.stream>>>(
+  int grid = rows < resident ? rows : resident;
+  if (a.max_grid > 0 && grid > a.max_grid) grid = a.max_grid;
+  wavefront_kernel<N, BODY, COST, RDOQ><<<grid, threads, 0, a.stream>>>(
       a.planes, a.recon, a.batch, a.height, a.width, nby, nbx, a.t_offset,
       a.q, a.body, a.rq, a.levels, a.modes, a.work, a.work + 1);
   err = cudaGetLastError();
   if (err == cudaSuccess) *a.grids += 1;
   return (int)err;
+}
+
+// RDOQ is a template switch, so that the kernels without it keep no
+// registers for it.
+template <int N, int BODY, int COST>
+static int run(const Launch& a) {
+  return a.rq.scan >= 0 ? launch<N, BODY, COST, true>(a)
+                        : launch<N, BODY, COST, false>(a);
 }
 
 template <int N, int BODY>
@@ -354,10 +383,12 @@ extern "C" int nhv_upload_tables(const int* host, int count, int device) {
 // on the device (rdoq_tail.cuh) and `rdoq_scalars` the 7 host float32
 // scalars of RdoqArgs in their order.  `recon` (batch, height, width) is
 // written whole; levels (batch, nb, n, n) and modes (batch, nb) in
-// raster block order.  `work` is 1 + batch * (height / n) zeroed ints on
-// the device: the ticket counter, then the progress flag of each block
-// row.  Launches one grid on `stream` without synchronising and adds the
-// grids it launched to *grids; returns the CUDA error of the launch, or
+// raster block order.  `work` is 1 + batch * (height / n - 1) * width
+// zeroed ints on the device: the ticket counter, then the edge buffer
+// (a line of width words under each block row of each plane but the
+// last).  Launches one grid of at most max_grid thread blocks (0: the
+// occupancy limit) on `stream` without synchronising and adds the grids
+// it launched to *grids; returns the CUDA error of the launch, or
 // cudaSuccess.
 extern "C" int nhv_wavefront_encode(
     const int* planes, int batch, int height, int width, int n, int body,
@@ -365,7 +396,7 @@ extern "C" int nhv_wavefront_encode(
     int dscale, int dq_shift, int max_pix, int boundary, int strong_thresh,
     unsigned long long filter_mask, int rdoq_scan, const int* rdoq_tables,
     const float* rdoq_scalars, int* recon, int* levels, int* modes,
-    int* work, int* grids, void* stream, int device) {
+    int* work, int* grids, int max_grid, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0 || batch < 0 || height % n != 0 || width % n != 0 ||
@@ -373,7 +404,8 @@ extern "C" int nhv_wavefront_encode(
       cost > kCostSatd || (fixed_mode != 0 && fixed_mode != 1) ||
       (use_dst && n != 4) || (filter_mask >> 35) != 0 ||
       (n == 4 && filter_mask != 0) || rdoq_scan < -1 || rdoq_scan > 3 ||
-      (rdoq_scan >= 0 && (rdoq_tables == nullptr || rdoq_scalars == nullptr)))
+      (rdoq_scan >= 0 && (rdoq_tables == nullptr || rdoq_scalars == nullptr)) ||
+      max_grid < 0)
     return (int)cudaErrorInvalidValue;
   if (batch == 0 || height == 0 || width == 0) return (int)cudaSuccess;
   Launch a;
@@ -399,6 +431,7 @@ extern "C" int nhv_wavefront_encode(
   a.modes = modes;
   a.work = work;
   a.grids = grids;
+  a.max_grid = max_grid;
   a.stream = (cudaStream_t)stream;
   switch (n) {
     case 4: return run_body<4>(body, cost, a);

@@ -163,7 +163,8 @@ struct Rd {
   static constexpr int CW = GA * N / 32;           // candidate warps
   static constexpr int TILE = N * (N + 1);
   static constexpr int SCRATCH =
-      cmax(cmax(2 * GA * TILE, GA * (NN + NN / 32)), 5 * NN);
+      cmax(cmax(2 * GA * TILE, GA * (NN + NN / 32)),
+           2 * NN + 3 * rdoq_scratch_words<N>());
   // thread blocks an SM must hold for a 1080p luma plane at WPREF
   static constexpr int MINB = ALL && N <= 8 ? 2 : 1;
 };
@@ -802,8 +803,8 @@ wavefront_rd_kernel(RdArgs a) {
         int* st = s_scr;                  // T, T^T and the tail's scratch
         int* stt = st + NN;
         int* sx = stt + NN;
-        int* sa = sx + NN;
-        int* sb_ = sa + NN;
+        int* sa = sx + rdoq_scratch_words<N>();
+        int* sb_ = sa + rdoq_scratch_words<N>();
         st[p] = c_tables[a.t_offset + p];
         stt[p] = c_tables[a.t_offset + pj * N + pi];
 #pragma unroll 1
@@ -826,7 +827,8 @@ wavefront_rd_kernel(RdArgs a) {
           int level, rec;
           if (rdoq) {
             auto adjust = [&](int coeff, int lv) {
-              return rdoq_level<N, T>(coeff, lv, p, t, mode, a.rq, a.q,
+              return rdoq_level<N, T>(coeff, lv, t, mode, a.rq,
+                                      rdoq_regs<N>(a.rq, p), a.q,
                                       reinterpret_cast<float*>(sx),
                                       reinterpret_cast<float*>(sa),
                                       reinterpret_cast<float*>(sb_));

@@ -51,11 +51,11 @@ SIGNATURES = {
     "mode_search": {"nhv_mode_search_encode": _ENCODE_ARGS},
     # planes, batch, height, width, n, body, cost, fixed_mode, use_dst,
     # 7 QpScalars, strong_thresh, filter_mask, rdoq_scan, rdoq_tables,
-    # rdoq_scalars (host), recon, levels, modes, work, grids, stream,
-    # device
+    # rdoq_scalars (host), recon, levels, modes, work, grids, max_grid,
+    # stream, device
     "wavefront": {"nhv_wavefront_encode":
                   [_P] + [_I] * 8 + [_I] * 7 + [_I, ctypes.c_ulonglong, _I]
-                  + [_P] * 8 + [_I]},
+                  + [_P] * 7 + [_I, _P, _I]},
     # blocks, refs, nb, n, 7 QpScalars, recon, levels, stream, device
     "fused_pipeline": {"nhv_fused_encode":
                        [_P, _P, _I, _I] + [_I] * 7 + [_P, _P, _P, _I]},

@@ -32,9 +32,9 @@ once.  A block's references come from the reconstruction with the
 clamps of `ops.extract_refs_at`, which on a zero-filled reconstruction
 written one diagonal at a time is the closed loop's availability rule.
 The kernel codes the same blocks in one launch, block row by block
-row, each row one block behind the row above (per-row ready flags);
-it writes the rule's extensions instead of reading them, so the
-order gives the same result.  RDOQ prices each block with the static
+row, each row one block behind the row above (each block's bottom line
+handed down as self-announcing words); it writes the rule's extensions
+instead of reading them, so the order gives the same result.  RDOQ prices each block with the static
 rate table, alone, so neither the order nor the batch moves it.
 
 `wavefront_encode_planes` dispatches on the device of its input: a
@@ -185,13 +185,18 @@ def wavefront_encode_planes_reference(
             "modes": modes.reshape(b, nby * nbx)}
 
 
+def constant_table() -> np.ndarray:
+    """The kernel's constant table (layout in csrc/mode_sweep.cuh): the
+    transform matrices, then the angular modes' angles."""
+    return np.concatenate([transform_table(), angle_table()])
+
+
 @lru_cache(maxsize=None)
 def cuda_kernels():
     """Build (at first use) and load this kernel's CUDA library."""
     from nanohevc_tpu_torch.kernels.build import KernelLibrary
 
-    return KernelLibrary("wavefront",
-                         np.concatenate([transform_table(), angle_table()]))
+    return KernelLibrary("wavefront", constant_table())
 
 
 @lru_cache(maxsize=None)
@@ -268,48 +273,40 @@ def validate_planes(what: str, planes: torch.Tensor, n: int, bit_depth: int,
         raise ValueError(f"unsupported device: {planes.device}")
 
 
-def wavefront_encode_planes(planes: torch.Tensor, qp: int, n: int, *,
-                            mode_set: str = "dc_planar",
-                            decision: str = "energy", bit_depth: int = 8,
-                            use_dst: bool = False,
-                            dequant_rescale: bool = False,
-                            intra_smoothing: bool = False,
-                            rdoq: bool = False, scan: str = "diag",
-                            rd_lambda_scale: float = 1.0) -> dict:
-    """(B, Hp, Wp) block-aligned int32 planes -> dict(recon, levels,
-    modes), as `wavefront_encode_planes_reference` describes, for the
-    configurations `wavefront_covers` admits.
+def work_ints(batch: int, hp: int, wp: int, n: int) -> int:
+    """Zeroed int32 words the kernel needs: the ticket counter, then the
+    edge buffer, a line of Wp words under each block row of each plane
+    but the last (csrc/wavefront.cu, the hand-off)."""
+    return 1 + batch * max(hp // n - 1, 0) * wp
 
-    qp is a static Python int.  On a CUDA tensor this runs the
-    hand-written kernel, one persistent grid launch per call, on the
-    current stream (no synchronisation), adds one to
-    `wavefront_encode_planes.launches` and the grids the C call
-    launched to `wavefront_encode_planes.grids`, and counts the launch
-    in `wavefront_encode_planes.launches_by_config` under (mode_set,
-    decision, smoothing, rdoq); on a CPU tensor it runs the plain
-    version.  `scan` matters under `rdoq` only (the levels come back in
-    raster order).
-    """
-    validate_planes("wavefront_encode_planes", planes, n, bit_depth, scan,
-                    wavefront_covers(n, mode_set, decision, use_dst),
-                    f"n={n}, mode_set={mode_set!r}, decision={decision!r}, "
-                    f"use_dst={use_dst}")
-    kw = dict(mode_set=mode_set, decision=decision, bit_depth=bit_depth,
-              use_dst=use_dst, dequant_rescale=dequant_rescale,
-              intra_smoothing=intra_smoothing, rdoq=rdoq, scan=scan,
-              rd_lambda_scale=rd_lambda_scale)
-    if planes.device.type == "cpu":
-        return wavefront_encode_planes_reference(planes, qp, n, **kw)
+
+def _outputs(planes: torch.Tensor, n: int) -> dict:
+    """The kernel's outputs for (B, Hp, Wp) planes, unwritten: recon
+    (every pixel written by the kernel), levels (B, nb, N, N), modes
+    (B, nb)."""
     b, hp, wp = planes.shape
     nb = (hp // n) * (wp // n)
     dev = planes.device
-    recon = torch.empty_like(planes)       # the kernel writes every pixel
-    levels = torch.empty((b, nb, n, n), dtype=torch.int32, device=dev)
-    modes = torch.empty((b, nb), dtype=torch.int32, device=dev)
-    out = {"recon": recon, "levels": levels, "modes": modes}
-    if b * nb == 0:
-        return out
-    kern = cuda_kernels()
+    return {"recon": torch.empty_like(planes),
+            "levels": torch.empty((b, nb, n, n), dtype=torch.int32,
+                                  device=dev),
+            "modes": torch.empty((b, nb), dtype=torch.int32, device=dev)}
+
+
+def _launch(kern, planes: torch.Tensor, qp: int, n: int, *,
+            mode_set: str = "dc_planar", decision: str = "energy",
+            bit_depth: int = 8, use_dst: bool = False,
+            dequant_rescale: bool = False, intra_smoothing: bool = False,
+            rdoq: bool = False, scan: str = "diag",
+            rd_lambda_scale: float = 1.0,
+            max_grid: int = 0) -> tuple[dict, int]:
+    """One launch of `kern`'s nhv_wavefront_encode (this package's
+    library, or a tool's build of another tree or an edited copy) on
+    the current stream, with a grid of at most max_grid thread blocks
+    (0: no cap): (dict(recon, levels, modes), grids launched)."""
+    b, hp, wp = planes.shape
+    dev = planes.device
+    out = _outputs(planes, n)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     kern.ensure_tables(index)
     q = qp_scalars(qp, n, bit_depth, dequant_rescale)
@@ -322,8 +319,7 @@ def wavefront_encode_planes(planes: torch.Tensor, qp: int, n: int, *,
         tables = rdoq_tables(n, use_dst, torch.device("cuda", index))
         scalars = rdoq_scalars(qp, n, use_dst, dequant_rescale,
                                rd_lambda_scale)
-    # the ticket counter, then one progress flag per block row
-    work = torch.zeros(1 + b * (hp // n), dtype=torch.int32, device=dev)
+    work = torch.zeros(work_ints(b, hp, wp, n), dtype=torch.int32, device=dev)
     grids = ctypes.c_int(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = kern.lib.nhv_wavefront_encode(
@@ -332,15 +328,56 @@ def wavefront_encode_planes(planes: torch.Tensor, qp: int, n: int, *,
         FIXED_MODES.get(mode_set, 0), int(use_dst), *q, thresh,
         filter_mask(n, smooth), SCANS[scan] if rdoq else -1,
         tables.data_ptr() if rdoq else None,
-        scalars.ctypes.data if rdoq else None, recon.data_ptr(),
-        levels.data_ptr(), modes.data_ptr(), work.data_ptr(),
-        ctypes.addressof(grids), stream, index,
+        scalars.ctypes.data if rdoq else None, out["recon"].data_ptr(),
+        out["levels"].data_ptr(), out["modes"].data_ptr(), work.data_ptr(),
+        ctypes.addressof(grids), max_grid, stream, index,
     )
     if rc != 0:
         raise RuntimeError(f"nhv_wavefront_encode failed: CUDA error {rc}")
+    return out, grids.value
+
+
+def wavefront_encode_planes(planes: torch.Tensor, qp: int, n: int, *,
+                            mode_set: str = "dc_planar",
+                            decision: str = "energy", bit_depth: int = 8,
+                            use_dst: bool = False,
+                            dequant_rescale: bool = False,
+                            intra_smoothing: bool = False,
+                            rdoq: bool = False, scan: str = "diag",
+                            rd_lambda_scale: float = 1.0,
+                            _max_grid: int = 0) -> dict:
+    """(B, Hp, Wp) block-aligned int32 planes -> dict(recon, levels,
+    modes), as `wavefront_encode_planes_reference` describes, for the
+    configurations `wavefront_covers` admits.
+
+    qp is a static Python int.  On a CUDA tensor this runs the
+    hand-written kernel, one persistent grid launch per call, on the
+    current stream (no synchronisation), adds one to
+    `wavefront_encode_planes.launches` and the grids the C call
+    launched to `wavefront_encode_planes.grids`, and counts the launch
+    in `wavefront_encode_planes.launches_by_config` under (mode_set,
+    decision, smoothing, rdoq); on a CPU tensor it runs the plain
+    version.  `scan` matters under `rdoq` only (the levels come back in
+    raster order).  `_max_grid`, a cap on the grid (0: none), is for the
+    tests of the kernel's schedule on small grids.
+    """
+    validate_planes("wavefront_encode_planes", planes, n, bit_depth, scan,
+                    wavefront_covers(n, mode_set, decision, use_dst),
+                    f"n={n}, mode_set={mode_set!r}, decision={decision!r}, "
+                    f"use_dst={use_dst}")
+    kw = dict(mode_set=mode_set, decision=decision, bit_depth=bit_depth,
+              use_dst=use_dst, dequant_rescale=dequant_rescale,
+              intra_smoothing=intra_smoothing, rdoq=rdoq, scan=scan,
+              rd_lambda_scale=rd_lambda_scale)
+    if planes.device.type == "cpu":
+        return wavefront_encode_planes_reference(planes, qp, n, **kw)
+    if planes.numel() == 0:
+        return _outputs(planes, n)
+    out, grids = _launch(cuda_kernels(), planes, qp, n, max_grid=_max_grid,
+                         **kw)
     wavefront_encode_planes.launches += 1
-    wavefront_encode_planes.grids += grids.value
-    key = (mode_set, decision, smooth, bool(rdoq))
+    wavefront_encode_planes.grids += grids
+    key = (mode_set, decision, intra_smoothing and n > 4, bool(rdoq))
     by_config = wavefront_encode_planes.launches_by_config
     by_config[key] = by_config.get(key, 0) + 1
     return out

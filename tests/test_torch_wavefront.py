@@ -476,6 +476,34 @@ def test_cuda_kernel_matches_plain(body):
         assert torch.equal(got[k], want[k]), k
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [1, 2])
+@pytest.mark.parametrize("body", [c for c in WRAPPER_CASES
+                                  if len(c) > 2 and c[2].get("rdoq")])
+def test_cuda_kernel_on_capped_grids_matches_plain(body, cap):
+    """The row schedule on a grid of one or two thread blocks, which
+    code the rows one after another and wait only on lower tickets."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; on the GPU machine chip_smoke.py "
+                    "phase 3g runs this check")
+    planes = torch.from_numpy(seeded_planes(3, 40, 72, 9)).cuda()
+    kw = _wrapper_kw(body)
+    grids = kwf.wavefront_encode_planes.grids
+    got = kwf.wavefront_encode_planes(planes, 25, 8, _max_grid=cap, **kw)
+    want = kwf.wavefront_encode_planes_reference(planes, 25, 8, **kw)
+    assert kwf.wavefront_encode_planes.grids == grids + 1
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_wrapper_work_buffer():
+    """The ticket, then one edge line of Wp words under each block row of
+    each plane but the last; none for a plane of one block row."""
+    assert kwf.work_ints(3, 40, 72, 8) == 1 + 3 * 4 * 72
+    assert kwf.work_ints(2, 8, 72, 8) == 1
+    assert kwf.work_ints(1, 1088, 1920, 32) == 1 + 33 * 1920
+
+
 def textured_planes(b, h, w, seed):
     """Seeded 8-bit planes of ramps at several angles plus noise, so that
     the angular modes that read the extensions win some blocks."""
