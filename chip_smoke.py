@@ -67,6 +67,15 @@ over a 16-frame file at batch 8.  It checks them end to end:
    decodes together) does not divide at every N, and the luma plane of
    4d's 1080p search stream (three repeats, each == the first, and
    grids capped at 1 and 2 thread blocks, each == the plain version);
+   the loop filters' four kernels (3i, run after 3f), each == its plain
+   version with no tolerance: deblocking (luma and chroma, an int QP
+   and a (B,) QP tensor of two values), the SAO statistics, the
+   decision (per-plane SAO; CTB SAO at tiles 32, 64 and 128, merge on
+   and off) and the application (the chosen parameters and seeded maps
+   of every type), on the three padded 1080p planes of the default
+   closed-loop recon, a 138x250 crop (unpadded: tails, partial tiles, a
+   height no multiple of 4) at 8 and 10 bits, a 45x200 pair and a batch
+   of 8 540x960 planes;
 4. encodes the frame on the card under each config through the open
    loop (4: default, 4b: mode search) and the closed loop (4c, 4d):
    the path's kernel must launch once per plane (3 times) and every
@@ -117,7 +126,8 @@ over a 16-frame file at batch 8.  It checks them end to end:
    the RD kernel per 1080p luma plane at every N under both mode sets
    through a CUDA graph, at N=8 and on 7d's two batches beside its
    synchronisation alone on the same grid, its bound and the plain loop
-   (6h), and the
+   (6h), each loop-filter kernel and its plain version a padded 1080p
+   plane (Y, U, V) through a CUDA graph beside its bound (6i), and the
    sequence
    under all four configs (6f: throughput, stages, whether drain
    overlaps the next batch, device busy share, entropy_tiles=4,
@@ -140,19 +150,22 @@ over a 16-frame file at batch 8.  It checks them end to end:
    (closed loop), every frame equal to its single-frame encode, bytes
    and mean Y-PSNR beside the runs without RD; 7e the CLI's `encode
    --rdo --rdoq` and `encode --decision rd`, bytes equal to the API's;
-8. runs the in-loop filters, which launch no kernel of their own (plain
-   PyTorch on the card, as the JAX package runs them on XLA) after the
-   wavefront kernel: 8a the closed loop with deblock, sao, sao_ctb
+8. runs the in-loop filters on their kernels (deblocking, then the SAO
+   statistics, decision and application: four launches a plane batch
+   where deblocking and SAO are both on, checked with the counts at 0
+   on every filtered encode and decode, with no plain filter on the
+   card) after the wavefront kernel: 8a the closed loop with deblock, sao, sao_ctb
    (tiles of 32 and 64), deblock+sao and deblock+sao_ctb under the
    default config and the mode search, and deblock+sao_ctb at 10 bits,
    on a 256x256 and a 138x250 crop, and deblock+sao_ctb with RDOQ and
    with decision="rd" (the RD kernel once a plane, no plain-loop entry)
    on the 138x250 crop: card == CPU in recon and
    bytes, each stream decoded on the card to its recon; 8b the 1080p frame with deblock+sao and deblock+sao_ctb
-   under both configs: the wavefront kernel launches once a plane and
-   nothing else launches, the stream decodes on the card to the recon,
-   bytes and Y-PSNR beside the unfiltered encode, the frame call and
-   its device part, and each filter stage's time a plane; 8c 16-frame
+   under both configs: the wavefront kernel and each filter kernel
+   launch once a plane and nothing else launches, the stream decodes on
+   the card to the recon, bytes and Y-PSNR beside the unfiltered encode,
+   the frame call and its device part, and each filter stage's time a
+   plane, kernels beside the plain ops; 8c 16-frame
    sequences at batch 8 with deblock+sao_ctb and with deblock+sao under
    target_bpp: each frame == its single-frame encode at its slice QP
    (levels, modes, SAO parameters), decode_sequence on the card == the
@@ -182,7 +195,9 @@ wavefront kernel has an entry per body, each with its launches, and one
 for each row of what it took over from JAX's XLA scan, SCAN_ROWS, whose
 launches are 4i's and 7b-7d's; the RD kernel has an entry per mode
 set, whose launches are 7b-7d's and 8a's; the
-decode kernel's entry counts the decode gates' launches), and
+decode kernel's entry counts the decode gates' launches; the four
+loop-filter kernels', timed on the 1080p luma plane, count 8a-8c's and
+9b's), and
 as the last line {"ok": true, "device": {...}}.  Exits non-zero, without that
 line, when there is no CUDA card or a phase fails.
 
@@ -192,7 +207,8 @@ SXM's float32 rate outside the tensor cores, which no int32 add or
 multiply exceeds), counted per pixel as `kernel_bound` (`fused_bound`
 for the fused blocks kernel, `decode_bound` for the decode kernel,
 `scan_bound` for the XLA scan's rows, RDOQ's float32 operations at the
-same rate, `rd_bound` for the RD kernel) says.
+same rate, `rd_bound` for the RD kernel, `filter_bound` for the loop
+filters) says.
 """
 
 from __future__ import annotations
@@ -240,8 +256,11 @@ try:
         wavefront_encode_planes,
         wavefront_encode_planes_reference,
     )
+    from nanohevc_tpu_torch.kernels import loop_filter as lf
     from nanohevc_tpu_torch.kernels import wavefront_rd as krd
     from nanohevc_tpu_torch.ops import rate
+    from nanohevc_tpu_torch.ops import sao as ops_sao
+    from nanohevc_tpu_torch.ops import sao_ctb as ops_ctb
     from nanohevc_tpu_torch.models import sequence as seq
     from nanohevc_tpu_torch.models import wavefront as torch_wf
     from nanohevc_tpu_torch.models.all_intra import (
@@ -482,6 +501,8 @@ def max_abs_err(got: dict, want: dict) -> int:
 def reset_launches() -> None:
     for name in KERNELS:
         KERNELS[name][0].launches = 0
+    for name in FILTER_KERNELS:
+        FILTER_KERNELS[name][0].launches = 0
     wavefront_encode_planes.launches_by_config.clear()
     krd.wavefront_rd_encode_planes.launches_by_config.clear()
 
@@ -1820,11 +1841,13 @@ DECODE_CHUNK = 8      # decode_sequence decodes its frames 8 at a time
 DECODE_LAUNCHES = {"main": 0}
 
 
-def counted_decode(what: str, want: int, call):
+def counted_decode(what: str, want: int, call, cfg=None):
     """Run a decode route on the card with every count at 0: the decode
     kernel must launch `want` times (one a decode_planes call: 3 a
-    frame, 3 a decode_sequence chunk) and no other kernel.  Adds the
-    launches to the kernel's main-path count; returns call()."""
+    frame, 3 a decode_sequence chunk), the filter kernels once a
+    decode_planes call each where `cfg` (the stream's EncoderConfig)
+    deblocks or applies SAO, and no other kernel.  Adds the launches to
+    the kernels' main-path counts; returns call()."""
     reset_launches()
     out = call()
     torch.cuda.synchronize()
@@ -1832,6 +1855,8 @@ def counted_decode(what: str, want: int, call):
     expect = {k: want if k == "decode_blocks" else 0 for k in KERNELS}
     if got != expect:
         raise SystemExit(f"{what}: launches {got}, expected {expect}")
+    check_filters(what, filter_want(cfg or EncoderConfig(), want,
+                                    encode=False))
     DECODE_LAUNCHES["main"] += want
     return out
 
@@ -3057,6 +3082,276 @@ def phase_rd(dev, tmp: str, src: str, frame: Frame, frames: list,
     log(f"[7] RD phase: {time.perf_counter() - t0:.1f} s [{gpu}]")
 
 
+# --- the loop filters' kernels (3i, 6i; launches on 8a-8c and 9b) -----------
+
+# name -> (wrapper, source, what it replaces: JAX's XLA filter stage)
+FILTER_KERNELS = {
+    "deblock_planes": (
+        lf.deblock_planes, "nanohevc_tpu_torch/csrc/deblock.cu",
+        "nanohevc_tpu/ops/deblock.py:159 (deblock_plane, XLA ops called by "
+        "nanohevc_tpu/models/wavefront.py:431-475 and :784-806; no Pallas "
+        "kernel)"),
+    "sao_statistics": (
+        lf.sao_statistics, "nanohevc_tpu_torch/csrc/sao.cu",
+        "nanohevc_tpu/ops/sao_ctb.py:76 (sao_tile_stats) and the statistics "
+        "of nanohevc_tpu/ops/sao.py:111 (estimate_sao), XLA ops called by "
+        "nanohevc_tpu/models/wavefront.py:431-475; no Pallas kernel"),
+    "sao_decide": (
+        lf.sao_decide, "nanohevc_tpu_torch/csrc/sao.cu",
+        "nanohevc_tpu/ops/sao_ctb.py:144 (estimate_sao_ctb's 34 candidates "
+        "and merge pass) and nanohevc_tpu/ops/sao.py:111 (estimate_sao's "
+        "decision), XLA ops; no Pallas kernel"),
+    "sao_apply": (
+        lf.sao_apply, "nanohevc_tpu_torch/csrc/sao.cu",
+        "nanohevc_tpu/ops/sao_ctb.py:232 (apply_sao_ctb) and "
+        "nanohevc_tpu/ops/sao.py:73 (apply_sao), XLA ops called by "
+        "nanohevc_tpu/models/wavefront.py:431-475 and :784-806; no Pallas "
+        "kernel"),
+}
+# Main-path launches of each (8a-8c, 9b), added by check_filters.
+FILTER_LAUNCHES = dict.fromkeys(FILTER_KERNELS, 0)
+SAO_TILES = (32, 64, 128)
+
+
+def filter_counts() -> dict:
+    return {name: FILTER_KERNELS[name][0].launches for name in FILTER_KERNELS}
+
+
+def filter_want(cfg: EncoderConfig, calls: int, encode: bool = True) -> dict:
+    """Filter launches of `calls` plane-batch calls under cfg: deblocking
+    once a call where cfg deblocks; SAO's application once a call, and
+    on an encode its statistics and decision once each, where cfg has
+    per-frame or CTB SAO."""
+    sao = cfg.sao or cfg.sao_ctb
+    return {"deblock_planes": calls * cfg.deblock,
+            "sao_statistics": calls * (sao and encode),
+            "sao_decide": calls * (sao and encode),
+            "sao_apply": calls * sao}
+
+
+def check_filters(what: str, want: dict) -> None:
+    """The filter kernels launched exactly `want` since the counts were
+    reset (on the card: no plain filter ran); adds them to the main-path
+    counts."""
+    torch.cuda.synchronize()
+    got = filter_counts()
+    if got != want:
+        raise SystemExit(f"{what}: filter launches {got}, expected {want}")
+    for name, n in got.items():
+        FILTER_LAUNCHES[name] += n
+
+
+def blocky_planes(batch: int, h: int, w: int, bit_depth: int, rng, dev):
+    """(src, rec) (batch, h, w) int32 on the card: textured sources, and
+    reconstructions made of 8x8 block means blended with the source,
+    shifted in a band of levels and noised, so that deblocking meets
+    every edge strength and every SAO candidate family wins somewhere."""
+    peak = (1 << bit_depth) - 1
+    src = np.stack([textured(h, w, bit_depth, rng) for _ in range(batch)])
+    hp, wp = -(-h // 8) * 8, -(-w // 8) * 8
+    padded = np.pad(src, ((0, 0), (0, hp - h), (0, wp - w)), mode="edge")
+    means = padded.reshape(batch, hp // 8, 8, wp // 8, 8).mean(axis=(2, 4))
+    blocks = np.repeat(np.repeat(means, 8, 1), 8, 2)[:, :h, :w]
+    rec = (3 * blocks + src) / 4
+    band = (src >> (bit_depth - 5)) % 6 == 1
+    rec = rec + np.where(band, 3 << (bit_depth - 8), 0)
+    rec = rec + rng.integers(-2, 3, src.shape) * (1 << (bit_depth - 8))
+    rec = np.clip(np.rint(rec), 0, peak).astype(np.int32)
+    return (torch.from_numpy(src.astype(np.int32)).to(dev),
+            torch.from_numpy(rec).to(dev))
+
+
+def filter_planes(dev, frame: Frame) -> list:
+    """(label, src, rec, chroma) of the three padded 1080p planes of the
+    default config's closed-loop recon (the wavefront kernel's output,
+    before any filter)."""
+    config = EncoderConfig()
+    out = []
+    for name, p in (("Y", frame.y), ("U", frame.u), ("V", frame.v)):
+        args = plane_args(config, name == "Y")
+        src = pad_to_blocks(torch.from_numpy(p.data.astype(np.int32))[None]
+                            .to(dev), args["n"])
+        rec = encode_planes_closed_loop(src, config.qp, **args)["recon"]
+        out.append((name, src, rec, name != "Y"))
+    return out
+
+
+def differing(got, want) -> int:
+    """Largest |difference| over a kernel's outputs and its plain
+    version's (tuples or tensors); raises where shapes or types differ."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    worst = 0
+    for g, w in zip(got, want, strict=True):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise SystemExit(f"3i: kernel output {tuple(g.shape)} {g.dtype} "
+                             f"!= plain {tuple(w.shape)} {w.dtype}")
+        if g.numel():
+            worst = max(worst, int((g.long() - w.long()).abs().max()))
+    return worst
+
+
+def phase_filters_vs_plain(dev, frame: Frame, gpu: str) -> dict:
+    """3i: each filter kernel == its plain version on the card, with no
+    tolerance: the three padded 1080p planes of the default closed-loop
+    recon, a 138x250 crop (unpadded: tails and partial tiles; 138 rows
+    are no multiple of 4) at 8 and 10 bits, a 45x200 pair, and a batch
+    of 8 540x960 planes; deblocking luma and chroma at an int QP and at
+    a (B,) QP tensor of two values; per-plane SAO, and CTB SAO at tiles
+    32, 64 and 128 with merge on and off (statistics, decision, and the
+    estimate end to end against `ops`), the application of the chosen
+    parameters and of seeded maps of every type and band position.
+    Returns the worst |difference| by kernel (0 or the phase fails)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 9)
+    cases = [(f"1080p {name}", src, rec, 8, chroma)
+             for name, src, rec, chroma in filter_planes(dev, frame)]
+    for h, w, bd, b in ((138, 250, 8, 1), (138, 250, 10, 2), (45, 200, 8, 2),
+                        (540, 960, 8, 8)):
+        src, rec = blocky_planes(b, h, w, bd, rng, dev)
+        for chroma in (False, True):
+            cases.append((f"{b}x{h}x{w} {bd}-bit", src, rec, bd, chroma))
+    worst = dict.fromkeys(FILTER_KERNELS, 0)
+    checks = 0
+
+    def hold(name, got, want, what):
+        nonlocal checks
+        err = differing(got, want)
+        if err:
+            raise SystemExit(f"3i: {name} != plain on {what} (max |diff| "
+                             f"{err}) [{gpu}]")
+        worst[name] = max(worst[name], err)
+        checks += 1
+
+    for label, src, rec, bd, chroma in cases:
+        b = rec.shape[0]
+        qps = [22] if b == 1 else [22, 37] * (b // 2)
+        kind = "chroma" if chroma else "luma"
+        for qp in (37, torch.tensor(qps, device=dev)):
+            what = f"{label}, {kind}, QP {qp if isinstance(qp, int) else qps}"
+            hold("deblock_planes", lf.deblock_planes(rec, qp, bd, chroma),
+                 ops.deblock_plane(rec, qp, bd, chroma), what)
+        deb = lf.deblock_planes(rec, 22, bd, chroma)
+        if chroma and not label.startswith("1080p"):
+            continue      # SAO does not depend on the deblocking filter
+        stats = lf.sao_statistics(src, deb, lf.FRAME_STATS_TILE, bd)
+        hold("sao_statistics", stats, lf.sao_statistics_reference(
+            src, deb, lf.FRAME_STATS_TILE, bd), f"{label}, per-plane tiles")
+        params = lf.sao_decide(stats, bit_depth=bd)
+        hold("sao_decide", params,
+             lf.sao_decide_reference(stats, bit_depth=bd), f"{label}, "
+             "per-plane SAO")
+        hold("sao_decide", lf.sao_estimate(src, deb, bit_depth=bd),
+             ops_sao.estimate_sao(src, deb, bd), f"{label}, estimate_sao")
+        hold("sao_apply", lf.sao_apply(deb, *params, bit_depth=bd),
+             ops_sao.apply_sao(deb, *params, bd), f"{label}, apply_sao")
+        for tile in SAO_TILES:
+            stats = lf.sao_statistics(src, deb, tile, bd)
+            hold("sao_statistics", stats, lf.sao_statistics_reference(
+                src, deb, tile, bd), f"{label}, tile {tile}")
+            prices = lf.sao_prices(22)
+            for merge in (True, False):
+                what = f"{label}, tile {tile}, merge {merge}"
+                maps = lf.sao_decide(stats, bit_depth=bd, prices=prices,
+                                     merge=merge)
+                hold("sao_decide", maps, lf.sao_decide_reference(
+                    stats, bit_depth=bd, prices=prices, merge=merge), what)
+                hold("sao_decide", lf.sao_estimate(
+                    src, deb, tile=tile, qp=22, bit_depth=bd, merge=merge),
+                     ops_ctb.estimate_sao_ctb(src, deb, tile, 22, bd,
+                                              merge=merge), what)
+                hold("sao_apply", lf.sao_apply(deb, *maps, tile, bd),
+                     ops_ctb.apply_sao_ctb(deb, *maps, tile, bd), what)
+            cap = (1 << (min(bd, 10) - 5)) - 1
+            seeded = tuple(torch.from_numpy(x.astype(np.int32)).to(dev) for x in (
+                rng.integers(0, 6, maps[0].shape),
+                rng.integers(0, 32, maps[0].shape),
+                rng.integers(-cap, cap + 1, maps[2].shape)))
+            hold("sao_apply", lf.sao_apply(deb, *seeded, tile, bd),
+                 ops_ctb.apply_sao_ctb(deb, *seeded, tile, bd),
+                 f"{label}, tile {tile}, seeded maps")
+    torch.cuda.synchronize()
+    log(f"[3i] loop-filter kernels == plain on the card, 0 samples, maps or "
+        f"offsets differing: {checks} checks over {len(cases)} cases (1080p "
+        f"Y/U/V of the closed-loop recon; 138x250 at 8 and 10 bits, 45x200, "
+        f"a batch of 8 540x960; luma and chroma deblocking at an int QP and "
+        f"a (B,) QP tensor; per-plane SAO, CTB SAO at tiles "
+        f"{'/'.join(map(str, SAO_TILES))} with merge on and off; seeded "
+        f"maps of every type) ({time.perf_counter() - t0:.1f} s) [{gpu}]")
+    return worst
+
+
+# Integer operations a sample (upper estimates; every kernel is bound by
+# its bytes at these counts): deblocking's two passes (a segment's
+# decision and filters over the 8 samples of an edge), the statistics'
+# four classifications and band, the application's one classification.
+FILTER_OPS = {"deblock_planes": 18, "sao_statistics": 45, "sao_apply": 12}
+# Float32 operations a tile of the decision: 48 offsets and deltas, 34
+# scores and their minimum, two merge candidates.
+DECIDE_OPS = 600
+
+
+def filter_bound(name: str, planes: int, pixels: int, tiles: int) -> tuple:
+    """(bound ms, "bytes" or "operations") of a filter kernel on `planes`
+    planes of `pixels` samples and `tiles` SAO tiles each: int32 samples
+    read and written once each (the statistics read src and rec and
+    write 96 ints a tile; the decision reads them and writes 6 ints a
+    tile; the application reads a plane and the maps and writes a
+    plane), operations at 67 T/s."""
+    if name == "sao_decide":
+        nbytes = planes * tiles * 4 * (lf.STAT_INTS + 6)
+        ops_n = planes * tiles * DECIDE_OPS
+    else:
+        nbytes = planes * pixels * 8
+        if name == "sao_statistics":
+            nbytes += planes * tiles * 4 * lf.STAT_INTS
+        if name == "sao_apply":
+            nbytes += planes * tiles * 4 * 6
+        ops_n = planes * pixels * FILTER_OPS[name]
+    t_bytes = nbytes / 3.35e12 * 1e3
+    t_ops = ops_n / 67e12 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def filter_times(dev, frame: Frame, gpu: str) -> dict:
+    """6i: each filter kernel and its plain version on the card a padded
+    1080p plane (Y, U, V of the default config's closed-loop recon; CTB
+    SAO at the default tile of 64), through a CUDA graph, beside the
+    bound.  Returns {kernel: (ms, plain ms)} on the luma plane."""
+    out = {}
+    for name, src, rec, chroma in filter_planes(dev, frame):
+        tile = 64
+        deb = lf.deblock_planes(rec, 22, 8, chroma)
+        stats = lf.sao_statistics(src, deb, tile)
+        prices = lf.sao_prices(22)
+        maps = lf.sao_decide(stats, prices=prices)
+        fns = {
+            "deblock_planes": (lambda: lf.deblock_planes(rec, 22, 8, chroma),
+                               lambda: ops.deblock_plane(rec, 22, 8, chroma)),
+            "sao_statistics": (
+                lambda: lf.sao_statistics(src, deb, tile),
+                lambda: lf.sao_statistics_reference(src, deb, tile)),
+            "sao_decide": (
+                lambda: lf.sao_decide(stats, prices=prices),
+                lambda: lf.sao_decide_reference(stats, prices=prices)),
+            "sao_apply": (lambda: lf.sao_apply(deb, *maps, tile),
+                          lambda: ops_ctb.apply_sao_ctb(deb, *maps, tile)),
+        }
+        h, w = rec.shape[1:]
+        tiles = stats.shape[1] * stats.shape[2]
+        parts = []
+        for kern, (k_fn, p_fn) in fns.items():
+            k_ms, p_ms = graph_ms(k_fn), graph_ms(p_fn, iters=5)
+            bound, by = filter_bound(kern, 1, h * w, tiles)
+            parts.append(f"{kern} {k_ms:.4f} (plain {p_ms:.4f}, bound "
+                         f"{bound * 1e3:.2f} us {by}, {100 * bound / k_ms:.1f} %)")
+            if name == "Y":
+                out[kern] = (k_ms, p_ms)
+        log(f"[6i] {name} {h}x{w}, ms (CUDA graph): {'; '.join(parts)} "
+            f"[{gpu}]")
+    return out
+
+
 # --- the loop filters and the standard export (8a-8d) -----------------------
 
 FILTER_CONFIGS = {
@@ -3126,20 +3421,25 @@ def phase_filters_crops(dev, frame: Frame, gpu: str) -> None:
         if cfg.decision == "rd":
             card = closed_rd(f"[8a] {label}", small, cfg, dev)
         else:
+            reset_launches()
             card = encode_frame_closed_loop(small, cfg, device=dev)
+        check_filters(f"[8a] {label}", filter_want(cfg, 3))
         cpu = encode_frame_closed_loop(small, cfg, device="cpu")
         if card[1] != cpu[1] or not same_frames(card[0], cpu[0]):
             raise SystemExit(f"8a: {label} on a {small.height}x{small.width} "
                              "crop: the card differs from the CPU")
         decoded = counted_decode(f"[8a] {label} decode_frame", 3,
-                                 lambda: decode_frame(card[1], device=dev))
+                                 lambda: decode_frame(card[1], device=dev),
+                                 cfg)
         if not same_frames(decoded, card[0]):
             raise SystemExit(f"8a: {label}: decode_frame != recon")
         sizes.setdefault(small.height, []).append(len(card[1]))
     log(f"[8a] {len(cases)} filtered closed-loop encodes (6 filter configs x "
         f"default and mode search, 10-bit; 256x256 and 138x250 crops; RDOQ "
-        f"and decision=\"rd\" on the 138x250 crop): card == CPU in recon and bytes, each stream "
-        f"decoded on the card to its recon; bytes 256x256 "
+        f"and decision=\"rd\" on the 138x250 crop): card == CPU in recon "
+        f"and bytes, the filter kernels once a plane each (no plain filter "
+        f"on the card), each stream decoded on the card to its recon; bytes "
+        f"256x256 "
         f"{min(sizes[256])}-{max(sizes[256])}, 138x250 "
         f"{min(sizes[138])}-{max(sizes[138])} "
         f"({time.perf_counter() - t0:.1f} s) [{gpu}]")
@@ -3147,35 +3447,35 @@ def phase_filters_crops(dev, frame: Frame, gpu: str) -> None:
 
 def filter_stage_times(dev, frame: Frame, gpu: str) -> None:
     """Each filter stage a padded 1080p plane (Y, U, V of the default
-    config's closed-loop recon): the stream's time a call between CUDA
-    events over 10 back-to-back calls (host dispatch gaps included),
-    and the device time a call through a CUDA graph (`graph_ms`)."""
-    from nanohevc_tpu_torch.ops import sao, sao_ctb
-    from nanohevc_tpu_torch.ops.deblock import deblock_plane
-
-    config = EncoderConfig()
+    config's closed-loop recon), the kernels' wrappers beside the plain
+    ops on the same card: the stream's time a call between CUDA events
+    over 10 back-to-back calls (host dispatch gaps included), and the
+    device time a call through a CUDA graph (`graph_ms`)."""
     parts = []
-    for name, p in (("Y", frame.y), ("U", frame.u), ("V", frame.v)):
-        args = plane_args(config, name == "Y")
-        src = pad_to_blocks(torch.from_numpy(p.data.astype(np.int32))[None]
-                            .to(dev), args["n"])
-        rec = encode_planes_closed_loop(src, config.qp, **args)["recon"]
-        chroma = name != "Y"
-        sao_params = sao.estimate_sao(src, rec)
-        maps = sao_ctb.estimate_sao_ctb(src, rec, 64, 22)
+    for name, src, rec, chroma in filter_planes(dev, frame):
+        sao_params = ops_sao.estimate_sao(src, rec)
+        maps = ops_ctb.estimate_sao_ctb(src, rec, 64, 22)
         stages = {
-            "deblock": lambda: deblock_plane(rec, 22, 8, chroma),
-            "sao estimate": lambda: sao.estimate_sao(src, rec),
-            "sao apply": lambda: sao.apply_sao(rec, *sao_params),
-            "ctb estimate": lambda: sao_ctb.estimate_sao_ctb(src, rec, 64, 22),
-            "ctb apply": lambda: sao_ctb.apply_sao_ctb(rec, *maps, 64),
+            "deblock": (lambda: lf.deblock_planes(rec, 22, 8, chroma),
+                        lambda: ops.deblock_plane(rec, 22, 8, chroma)),
+            "sao estimate": (lambda: lf.sao_estimate(src, rec),
+                             lambda: ops_sao.estimate_sao(src, rec)),
+            "sao apply": (lambda: lf.sao_apply(rec, *sao_params),
+                          lambda: ops_sao.apply_sao(rec, *sao_params)),
+            "ctb estimate": (
+                lambda: lf.sao_estimate(src, rec, tile=64, qp=22),
+                lambda: ops_ctb.estimate_sao_ctb(src, rec, 64, 22)),
+            "ctb apply": (lambda: lf.sao_apply(rec, *maps, 64),
+                          lambda: ops_ctb.apply_sao_ctb(rec, *maps, 64)),
         }
         parts.append(f"{name} {tuple(src.shape[1:])}: " + ", ".join(
-            f"{k} {cuda_ms(fn, 10):.3f} / {graph_ms(fn, 5):.3f}"
-            for k, fn in stages.items()))
-    log("[8b] filter stages a padded plane, ms a call, stream (CUDA events "
-        "over 10 calls) / device (CUDA graph of 5 calls, median of 5 "
-        f"replays): {'; '.join(parts)} [{gpu}]")
+            f"{k} {cuda_ms(kf, 10):.4f} / {graph_ms(kf, 5):.4f} (plain "
+            f"{cuda_ms(pf, 10):.3f} / {graph_ms(pf, 5):.3f})"
+            for k, (kf, pf) in stages.items()))
+    log("[8b] filter stages a padded plane, ms a call, kernels (plain ops "
+        "on the card), stream (CUDA events over 10 calls) / device (CUDA "
+        "graph of 5 calls, median of 5 replays): "
+        f"{'; '.join(parts)} [{gpu}]")
 
 
 def frame_call_ms(dev, frame: Frame, cfg: EncoderConfig) -> tuple:
@@ -3198,8 +3498,9 @@ def frame_call_ms(dev, frame: Frame, cfg: EncoderConfig) -> tuple:
 def phase_filters_frame(dev, frame: Frame, base_bits: dict,
                         gpu: str) -> dict:
     """8b: the 1080p frame under the default config and the mode search,
-    with deblock+sao and deblock+sao_ctb: the wavefront kernel launches
-    once a plane and no other kernel launches; the stream decodes on the
+    with deblock+sao and deblock+sao_ctb: the wavefront kernel and each
+    filter kernel launch once a plane and no other kernel launches (the
+    filters four launches a plane batch); the stream decodes on the
     card to the recon; bytes and Y-PSNR beside the unfiltered encode;
     the frame call and its device part, the unfiltered encode's timed in
     the same run beside them.  Returns the wavefront launches by body
@@ -3228,11 +3529,13 @@ def phase_filters_frame(dev, frame: Frame, base_bits: dict,
             if got != want:
                 raise SystemExit(f"8b: {label}, {base_label} launched {got}, "
                                  f"expected {want}")
+            check_filters(f"[8b] {label}, {base_label}", filter_want(cfg, 3))
             launches[body] += got["wavefront_encode_planes"]
             t0 = time.perf_counter()
             decoded = counted_decode(f"[8b] {label}, {base_label} "
                                      "decode_frame", 3,
-                                     lambda: decode_frame(bits, device=dev))
+                                     lambda: decode_frame(bits, device=dev),
+                                     cfg)
             dec_s = time.perf_counter() - t0
             if not same_frames(decoded, recon):
                 raise SystemExit(f"8b: {label}, {base_label}: decode_frame "
@@ -3241,7 +3544,8 @@ def phase_filters_frame(dev, frame: Frame, base_bits: dict,
             psnr = oracle.psnr(frame.y.data.astype(np.uint8),
                                recon.y.data.astype(np.uint8))
             log(f"[8b] {label}, {base_label}, 1080p 4:2:0 closed loop on the "
-                f"card: wavefront kernel 3 launches, no other kernel; "
+                f"card: wavefront kernel 3 launches, filter kernels "
+                f"{filter_want(cfg, 3)}, no other kernel; "
                 f"{len(bits)} bytes, Y-PSNR {psnr:.2f} dB (unfiltered "
                 f"{len(plain_bits)} bytes, {plain_psnr:.2f} dB); decode_frame "
                 f"on the card == recon ({dec_s:.2f} s); frame call "
@@ -3276,6 +3580,7 @@ def phase_filters_sequence(dev, tmp: str, src: str, frames: list,
         if got != {k: 2 * batches if k == "wavefront_encode_planes" else 0
                    for k in KERNELS}:
             raise SystemExit(f"8c: sequence {label} launched {got}")
+        check_filters(f"[8c] sequence {label}", filter_want(cfg, 2 * batches))
         total += got["wavefront_encode_planes"]
         parsed = seq.decode_sequence_levels(bits)
         recon, qps = [], []
@@ -3294,7 +3599,8 @@ def phase_filters_sequence(dev, tmp: str, src: str, frames: list,
         t0 = time.perf_counter()
         n = counted_decode(f"[8c] {label} decode_sequence",
                            sequence_decodes(SEQ_FRAMES),
-                           lambda: seq.decode_sequence(bits, dec, device=dev))
+                           lambda: seq.decode_sequence(bits, dec, device=dev),
+                           cfg)
         dec_s = time.perf_counter() - t0
         with open(dec, "rb") as f:
             if n != SEQ_FRAMES or f.read() != b"".join(recon):
@@ -3303,7 +3609,8 @@ def phase_filters_sequence(dev, tmp: str, src: str, frames: list,
             f"closed loop: {run_s:.3f} s (first call), {res.bytes_written} "
             f"bytes, mean Y-PSNR {res.mean_psnr_y:.2f} dB, slice QPs "
             f"{sorted(set(qps))}; wavefront kernel {got['wavefront_encode_planes']}"
-            f" launches, no other kernel; each frame == its single-frame "
+            f" launches, filter kernels {filter_want(cfg, 2 * batches)}, no "
+            f"other kernel; each frame == its single-frame "
             f"encode (levels, modes, SAO parameters); decode_sequence on the "
             f"card == recon ({dec_s:.2f} s) [{gpu}]")
     return total
@@ -3465,6 +3772,8 @@ def mesh_batch(mesh, planes, config: EncoderConfig, closed: bool,
     if launches != want:
         raise SystemExit(f"[{tag}] {label} under the mesh launched {launches}, "
                          f"expected {want}")
+    check_filters(f"[{tag}] {label} under the mesh", filter_want(
+        config, want["wavefront_encode_planes"] if closed else 0))
     ref = alone(planes, config.qp)
     keys = [k for k in ref if k != "mean_psnr"]
     if sorted(got) != sorted(ref) or not same_outputs(got, ref, keys):
@@ -3676,6 +3985,7 @@ def main() -> int:
     wf_launches["search"], ms_cl_bits, ms_cl_recon = phase_closed_loop(
         dev, frame, MODE_SEARCH, "4d")
     worst["decode_blocks"] = phase_decode_vs_plain(dev, ms_cl_bits, gpu)
+    worst.update(phase_filters_vs_plain(dev, frame, gpu))
     launches["fused_encode_blocks"], planes8 = phase_fused_main(dev)
 
     # The sequence runner drives K1, K2 and the wavefront kernel: each
@@ -3732,6 +4042,7 @@ def main() -> int:
     closed_loop_times(dev, frame, config, "default config:", gpu)
     closed_loop_times(dev, frame, MODE_SEARCH, "mode search:", gpu)
     dec_times, dec_bound = decode_times(dev, frame, gpu)
+    flt_ms = filter_times(dev, frame, gpu)
     decode_frame_split(dev, cl_bits, "default", gpu)
     decode_frame_split(dev, ms_cl_bits, "mode search", gpu)
     times["fused_encode_blocks"] = fused_times(dev, planes8, gpu)
@@ -3791,12 +4102,22 @@ def main() -> int:
     rows.append(("decode_blocks", dec_times[n8], DECODE_LAUNCHES["main"],
                  worst["decode_blocks"], dec_bound,
                  KERNELS["decode_blocks"][3]))
+    # the loop filters' kernels on the 1080p luma plane (CTB SAO at tiles
+    # of 64): main-path launches of 8a-8c and 9b
+    luma_tiles = -(-H // 64) * -(-W // 64)
+    for name, (_, _, replaces) in FILTER_KERNELS.items():
+        if not FILTER_LAUNCHES[name]:
+            raise SystemExit(f"{name}: no launch on the main paths")
+        rows.append((name, flt_ms[name], FILTER_LAUNCHES[name], worst[name],
+                     filter_bound(name, 1, H * W, luma_tiles), replaces))
     entries = []
     for name, (k_ms, p_ms), count, err, (bound_ms, bound_by), replaces in rows:
+        key = name.split(" ")[0]
         entries.append({
             "name": name,
             "route": "cuda",
-            "source": KERNELS[name.split(" ")[0]][2],
+            "source": (FILTER_KERNELS[key][1] if key in FILTER_KERNELS
+                       else KERNELS[key][2]),
             "replaces": replaces,
             "launches": count,
             "max_abs_err": err,

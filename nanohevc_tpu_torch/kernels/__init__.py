@@ -25,6 +25,15 @@ from nanohevc_tpu_torch.kernels.decode import (
     decode_blocks,
     decode_blocks_reference,
 )
+from nanohevc_tpu_torch.kernels.loop_filter import (
+    deblock_planes,
+    sao_apply,
+    sao_decide,
+    sao_decide_reference,
+    sao_estimate,
+    sao_statistics,
+    sao_statistics_reference,
+)
 from nanohevc_tpu_torch.kernels.wavefront import (
     wavefront_encode_planes,
     wavefront_encode_planes_reference,
@@ -33,6 +42,7 @@ from nanohevc_tpu_torch.kernels.wavefront import (
 from nanohevc_tpu_torch.kernels.wavefront_rd import wavefront_rd_encode_planes
 
 __all__ = [
+    "deblock_planes",
     "decode_blocks",
     "decode_blocks_reference",
     "fused_encode_blocks",
@@ -42,6 +52,12 @@ __all__ = [
     "mode_search_encode_plane",
     "mode_search_encode_plane_reference",
     "mode_search_supported",
+    "sao_apply",
+    "sao_decide",
+    "sao_decide_reference",
+    "sao_estimate",
+    "sao_statistics",
+    "sao_statistics_reference",
     "slab_encode_plane",
     "slab_encode_plane_reference",
     "slab_supported",

@@ -44,12 +44,14 @@ Routing (`encode_planes_closed_loop`), one rule:
 - `kernel_split` and `unroll` are TPU layout knobs and are not taken.
 
 The in-loop filters follow every route, on the padded recon and in
-JAX's order: deblocking (`ops.deblock_plane`, chroma's p0/q0 filter
-with `deblock_chroma`), then per-frame SAO (`ops.sao`) or CTB SAO
-(`ops.sao_ctb`, tiles of `sao_tile`), each estimated against the
-padded source.  Intra prediction reads the unfiltered recon, so levels
-and modes do not change; the decoders apply the same filters with the
-parameters the stream carries.
+JAX's order: deblocking (chroma's p0/q0 filter with `deblock_chroma`),
+then per-frame SAO or CTB SAO (tiles of `sao_tile`), each estimated
+against the padded source, all through `kernels.loop_filter`: on the
+card its CUDA kernels (four launches a plane batch), on the CPU the
+plain `ops.deblock_plane`, `ops.sao` and `ops.sao_ctb`.  Intra
+prediction reads the unfiltered recon, so levels and modes do not
+change; the decoders apply the same filters with the parameters the
+stream carries.
 
 Non-block-aligned planes are padded by edge replication and the recon
 cropped back (the conformance window), so `decode_plane` reproduces
@@ -69,6 +71,11 @@ import torch
 from nanohevc_tpu_torch import ops, resolve_device
 from nanohevc_tpu_torch.frame import Frame
 from nanohevc_tpu_torch.kernels.decode import decode_blocks
+from nanohevc_tpu_torch.kernels.loop_filter import (
+    deblock_planes,
+    sao_apply,
+    sao_estimate,
+)
 from nanohevc_tpu_torch.kernels.wavefront import (
     FIXED_MODES,
     code_residual,
@@ -77,8 +84,6 @@ from nanohevc_tpu_torch.kernels.wavefront import (
 )
 from nanohevc_tpu_torch.kernels.wavefront_rd import wavefront_rd_encode_planes
 from nanohevc_tpu_torch.ops.mode_rate import mpm_mode_bits
-from nanohevc_tpu_torch.ops.sao import apply_sao, estimate_sao
-from nanohevc_tpu_torch.ops.sao_ctb import apply_sao_ctb, estimate_sao_ctb
 
 
 # --- the RD decision's slot batches -------------------------------------------
@@ -315,15 +320,15 @@ def encode_planes_closed_loop(
     if deblock:
         # An output filter on the padded recon: the wavefront predicted
         # from unfiltered samples, and the decoder filters alike.
-        recon = ops.deblock_plane(recon, int(qp), bit_depth=bit_depth,
-                                  is_chroma=deblock_chroma)
+        recon = deblock_planes(recon, int(qp), bit_depth=bit_depth,
+                               is_chroma=deblock_chroma)
     if sao:
-        res["sao"] = estimate_sao(src, recon, bit_depth)
-        recon = apply_sao(recon, *res["sao"], bit_depth)
+        res["sao"] = sao_estimate(src, recon, bit_depth=bit_depth)
+        recon = sao_apply(recon, *res["sao"], bit_depth=bit_depth)
     if sao_ctb:
-        res["sao_ctb"] = estimate_sao_ctb(src, recon, sao_tile, int(qp),
-                                          bit_depth)
-        recon = apply_sao_ctb(recon, *res["sao_ctb"], sao_tile, bit_depth)
+        res["sao_ctb"] = sao_estimate(src, recon, tile=sao_tile, qp=int(qp),
+                                      bit_depth=bit_depth)
+        recon = sao_apply(recon, *res["sao_ctb"], sao_tile, bit_depth)
     # Crop the conformance-window pad; levels and modes keep the padded
     # block geometry (the decoder derives it from the SPS dimensions).
     res["recon"] = recon[:, :h, :w]
@@ -511,8 +516,9 @@ def decode_planes(levels: torch.Tensor, modes: torch.Tensor, qps, *, n: int,
     of the B frames in one call (on the card, one persistent kernel
     launch).
 
-    Then the filters, frame by frame on the padded recon: deblocking at
-    each frame's QP (chroma's filter with is_chroma), and sao, a
+    Then the filters (`kernels.loop_filter`; on the card one launch
+    each), on the padded recon: deblocking at each frame's QP (chroma's
+    filter with is_chroma), and sao, a
     per-frame ((B,) type, (B,) band_pos, (B, 4) offsets) triple, or
     sao_ctb, (tile, (B, nty, ntx) type, (B, nty, ntx) band, (B, nty,
     ntx, 4) offset maps); arrays from the stream or tensors.
@@ -529,13 +535,13 @@ def decode_planes(levels: torch.Tensor, modes: torch.Tensor, qps, *, n: int,
     recon = decode_blocks(res, modes.contiguous(), n, bit_depth=bit_depth,
                           intra_smoothing=intra_smoothing)
     if deblock:
-        recon = ops.deblock_plane(
+        recon = deblock_planes(
             recon, torch.tensor([int(q) for q in qps], device=dev),
             bit_depth=bit_depth, is_chroma=is_chroma)
     if sao is not None:
-        recon = apply_sao(recon, *sao, bit_depth)
+        recon = sao_apply(recon, *sao, bit_depth=bit_depth)
     if sao_ctb is not None:
-        recon = apply_sao_ctb(recon, *sao_ctb[1:], sao_ctb[0], bit_depth)
+        recon = sao_apply(recon, *sao_ctb[1:], sao_ctb[0], bit_depth)
     return recon[:, :height, :width]
 
 
