@@ -67,15 +67,17 @@ over a 16-frame file at batch 8.  It checks them end to end:
    decodes together) does not divide at every N, and the luma plane of
    4d's 1080p search stream (three repeats, each == the first, and
    grids capped at 1 and 2 thread blocks, each == the plain version);
-   the loop filters' four kernels (3i, run after 3f), each == its plain
+   the loop filters' three kernels (3i, run after 3f), each == its plain
    version with no tolerance: deblocking (luma and chroma, an int QP
-   and a (B,) QP tensor of two values), the SAO statistics, the
-   decision (per-plane SAO; CTB SAO at tiles 32, 64 and 128, merge on
-   and off) and the application (the chosen parameters and seeded maps
-   of every type), on the three padded 1080p planes of the default
-   closed-loop recon, a 138x250 crop (unpadded: tails, partial tiles, a
-   height no multiple of 4) at 8 and 10 bits, a 45x200 pair and a batch
-   of 8 540x960 planes;
+   and a (B,) QP tensor of two values), the SAO estimate (its
+   statistics and its parameters: per-plane SAO; CTB SAO at tiles 16,
+   32, 64 and 128, merge on and off; two launches back to back and the
+   replays of a captured CUDA graph, with no reset between them) and
+   the application (the chosen parameters and seeded maps of every
+   type), on the three padded 1080p planes of the default closed-loop
+   recon, a 138x250 crop (unpadded: tails, partial tiles, a height no
+   multiple of 4) at 8 and 10 bits, a 45x200 pair and a batch of 8
+   540x960 planes;
 4. encodes the frame on the card under each config through the open
    loop (4: default, 4b: mode search) and the closed loop (4c, 4d):
    the path's kernel must launch once per plane (3 times) and every
@@ -151,8 +153,9 @@ over a 16-frame file at batch 8.  It checks them end to end:
    and mean Y-PSNR beside the runs without RD; 7e the CLI's `encode
    --rdo --rdoq` and `encode --decision rd`, bytes equal to the API's;
 8. runs the in-loop filters on their kernels (deblocking, then the SAO
-   statistics, decision and application: four launches a plane batch
-   where deblocking and SAO are both on, checked with the counts at 0
+   estimate and application: three launches a plane batch in the
+   encoder where deblocking and SAO are both on, two in the decoders,
+   checked with the counts at 0
    on every filtered encode and decode, with no plain filter on the
    card) after the wavefront kernel: 8a the closed loop with deblock, sao, sao_ctb
    (tiles of 32 and 64), deblock+sao and deblock+sao_ctb under the
@@ -3091,16 +3094,12 @@ FILTER_KERNELS = {
         "nanohevc_tpu/ops/deblock.py:159 (deblock_plane, XLA ops called by "
         "nanohevc_tpu/models/wavefront.py:431-475 and :784-806; no Pallas "
         "kernel)"),
-    "sao_statistics": (
-        lf.sao_statistics, "nanohevc_tpu_torch/csrc/sao.cu",
-        "nanohevc_tpu/ops/sao_ctb.py:76 (sao_tile_stats) and the statistics "
-        "of nanohevc_tpu/ops/sao.py:111 (estimate_sao), XLA ops called by "
+    "sao_estimate": (
+        lf.sao_estimate, "nanohevc_tpu_torch/csrc/sao.cu",
+        "nanohevc_tpu/ops/sao_ctb.py:76,144 (sao_tile_stats, "
+        "estimate_sao_ctb's 34 candidates and merge pass) and "
+        "nanohevc_tpu/ops/sao.py:111 (estimate_sao), XLA ops called by "
         "nanohevc_tpu/models/wavefront.py:431-475; no Pallas kernel"),
-    "sao_decide": (
-        lf.sao_decide, "nanohevc_tpu_torch/csrc/sao.cu",
-        "nanohevc_tpu/ops/sao_ctb.py:144 (estimate_sao_ctb's 34 candidates "
-        "and merge pass) and nanohevc_tpu/ops/sao.py:111 (estimate_sao's "
-        "decision), XLA ops; no Pallas kernel"),
     "sao_apply": (
         lf.sao_apply, "nanohevc_tpu_torch/csrc/sao.cu",
         "nanohevc_tpu/ops/sao_ctb.py:232 (apply_sao_ctb) and "
@@ -3110,7 +3109,7 @@ FILTER_KERNELS = {
 }
 # Main-path launches of each (8a-8c, 9b), added by check_filters.
 FILTER_LAUNCHES = dict.fromkeys(FILTER_KERNELS, 0)
-SAO_TILES = (32, 64, 128)
+SAO_TILES = (16, 32, 64, 128)
 
 
 def filter_counts() -> dict:
@@ -3120,12 +3119,10 @@ def filter_counts() -> dict:
 def filter_want(cfg: EncoderConfig, calls: int, encode: bool = True) -> dict:
     """Filter launches of `calls` plane-batch calls under cfg: deblocking
     once a call where cfg deblocks; SAO's application once a call, and
-    on an encode its statistics and decision once each, where cfg has
-    per-frame or CTB SAO."""
+    on an encode its estimate once, where cfg has per-frame or CTB SAO."""
     sao = cfg.sao or cfg.sao_ctb
     return {"deblock_planes": calls * cfg.deblock,
-            "sao_statistics": calls * (sao and encode),
-            "sao_decide": calls * (sao and encode),
+            "sao_estimate": calls * (sao and encode),
             "sao_apply": calls * sao}
 
 
@@ -3191,17 +3188,69 @@ def differing(got, want) -> int:
     return worst
 
 
+def sao_plain(src, rec, bit_depth: int, tile=None, qp: int = 22,
+              merge: bool = True) -> tuple:
+    """The plain versions of `lf.sao_estimate(..., return_stats=True)`:
+    (parameters, statistics)."""
+    if tile is None:
+        params = ops_sao.estimate_sao(src, rec, bit_depth)
+    else:
+        params = ops_ctb.estimate_sao_ctb(src, rec, tile, qp, bit_depth,
+                                          merge=merge)
+    return params, lf.sao_statistics_reference(
+        src, rec, lf.FRAME_STATS_TILE if tile is None else tile, bit_depth)
+
+
+def estimate_repeats(pairs, bit_depth: int, hold) -> None:
+    """The estimate needs no reset between launches: per-plane SAO, CTB
+    SAO at tiles of 64 and, merge on, 16: two launches back to back on
+    the two (src, rec) pairs (no synchronise between them), then three
+    replays of a CUDA graph captured on static copies, the pairs copied
+    in as A, B, A; every output == plain."""
+    (src_a, rec_a), (src_b, rec_b) = pairs
+    for kw in (dict(), dict(tile=64, qp=22, merge=False),
+               dict(tile=16, qp=37, merge=True)):
+        what = f"{tuple(rec_a.shape)}, {kw or 'per-plane'}"
+        first = lf.sao_estimate(src_a, rec_a, bit_depth=bit_depth,
+                                return_stats=True, **kw)
+        second = lf.sao_estimate(src_b, rec_b, bit_depth=bit_depth,
+                                 return_stats=True, **kw)
+        hold("sao_estimate", first[0] + (first[1],), unpack(sao_plain(
+            src_a, rec_a, bit_depth, **kw)), f"{what}, launch 1 of 2")
+        hold("sao_estimate", second[0] + (second[1],), unpack(sao_plain(
+            src_b, rec_b, bit_depth, **kw)), f"{what}, launch 2 of 2")
+        static_src, static_rec = src_a.clone(), rec_a.clone()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = lf.sao_estimate(static_src, static_rec, bit_depth=bit_depth,
+                                  return_stats=True, **kw)
+        for k, (src, rec) in enumerate(((src_a, rec_a), (src_b, rec_b),
+                                        (src_a, rec_a))):
+            static_src.copy_(src)
+            static_rec.copy_(rec)
+            graph.replay()
+            hold("sao_estimate", out[0] + (out[1],), unpack(sao_plain(
+                src, rec, bit_depth, **kw)), f"{what}, graph replay {k + 1}")
+
+
+def unpack(result: tuple) -> tuple:
+    """(parameters, statistics) -> parameters + (statistics,)."""
+    return result[0] + (result[1],)
+
+
 def phase_filters_vs_plain(dev, frame: Frame, gpu: str) -> dict:
     """3i: each filter kernel == its plain version on the card, with no
     tolerance: the three padded 1080p planes of the default closed-loop
     recon, a 138x250 crop (unpadded: tails and partial tiles; 138 rows
     are no multiple of 4) at 8 and 10 bits, a 45x200 pair, and a batch
     of 8 540x960 planes; deblocking luma and chroma at an int QP and at
-    a (B,) QP tensor of two values; per-plane SAO, and CTB SAO at tiles
-    32, 64 and 128 with merge on and off (statistics, decision, and the
-    estimate end to end against `ops`), the application of the chosen
-    parameters and of seeded maps of every type and band position.
-    Returns the worst |difference| by kernel (0 or the phase fails)."""
+    a (B,) QP tensor of two values; the SAO estimate, its statistics and
+    parameters (per-plane SAO, and CTB SAO at tiles 16, 32, 64 and 128
+    with merge on and off) against `ops` end to end, launched back to
+    back and replayed in a CUDA graph with no reset between; the
+    application of the chosen parameters and of seeded maps of every
+    type and band position.  Returns the worst |difference| by kernel
+    (0 or the phase fails)."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED + 9)
     cases = [(f"1080p {name}", src, rec, 8, chroma)
@@ -3234,32 +3283,20 @@ def phase_filters_vs_plain(dev, frame: Frame, gpu: str) -> dict:
         deb = lf.deblock_planes(rec, 22, bd, chroma)
         if chroma and not label.startswith("1080p"):
             continue      # SAO does not depend on the deblocking filter
-        stats = lf.sao_statistics(src, deb, lf.FRAME_STATS_TILE, bd)
-        hold("sao_statistics", stats, lf.sao_statistics_reference(
-            src, deb, lf.FRAME_STATS_TILE, bd), f"{label}, per-plane tiles")
-        params = lf.sao_decide(stats, bit_depth=bd)
-        hold("sao_decide", params,
-             lf.sao_decide_reference(stats, bit_depth=bd), f"{label}, "
-             "per-plane SAO")
-        hold("sao_decide", lf.sao_estimate(src, deb, bit_depth=bd),
-             ops_sao.estimate_sao(src, deb, bd), f"{label}, estimate_sao")
+        params, stats = lf.sao_estimate(src, deb, bit_depth=bd,
+                                        return_stats=True)
+        hold("sao_estimate", params + (stats,),
+             unpack(sao_plain(src, deb, bd)), f"{label}, per-plane SAO")
         hold("sao_apply", lf.sao_apply(deb, *params, bit_depth=bd),
              ops_sao.apply_sao(deb, *params, bd), f"{label}, apply_sao")
         for tile in SAO_TILES:
-            stats = lf.sao_statistics(src, deb, tile, bd)
-            hold("sao_statistics", stats, lf.sao_statistics_reference(
-                src, deb, tile, bd), f"{label}, tile {tile}")
-            prices = lf.sao_prices(22)
             for merge in (True, False):
                 what = f"{label}, tile {tile}, merge {merge}"
-                maps = lf.sao_decide(stats, bit_depth=bd, prices=prices,
-                                     merge=merge)
-                hold("sao_decide", maps, lf.sao_decide_reference(
-                    stats, bit_depth=bd, prices=prices, merge=merge), what)
-                hold("sao_decide", lf.sao_estimate(
-                    src, deb, tile=tile, qp=22, bit_depth=bd, merge=merge),
-                     ops_ctb.estimate_sao_ctb(src, deb, tile, 22, bd,
-                                              merge=merge), what)
+                maps, stats = lf.sao_estimate(
+                    src, deb, tile=tile, qp=22, bit_depth=bd, merge=merge,
+                    return_stats=True)
+                hold("sao_estimate", maps + (stats,), unpack(sao_plain(
+                    src, deb, bd, tile, 22, merge)), what)
                 hold("sao_apply", lf.sao_apply(deb, *maps, tile, bd),
                      ops_ctb.apply_sao_ctb(deb, *maps, tile, bd), what)
             cap = (1 << (min(bd, 10) - 5)) - 1
@@ -3270,44 +3307,48 @@ def phase_filters_vs_plain(dev, frame: Frame, gpu: str) -> dict:
             hold("sao_apply", lf.sao_apply(deb, *seeded, tile, bd),
                  ops_ctb.apply_sao_ctb(deb, *seeded, tile, bd),
                  f"{label}, tile {tile}, seeded maps")
+    luma = cases[0]
+    estimate_repeats([(luma[1], luma[2]), (luma[2], luma[1])], 8, hold)
+    batch = next(c for c in cases if c[0].startswith("8x540x960"))
+    estimate_repeats([(batch[1], batch[2]), (batch[2], batch[1])], 8, hold)
     torch.cuda.synchronize()
-    log(f"[3i] loop-filter kernels == plain on the card, 0 samples, maps or "
-        f"offsets differing: {checks} checks over {len(cases)} cases (1080p "
-        f"Y/U/V of the closed-loop recon; 138x250 at 8 and 10 bits, 45x200, "
-        f"a batch of 8 540x960; luma and chroma deblocking at an int QP and "
-        f"a (B,) QP tensor; per-plane SAO, CTB SAO at tiles "
-        f"{'/'.join(map(str, SAO_TILES))} with merge on and off; seeded "
+    log(f"[3i] loop-filter kernels == plain on the card, 0 samples, maps, "
+        f"offsets or statistics differing: {checks} checks over "
+        f"{len(cases)} cases (1080p Y/U/V of the closed-loop recon; 138x250 "
+        f"at 8 and 10 bits, 45x200, a batch of 8 540x960; luma and chroma "
+        f"deblocking at an int QP and a (B,) QP tensor; the SAO estimate's "
+        f"statistics and parameters, per-plane SAO, CTB SAO at tiles "
+        f"{'/'.join(map(str, SAO_TILES))} with merge on and off, two "
+        f"launches back to back and three CUDA-graph replays with no reset "
+        f"between on the 1080p luma plane and the 540x960 batch; seeded "
         f"maps of every type) ({time.perf_counter() - t0:.1f} s) [{gpu}]")
     return worst
 
 
 # Integer operations a sample (upper estimates; every kernel is bound by
 # its bytes at these counts): deblocking's two passes (a segment's
-# decision and filters over the 8 samples of an edge), the statistics'
+# decision and filters over the 8 samples of an edge), the estimate's
 # four classifications and band, the application's one classification.
-FILTER_OPS = {"deblock_planes": 18, "sao_statistics": 45, "sao_apply": 12}
-# Float32 operations a tile of the decision: 48 offsets and deltas, 34
-# scores and their minimum, two merge candidates.
+FILTER_OPS = {"deblock_planes": 18, "sao_estimate": 45, "sao_apply": 12}
+# Float32 operations a tile of the estimate's decision: 48 offsets and
+# deltas, 34 scores and their minimum, two merge candidates.
 DECIDE_OPS = 600
 
 
 def filter_bound(name: str, planes: int, pixels: int, tiles: int) -> tuple:
     """(bound ms, "bytes" or "operations") of a filter kernel on `planes`
     planes of `pixels` samples and `tiles` SAO tiles each: int32 samples
-    read and written once each (the statistics read src and rec and
-    write 96 ints a tile; the decision reads them and writes 6 ints a
-    tile; the application reads a plane and the maps and writes a
-    plane), operations at 67 T/s."""
-    if name == "sao_decide":
-        nbytes = planes * tiles * 4 * (lf.STAT_INTS + 6)
-        ops_n = planes * tiles * DECIDE_OPS
-    else:
-        nbytes = planes * pixels * 8
-        if name == "sao_statistics":
-            nbytes += planes * tiles * 4 * lf.STAT_INTS
-        if name == "sao_apply":
-            nbytes += planes * tiles * 4 * 6
-        ops_n = planes * pixels * FILTER_OPS[name]
+    read and written once each (the estimate reads src and rec and
+    writes 96 ints of statistics and 6 of parameters a tile; the
+    application reads a plane and the maps and writes a plane),
+    operations at 67 T/s."""
+    nbytes = planes * pixels * 8
+    ops_n = planes * pixels * FILTER_OPS[name]
+    if name == "sao_estimate":
+        nbytes += planes * tiles * 4 * (lf.STAT_INTS + 6)
+        ops_n += planes * tiles * DECIDE_OPS
+    if name == "sao_apply":
+        nbytes += planes * tiles * 4 * 6
     t_bytes = nbytes / 3.35e12 * 1e3
     t_ops = ops_n / 67e12 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -3316,36 +3357,35 @@ def filter_bound(name: str, planes: int, pixels: int, tiles: int) -> tuple:
 def filter_times(dev, frame: Frame, gpu: str) -> dict:
     """6i: each filter kernel and its plain version on the card a padded
     1080p plane (Y, U, V of the default config's closed-loop recon; CTB
-    SAO at the default tile of 64), through a CUDA graph, beside the
-    bound.  Returns {kernel: (ms, plain ms)} on the luma plane."""
+    SAO at the default tile of 64, merge on; the per-plane estimate
+    beside it), through a CUDA graph, beside the bound.  Returns
+    {kernel: (ms, plain ms)} on the luma plane."""
     out = {}
     for name, src, rec, chroma in filter_planes(dev, frame):
         tile = 64
         deb = lf.deblock_planes(rec, 22, 8, chroma)
-        stats = lf.sao_statistics(src, deb, tile)
-        prices = lf.sao_prices(22)
-        maps = lf.sao_decide(stats, prices=prices)
+        maps = lf.sao_estimate(src, deb, tile=tile, qp=22)
         fns = {
             "deblock_planes": (lambda: lf.deblock_planes(rec, 22, 8, chroma),
                                lambda: ops.deblock_plane(rec, 22, 8, chroma)),
-            "sao_statistics": (
-                lambda: lf.sao_statistics(src, deb, tile),
-                lambda: lf.sao_statistics_reference(src, deb, tile)),
-            "sao_decide": (
-                lambda: lf.sao_decide(stats, prices=prices),
-                lambda: lf.sao_decide_reference(stats, prices=prices)),
+            "sao_estimate": (
+                lambda: lf.sao_estimate(src, deb, tile=tile, qp=22),
+                lambda: ops_ctb.estimate_sao_ctb(src, deb, tile, 22)),
+            "sao_estimate (per-plane)": (
+                lambda: lf.sao_estimate(src, deb),
+                lambda: ops_sao.estimate_sao(src, deb)),
             "sao_apply": (lambda: lf.sao_apply(deb, *maps, tile),
                           lambda: ops_ctb.apply_sao_ctb(deb, *maps, tile)),
         }
         h, w = rec.shape[1:]
-        tiles = stats.shape[1] * stats.shape[2]
+        tiles = -(-h // tile) * -(-w // tile)
         parts = []
         for kern, (k_fn, p_fn) in fns.items():
             k_ms, p_ms = graph_ms(k_fn), graph_ms(p_fn, iters=5)
-            bound, by = filter_bound(kern, 1, h * w, tiles)
+            bound, by = filter_bound(kern.split(" ")[0], 1, h * w, tiles)
             parts.append(f"{kern} {k_ms:.4f} (plain {p_ms:.4f}, bound "
                          f"{bound * 1e3:.2f} us {by}, {100 * bound / k_ms:.1f} %)")
-            if name == "Y":
+            if name == "Y" and kern in FILTER_KERNELS:
                 out[kern] = (k_ms, p_ms)
         log(f"[6i] {name} {h}x{w}, ms (CUDA graph): {'; '.join(parts)} "
             f"[{gpu}]")
@@ -3500,7 +3540,7 @@ def phase_filters_frame(dev, frame: Frame, base_bits: dict,
     """8b: the 1080p frame under the default config and the mode search,
     with deblock+sao and deblock+sao_ctb: the wavefront kernel and each
     filter kernel launch once a plane and no other kernel launches (the
-    filters four launches a plane batch); the stream decodes on the
+    filters three launches a plane batch); the stream decodes on the
     card to the recon; bytes and Y-PSNR beside the unfiltered encode;
     the frame call and its device part, the unfiltered encode's timed in
     the same run beside them.  Returns the wavefront launches by body

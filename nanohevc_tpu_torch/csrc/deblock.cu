@@ -23,44 +23,71 @@
 //   edges on its output (8.7.2.1).
 //
 // The design.  A thread block owns an output tile of kTileH x kTileW
-// samples whose origin is a multiple of 8, and loads it with a 4-sample
-// halo on every side into shared memory (out-of-plane samples are read
-// by no edge that is filtered, and are loaded as 0).  The vertical pass
-// runs over the tile's rows plus the 4-row halos: an edge a filter
-// touches reads at most 4 samples on each side, so the halo columns are
-// enough for the tile's columns, and since the 4-row segments stay
-// aligned (the tile's first halo row is a multiple of 4), a segment's
-// decision stays inside the shared tile.  After one block barrier the
-// horizontal pass runs on the vertical output for the tile's own
-// columns, reading the halo rows the vertical pass filtered.  One item
-// of work is an (edge, 4-line segment): one thread reads the segment's
-// 4 x 8 samples, decides and writes them back; the edges of a pass are
-// 8 apart and touch at most 4 samples a side, so no two items touch a
-// sample.  The plane is read once and written once.
+// samples whose origin is a multiple of 8, and copies it with a
+// 4-sample halo on every side into shared memory (out-of-plane samples
+// are read by no edge that is filtered, and are copied as 0).  Where the
+// plane's width is a multiple of 4 (every padded plane: N >= 4) the
+// copy is 16-byte cp.async chunks, each wholly inside or outside the
+// plane, the outside ones zero-filled by the copy itself; else scalar
+// loads.  One item of work is one line of one edge, the 8 samples
+// [p3 p2 p1 p0 | q0 q1 q2 q3] around it, an "octet":
+// - the vertical pass runs over the tile's rows and the 4-row halos
+//   above and below (the horizontal pass reads them filtered): item
+//   (row, octet) reads its octet from shared memory as two 16-byte
+//   loads and writes it back the same way;
+// - after one block barrier, the horizontal pass runs on the vertical
+//   output for the tile's own columns: item (octet of rows, column)
+//   reads 8 samples of a column and stores the tile's rows among them
+//   straight to the output (a warp covers 32 columns of one row: one
+//   128-byte store a row).
+// A luma segment's decision needs its lines 0 and 3: the 4 lines of a
+// segment are the 4 lanes of a quad (items are laid out so that a quad
+// is 4 consecutive rows, or 4 consecutive columns, of one edge, and the
+// tile's first halo row is a multiple of 4), and each lane computes its
+// own line's d_p, d_q and strong test and reads lines 0 and 3 with
+// __shfl_sync.  The edges of a pass are 8 apart and a filter touches at
+// most 4 samples a side, so no two items touch a sample.
+//
+// Shared memory without bank conflicts.  A shared row holds kPitch
+// words, an odd number of 16-byte chunks; the 8 lanes of a quarter warp
+// in the vertical pass are 8 consecutive rows of one octet, so their
+// 16-byte accesses fall on the 8 distinct chunk slots of the 32 banks.
+// The horizontal pass reads 32 consecutive words of a row a warp.
 //
 // What bounds it on this card: bytes.  A plane is read and written once
 // (8 bytes a sample as int32; 16.6 MB for a padded 1080p luma plane,
-// 5 us at 3.35 TB/s); the halo adds (40 x 72) / (32 x 64) - 1 = 41 % of
-// reads, mostly from L2.  The filter's integer work, at most ~60
+// 4.95 us at 3.35 TB/s); the halo adds (40 x 72) / (32 x 64) - 1 = 41 %
+// of reads, mostly from L2.  The filter's integer work, at most ~60
 // operations a segment line, is far below the bytes' time.
+// tools/deblock_variants.py times the design's alternatives (pitch,
+// copies, threads, tile) and PERF.md keeps their numbers.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kTileH = 32;                  // output rows a thread block
 constexpr int kTileW = 64;                  // output columns
 constexpr int kHalo = 4;
-constexpr int kSH = kTileH + 2 * kHalo;     // shared rows
-constexpr int kSW = kTileW + 2 * kHalo;     // shared columns
-constexpr int kThreads = 128;
-// (segment, edge) items of each pass: the vertical pass has kSH / 4
-// segments by kTileW / 8 + 1 edges, the horizontal kTileW / 4 column
-// segments by kTileH / 8 + 1 edges; each fits the block once.
-constexpr int kVEdges = kTileW / 8 + 1, kVSegs = kSH / 4;
-constexpr int kHEdges = kTileH / 8 + 1, kHSegs = kTileW / 4;
-static_assert(kVEdges * kVSegs <= kThreads, "vertical items");
-static_assert(kHEdges * kHSegs <= kThreads, "horizontal items");
+constexpr int kThreads = 256;
+constexpr int kRows = kTileH + 2 * kHalo;   // shared rows
+constexpr int kCols = kTileW + 2 * kHalo;   // shared columns in use
+constexpr int kPitch = kCols + 4;           // words a shared row
+// Vertical pass: kVOcts octets a row (edges x0, x0 + 8, .., x0 + kTileW);
+// item i = (row group g, octet j, row 8g + i % 8), i / 8 = g * kVOcts + j.
+constexpr int kVOcts = kTileW / 8 + 1;
+constexpr int kVItems = kRows * kVOcts;
+// Horizontal pass: kHOcts octets of rows a column (edges y0 .. y0 +
+// kTileH); item i = (octet i / kTileW, column i % kTileW).
+constexpr int kHOcts = kTileH / 8 + 1;
+constexpr int kHItems = kHOcts * kTileW;
+static_assert(kTileH % 8 == 0 && kTileW % 8 == 0, "segments stay aligned");
+static_assert(kHalo == 4 && kThreads % 32 == 0, "halo, whole warps");
+static_assert(kPitch % 4 == 0 && (kPitch / 4) % 2 == 1,
+              "an odd number of 16-byte chunks a shared row");
 
 // Spec Table 8-12: beta' by Q = clip(qp, 0, 51), tc' by Q = clip(qp + 2,
 // 0, 53) (ref/deblock.py: BETA_TABLE, TC_TABLE).
@@ -76,103 +103,107 @@ __device__ __forceinline__ int clamp3(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
-// One luma segment: 4 lines of [p3 p2 p1 p0 | q0 q1 q2 q3], q0 of line l
-// at s[l * across], p_i at -(i + 1) * along, q_i at +i * along.
-__device__ void filter_luma(int* s, int along, int across, int beta, int tc,
-                            int pix_max) {
-  int p[4][4], q[4][4];
-#pragma unroll
-  for (int l = 0; l < 4; ++l) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      p[l][i] = s[l * across - (i + 1) * along];
-      q[l][i] = s[l * across + i * along];
-    }
-  }
-  const int dp0 = abs(p[0][2] - 2 * p[0][1] + p[0][0]);
-  const int dq0 = abs(q[0][2] - 2 * q[0][1] + q[0][0]);
-  const int dp3 = abs(p[3][2] - 2 * p[3][1] + p[3][0]);
-  const int dq3 = abs(q[3][2] - 2 * q[3][1] + q[3][0]);
-  const int dp03 = dp0 + dp3, dq03 = dq0 + dq3;
-  if (!(dp03 + dq03 < beta)) return;               // 8.7.2.5.3: d < beta
+// 16 bytes from global to shared memory, the last 16 - bytes of them
+// zero-filled (bytes 0: all zeros, nothing read).
+__device__ __forceinline__ void copy16(int* smem, const int* gmem,
+                                       int bytes) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(gmem), "r"(bytes)
+               : "memory");
+}
+
+// One line of a luma segment, v = [p3 p2 p1 p0 q0 q1 q2 q3], in the lane
+// of its quad that holds it (lane 0 of the quad: the segment's line 0).
+// `on` (the same in the whole quad): the segment's edge is filtered.
+// Every lane of the warp calls it.  Returns whether v changed.
+__device__ __forceinline__ bool filter_luma_line(int* v, bool on, int beta,
+                                                 int tc, int pix_max) {
+  const int p3 = v[0], p2 = v[1], p1 = v[2], p0 = v[3];
+  const int q0 = v[4], q1 = v[5], q2 = v[6], q3 = v[7];
+  const int dp = abs(p2 - 2 * p1 + p0), dq = abs(q2 - 2 * q1 + q0);
   const int tc5 = (5 * tc + 1) >> 1;
-  const bool strong0 = 2 * (dp0 + dq0) < (beta >> 2) &&
-                       abs(p[0][3] - p[0][0]) + abs(q[0][0] - q[0][3]) <
-                           (beta >> 3) &&
-                       abs(p[0][0] - q[0][0]) < tc5;
-  const bool strong3 = 2 * (dp3 + dq3) < (beta >> 2) &&
-                       abs(p[3][3] - p[3][0]) + abs(q[3][0] - q[3][3]) <
-                           (beta >> 3) &&
-                       abs(p[3][0] - q[3][0]) < tc5;
+  const int strong = 2 * (dp + dq) < (beta >> 2) &&
+                     abs(p3 - p0) + abs(q0 - q3) < (beta >> 3) &&
+                     abs(p0 - q0) < tc5;
+  // Lines 0 and 3 of the segment: dq and the strong test in one word.
+  const int lead = (threadIdx.x & 31) & ~3;
+  const int dqs = 2 * dq + strong;
+  const int dp0 = __shfl_sync(kFull, dp, lead);
+  const int dp3 = __shfl_sync(kFull, dp, lead + 3);
+  const int dqs0 = __shfl_sync(kFull, dqs, lead);
+  const int dqs3 = __shfl_sync(kFull, dqs, lead + 3);
+  const int dp03 = dp0 + dp3, dq03 = (dqs0 >> 1) + (dqs3 >> 1);
+  if (!on || !(dp03 + dq03 < beta)) return false;  // 8.7.2.5.3: d < beta
   const int c2 = 2 * tc;
-  if (strong0 && strong3) {
-#pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      const int p3 = p[l][3], p2 = p[l][2], p1 = p[l][1], p0 = p[l][0];
-      const int q0 = q[l][0], q1 = q[l][1], q2 = q[l][2], q3 = q[l][3];
-      int* o = s + l * across;
-      o[-3 * along] = clamp3((2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3,
-                             p2 - c2, p2 + c2);
-      o[-2 * along] = clamp3((p2 + p1 + p0 + q0 + 2) >> 2, p1 - c2, p1 + c2);
-      o[-1 * along] = clamp3((p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3,
-                             p0 - c2, p0 + c2);
-      o[0] = clamp3((p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3, q0 - c2,
-                    q0 + c2);
-      o[along] = clamp3((p0 + q0 + q1 + q2 + 2) >> 2, q1 - c2, q1 + c2);
-      o[2 * along] = clamp3((p0 + q0 + q1 + 3 * q2 + 2 * q3 + 4) >> 3,
-                            q2 - c2, q2 + c2);
-    }
-    return;
+  if (dqs0 & dqs3 & 1) {                             // strong filter
+    v[1] = clamp3((2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3, p2 - c2,
+                  p2 + c2);
+    v[2] = clamp3((p2 + p1 + p0 + q0 + 2) >> 2, p1 - c2, p1 + c2);
+    v[3] = clamp3((p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3, p0 - c2,
+                  p0 + c2);
+    v[4] = clamp3((p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3, q0 - c2,
+                  q0 + c2);
+    v[5] = clamp3((p0 + q0 + q1 + q2 + 2) >> 2, q1 - c2, q1 + c2);
+    v[6] = clamp3((p0 + q0 + q1 + 3 * q2 + 2 * q3 + 4) >> 3, q2 - c2,
+                  q2 + c2);
+    return true;
   }
+  const int delta = (9 * (q0 - p0) - 3 * (q1 - p1) + 8) >> 4;
+  if (!(abs(delta) < 10 * tc)) return false;         // weak filter off
   const int side = (beta + (beta >> 1)) >> 3;
-  const bool filt_p1 = dp03 < side, filt_q1 = dq03 < side;
   const int th = tc >> 1;
-#pragma unroll
-  for (int l = 0; l < 4; ++l) {
-    const int p2 = p[l][2], p1 = p[l][1], p0 = p[l][0];
-    const int q0 = q[l][0], q1 = q[l][1], q2 = q[l][2];
-    const int delta = (9 * (q0 - p0) - 3 * (q1 - p1) + 8) >> 4;
-    if (!(abs(delta) < 10 * tc)) continue;         // weak filter off
-    const int dc = clamp3(delta, -tc, tc);
-    int* o = s + l * across;
-    o[-1 * along] = clamp3(p0 + dc, 0, pix_max);
-    o[0] = clamp3(q0 - dc, 0, pix_max);
-    if (filt_p1)
-      o[-2 * along] = clamp3(
-          p1 + clamp3((((p2 + p0 + 1) >> 1) - p1 + dc) >> 1, -th, th), 0,
-          pix_max);
-    if (filt_q1)
-      o[along] = clamp3(
-          q1 + clamp3((((q2 + q0 + 1) >> 1) - q1 - dc) >> 1, -th, th), 0,
-          pix_max);
-  }
+  const int dc = clamp3(delta, -tc, tc);
+  v[3] = clamp3(p0 + dc, 0, pix_max);
+  v[4] = clamp3(q0 - dc, 0, pix_max);
+  if (dp03 < side)
+    v[2] = clamp3(p1 + clamp3((((p2 + p0 + 1) >> 1) - p1 + dc) >> 1, -th, th),
+                  0, pix_max);
+  if (dq03 < side)
+    v[5] = clamp3(q1 + clamp3((((q2 + q0 + 1) >> 1) - q1 - dc) >> 1, -th, th),
+                  0, pix_max);
+  return true;
 }
 
-// One chroma line: [p1 p0 | q0 q1] around s (q0), p0 / q0 filtered.
-__device__ __forceinline__ void filter_chroma(int* s, int along, int tc,
-                                              int pix_max) {
-  const int p1 = s[-2 * along], p0 = s[-along], q0 = s[0], q1 = s[along];
+// One chroma line, v as for luma: p0 / q0 filtered.
+__device__ __forceinline__ void filter_chroma_line(int* v, int tc,
+                                                   int pix_max) {
+  const int p1 = v[2], p0 = v[3], q0 = v[4], q1 = v[5];
   const int delta = clamp3(((q0 - p0) * 4 + p1 - q1 + 4) >> 3, -tc, tc);
-  s[-along] = clamp3(p0 + delta, 0, pix_max);
-  s[0] = clamp3(q0 - delta, 0, pix_max);
+  v[3] = clamp3(p0 + delta, 0, pix_max);
+  v[4] = clamp3(q0 - delta, 0, pix_max);
 }
 
-template <bool kChroma>
+template <bool kChroma, bool kVec>
 __global__ void __launch_bounds__(kThreads)
     deblock_kernel(const int* __restrict__ planes, int height, int width,
                    int bit_depth, int qp_scalar, const int* __restrict__ qps,
                    int* __restrict__ out) {
-  __shared__ int s[kSH][kSW];
+  __shared__ __align__(16) int s[kRows * kPitch];
   const int plane = blockIdx.z;
   const int y0 = blockIdx.y * kTileH, x0 = blockIdx.x * kTileW;
   const long long base = (long long)plane * height * width;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < kSH * kSW; i += kThreads) {
-    const int r = i / kSW, c = i % kSW;
-    const int gy = y0 - kHalo + r, gx = x0 - kHalo + c;
-    s[r][c] = (gy >= 0 && gy < height && gx >= 0 && gx < width)
-                  ? planes[base + (long long)gy * width + gx]
-                  : 0;
+  const int* __restrict__ in = planes + base;
+  const int tid = threadIdx.x, lane = tid & 31;
+  // Shared row r, column c holds the sample at (y0 - 4 + r, x0 - 4 + c).
+  if (kVec) {
+    constexpr int kChunks = kCols / 4;
+    for (int i = tid; i < kRows * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = i - r * kChunks;
+      const int gy = y0 - kHalo + r, gx = x0 - kHalo + 4 * c;
+      const bool inside = gy >= 0 && gy < height && gx >= 0 && gx < width;
+      copy16(&s[r * kPitch + 4 * c],
+             inside ? in + (long long)gy * width + gx : in, inside ? 16 : 0);
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+  } else {
+    for (int i = tid; i < kRows * kCols; i += kThreads) {
+      const int r = i / kCols, c = i - r * kCols;
+      const int gy = y0 - kHalo + r, gx = x0 - kHalo + c;
+      s[r * kPitch + c] = (gy >= 0 && gy < height && gx >= 0 && gx < width)
+                              ? in[(long long)gy * width + gx]
+                              : 0;
+    }
   }
   const int qp = qps ? qps[plane] : qp_scalar;
   const int shift = bit_depth - 8;
@@ -181,47 +212,76 @@ __global__ void __launch_bounds__(kThreads)
   const int pix_max = (1 << bit_depth) - 1;
   __syncthreads();
 
-  // Vertical edges: edge j at shared column kHalo + 8j (x = x0 + 8j),
-  // segment g over shared rows 4g..4g+3 (y = y0 - 4 + 4g, aligned at 0).
-  if (tid < kVEdges * kVSegs) {
-    const int j = tid % kVEdges, g = tid / kVEdges;
-    const int k = (x0 >> 3) + j, gy = y0 - kHalo + 4 * g;
-    if (k >= 1 && k <= (width - 4) / 8) {
-      int* q0 = &s[4 * g][kHalo + 8 * j];
-      if (kChroma) {
-        for (int l = 0; l < 4; ++l)
-          if (gy + l >= 0 && gy + l < height)
-            filter_chroma(q0 + l * kSW, 1, tc, pix_max);
-      } else if (gy >= 0 && gy / 4 < height / 4) {
-        filter_luma(q0, 1, kSW, beta, tc, pix_max);
-      }
+  // Vertical edges: octet j of shared row r is columns 8j..8j+7, its
+  // edge at x = x0 + 8j; the warps run whole, so a quad's shuffles
+  // always have their lanes.
+  const int n_vx = (width - 4) / 8, n_hy = (height - 4) / 8;
+  for (int first = tid - lane; first < kVItems; first += kThreads) {
+    const int i = first + lane;
+    const bool valid = i < kVItems;
+    const int pair = valid ? i >> 3 : 0;
+    const int j = pair % kVOcts, r = 8 * (pair / kVOcts) + (i & 7);
+    const int kx = (x0 >> 3) + j, gy = y0 - kHalo + r;
+    bool on = valid && kx >= 1 && kx <= n_vx;
+    int4* o = reinterpret_cast<int4*>(&s[r * kPitch + 8 * j]);
+    const int4 a = o[0], b = o[1];
+    int v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    if (kChroma) {
+      on = on && gy >= 0 && gy < height;
+      if (on) filter_chroma_line(v, tc, pix_max);
+    } else {
+      const int seg = gy - (r & 3);                  // the segment's line 0
+      on = on && seg >= 0 && seg / 4 < height / 4;
+      on = filter_luma_line(v, on, beta, tc, pix_max);
+    }
+    if (on) {
+      o[0] = make_int4(v[0], v[1], v[2], v[3]);
+      o[1] = make_int4(v[4], v[5], v[6], v[7]);
     }
   }
   __syncthreads();
 
-  // Horizontal edges on the vertical output: edge j at shared row kHalo
-  // + 8j (y = y0 + 8j), column segment g over the tile's columns 4g..4g+3.
-  if (tid < kHEdges * kHSegs) {
-    const int g = tid % kHSegs, j = tid / kHSegs;
-    const int k = (y0 >> 3) + j, gx = x0 + 4 * g;
-    if (k >= 1 && k <= (height - 4) / 8) {
-      int* q0 = &s[kHalo + 8 * j][kHalo + 4 * g];
-      if (kChroma) {
-        for (int l = 0; l < 4; ++l)
-          if (gx + l < width) filter_chroma(q0 + l, kSW, tc, pix_max);
-      } else if (gx / 4 < width / 4) {
-        filter_luma(q0, kSW, 1, beta, tc, pix_max);
+  // Horizontal edges on the vertical output: octet k of a column is
+  // shared rows 8k..8k+7, its edge at y = y0 + 8k; the tile's rows among
+  // them go straight to the output.
+  for (int first = tid - lane; first < kHItems; first += kThreads) {
+    const int i = first + lane;
+    const bool valid = i < kHItems;
+    const int k = valid ? i / kTileW : 0, c = i % kTileW;
+    const int ky = (y0 >> 3) + k, gx = x0 + c;
+    bool on = valid && ky >= 1 && ky <= n_hy;
+    const int* col = &s[8 * k * kPitch + kHalo + c];
+    int v[8];
+#pragma unroll
+    for (int t = 0; t < 8; ++t) v[t] = col[t * kPitch];
+    if (kChroma) {
+      on = on && gx < width;
+      if (on) filter_chroma_line(v, tc, pix_max);
+    } else {
+      on = on && gx / 4 < width / 4;
+      filter_luma_line(v, on, beta, tc, pix_max);
+    }
+    if (valid && gx < width) {
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const int row = 8 * k + t - kHalo;           // the tile's row
+        if (row >= 0 && row < kTileH && y0 + row < height)
+          out[base + (long long)(y0 + row) * width + gx] = v[t];
       }
     }
   }
-  __syncthreads();
+}
 
-  for (int i = tid; i < kTileH * kTileW; i += kThreads) {
-    const int r = i / kTileW, c = i % kTileW;
-    const int gy = y0 + r, gx = x0 + c;
-    if (gy < height && gx < width)
-      out[base + (long long)gy * width + gx] = s[kHalo + r][kHalo + c];
-  }
+template <bool kChroma>
+void launch(dim3 grid, cudaStream_t s, bool vec, const int* planes,
+            int height, int width, int bit_depth, int qp_scalar,
+            const int* qps, int* out) {
+  if (vec)
+    deblock_kernel<kChroma, true><<<grid, kThreads, 0, s>>>(
+        planes, height, width, bit_depth, qp_scalar, qps, out);
+  else
+    deblock_kernel<kChroma, false><<<grid, kThreads, 0, s>>>(
+        planes, height, width, bit_depth, qp_scalar, qps, out);
 }
 
 }  // namespace
@@ -243,14 +303,17 @@ extern "C" int nhv_deblock(const int* planes, int batch, int height,
   if (batch == 0 || height == 0 || width == 0) return (int)cudaSuccess;
   const dim3 grid((width + kTileW - 1) / kTileW,
                   (height + kTileH - 1) / kTileH, batch);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  // 16-byte copies: rows start on 16 bytes, chunks never straddle the
+  // plane's right edge.
+  const bool vec =
+      width % 4 == 0 && reinterpret_cast<std::uintptr_t>(planes) % 16 == 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_chroma)
-    deblock_kernel<true><<<grid, kThreads, 0, s>>>(planes, height, width,
-                                                   bit_depth, qp_scalar, qps,
-                                                   out);
+    launch<true>(grid, s, vec, planes, height, width, bit_depth, qp_scalar,
+                 qps, out);
   else
-    deblock_kernel<false><<<grid, kThreads, 0, s>>>(planes, height, width,
-                                                    bit_depth, qp_scalar, qps,
-                                                    out);
+    launch<false>(grid, s, vec, planes, height, width, bit_depth, qp_scalar,
+                  qps, out);
   return (int)cudaGetLastError();
 }

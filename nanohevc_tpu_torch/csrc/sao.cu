@@ -1,5 +1,6 @@
 // Sample Adaptive Offset of a batch of planes (spec 8.7.3), per plane or
-// per CTB tile, for Hopper (sm_90a): three kernels.
+// per CTB tile, for Hopper (sm_90a): two kernels, the estimate and the
+// application.
 //
 // What they replace.  No TPU kernel stands behind them: the JAX package
 // runs SAO as XLA ops inside its closed-loop encode
@@ -9,75 +10,118 @@
 // apply_sao_ctb :232).  The port's plain versions (ops/sao.py,
 // ops/sao_ctb.py) are scatter-adds with int64 atomics over the whole
 // plane, then 34 candidates and the merge pass as tensors of a few
-// hundred tiles each.  Bit for bit the same results, in three launches:
+// hundred tiles each.  Bit for bit the same results, in two launches:
 //
-// 1. sao_stats_kernel: a thread block of 1024 threads per (plane, tile).
-//    Each sample is classified with its 1-sample neighbourhood (a
-//    neighbour outside the plane gives category 0; the tiles at the
-//    right and bottom edges are partial), and its difference src - rec
-//    goes into the tile's 16 EO (class x category 1-4) and 32 band
-//    counts and sums: one histogram a warp in shared memory, two shared
-//    atomics a key a sample, then the warps' histograms summed into 96
-//    int32 a tile.  Per-tile values are exact in int32 (ops/sao_ctb.py
-//    asserts tile^2 * (2^bd - 1) < 2^31).  Layout: [eo_cnt 16 | eo_sum
-//    16 | bo_cnt 32 | bo_sum 32], eo index class * 4 + category - 1.
-//    tools/sao_stats_variants.py times the alternatives: summing the
-//    lanes of one key first (__match_any_sync, __reduce_add_sync) and
-//    256 threads a block (16 serial iterations at tile 64) were each
-//    slower (PERF.md, PR 16).
-// 2. sao_decide_ctb_kernel and sao_decide_frame_kernel: the 34 candidates (off, EO 0-3, BO positions
-//    0-28) of a tile, a warp a tile, a lane a bin and a candidate: lane l
-//    holds band l (offset and SSE delta) and, for l < 16, EO bin l; lanes
-//    0-3 gather their class's four deltas, lanes 0-28 their band
-//    window's, and a warp reduction takes the first minimum by index.
-//    Float32 in JAX's order, one rounding an op (no FMA: __fmul_rn,
-//    __fadd_rn, __fsub_rn, __fdiv_rn): cnt*(o*o) - (2*o)*ssum, the EO sum
-//    ((d0+d1)+d2)+d3, the band window ((a+b)+c)+d, the offset as
-//    rintf(float(ssum) / float(cnt)) clipped.  CTB SAO adds each
-//    candidate's price (lambda * bits, computed by the host in float32);
-//    per-plane SAO adds none.  The merge pass (ops/sao_ctb.py:139-164)
-//    offers each tile its left, then its upper neighbour's pass-1
-//    parameters, priced on this tile's statistics at the merge price,
-//    strict `<`, no neighbour at inf.  It reads pass-1 results only, so a
-//    thread block of kDecideWarps warps owns as many tiles of a tile row,
-//    computes pass 1 for them and for the kDecideWarps + 1 neighbours above and
-//    to the left (pass 1 is a pure function of a tile's statistics, so a
-//    neighbour computed twice gives the same bits), and after one block
-//    barrier runs the merge pass from shared memory: no second launch and
-//    no grid-wide synchronisation, at 2x the pass-1 work (a few hundred
-//    float operations a tile).  Per-plane SAO: a thread block a plane sums
-//    the plane's tile-64 statistics with wrap-around (uint32, as the plain
-//    version's int64 sum wrapped to int32 and JAX's int32 sums) and one
-//    warp decides.
-// 3. sao_apply_kernel: one elementwise pass, a thread a sample: read the
+// 1. sao_estimate_kernel: thread blocks of 1024 threads, each over a
+//    group of consecutive tiles (as many groups as the card holds at
+//    once: one wave), the statistics of each tile and then its decision.
+//    - Statistics: each sample is classified with its 1-sample
+//      neighbourhood (a neighbour outside the plane gives category 0;
+//      the tiles at the right and bottom edges are partial), and its
+//      difference src - rec goes into the tile's 16 EO (class x
+//      category 1-4) and 32 band counts and sums: one histogram a
+//      counting warp in shared memory, two shared atomics a key a
+//      sample; warps 1-3 then sum the warps' histograms into 96 int32 a
+//      tile, written out.  Per-tile values are exact in int32
+//      (ops/sao_ctb.py asserts tile^2 * (2^bd - 1) < 2^31).  Layout:
+//      [eo_cnt 16 | eo_sum 16 | bo_cnt 32 | bo_sum 32], eo index
+//      class * 4 + category - 1.
+//      tools/sao_stats_variants.py times the alternatives: 16 or 8
+//      counting warps a block, one tile a block (PERF.md keeps them).
+//    - The decision, in warp 0, overlapped: warp 0 counts no samples;
+//      it takes tile k's statistics at a named barrier and decides it
+//      while warps 1-31 count tile k + 1's samples, two buffers
+//      alternating.  The 34 candidates (off, EO 0-3, BO
+//      positions 0-28) of a tile, a lane a bin and a candidate: lane l
+//      holds band l (offset and SSE delta) and, for l < 16, EO bin l;
+//      lanes 0-3 gather their class's four deltas, lanes 0-28 their band
+//      window's, and a warp reduction takes the first minimum by index.
+//      Float32 in JAX's order, one rounding an op (no FMA: __fmul_rn,
+//      __fadd_rn, __fsub_rn, __fdiv_rn): cnt*(o*o) - (2*o)*ssum, the EO
+//      sum ((d0+d1)+d2)+d3, the band window ((a+b)+c)+d, the offset as
+//      rintf(float(ssum) / float(cnt)) clipped.  CTB SAO adds each
+//      candidate's price (lambda * bits, computed by the host in
+//      float32); per-plane SAO adds none.
+//    - CTB SAO's merge pass (ops/sao_ctb.py:139-164) offers each tile
+//      its left, then its upper neighbour's pass-1 parameters, priced on
+//      this tile's statistics at the merge price, strict `<`.  A block
+//      takes its group by an atomic ticket in raster order and
+//      publishes each tile's pass-1 parameters as one self-announcing
+//      64-bit word (the parameters and the launch's tag, one relaxed
+//      store: no flag, no fence; wavefront_sync.cuh's style) as soon as
+//      it has them; once its group's words are out, warp 0 polls the
+//      words of each tile's left and upper tiles (two lanes at once) and
+//      runs the merge passes.  Those tiles come earlier in its own group
+//      or in a group of a smaller ticket, whose block is running or done,
+//      and no word waits on a merge: no schedule deadlocks, and no chain
+//      of waits runs through the groups.  A spin that lasts a second
+//      traps.
+//    - Per-plane SAO: warp 0 adds each tile's 96 ints into the plane's
+//      uint32 sums with atomicAdd (the wrap-around sum is the same in
+//      any order: the plain version's int64 sum wrapped to int32, JAX's
+//      int32 sums), and the plane's last tile, found by a done counter,
+//      reads and zeroes the sums and decides.
+//    - No reset launch: the workspace (the ticket, the per-plane done
+//      counters and sums, a word a tile) is zeroed once when the wrapper
+//      allocates it, and each launch leaves it so.  The ticket's upper
+//      half is a generation: the block that takes the last ticket zeroes
+//      the count and moves the generation on in one atomicAdd, and a
+//      word's tag is the generation + 1, so a word of an earlier launch
+//      never reads as ready.  The generation lives on the device, so
+//      replays of a captured CUDA graph move it too.
+// 2. sao_apply_kernel: one elementwise pass, a thread a sample: read the
 //    input plane (never in place) and its tile's parameters, classify the
 //    sample as the statistics do, add its slot's offset, clip.  Per-plane
 //    SAO is one tile a plane.
 //
-// What bounds them on this card: bytes.  The statistics read two planes
-// (src and rec: 8 bytes a sample; the 8-neighbourhood comes from L1),
-// the application reads one and writes one (8 bytes a sample); the
-// decision reads 384 bytes of statistics a tile and writes 24.  Their
-// integer work (about 40 operations a sample in the statistics, 10 in
-// the application) is below the bytes' time at 67 T ops/s.
+// What bounds them on this card: bytes.  The estimate reads two planes
+// (src and rec: 8 bytes a sample; the 8-neighbourhood comes from L1)
+// and writes 96 + 6 ints a tile; the application reads one plane and
+// writes one (8 bytes a sample).  Their integer work (about 40
+// operations a sample in the statistics, 10 in the application) and
+// the decision's few hundred float32 operations a tile are below the
+// bytes' time at 67 T ops/s.  What holds the estimate back instead is
+// the counting: a thread block's warps take a tile of 64 x 64 in rounds
+// of shared atomics, and with warp 0 deciding, 31 warps need 5 rounds
+// where 32 would need 4 (PERF.md).
 
 #include <cuda_runtime.h>
 
 #include <math_constants.h>
+
+#include "wavefront_sync.cuh"
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kStatInts = 96;         // a tile's statistics
 constexpr int kEoCnt = 0, kEoSum = 16, kBoCnt = 32, kBoSum = 64;
+// A thread block: warp 0 decides, kCountWarps warps count samples.
 constexpr int kStatThreads = 1024;
-constexpr int kStatWarps = kStatThreads / 32;
-constexpr int kDecideWarps = 8;       // tiles a thread block (CTB SAO)
-constexpr int kJobs = 2 * kDecideWarps + 1;
-constexpr int kSumGroups = 8;         // per-plane SAO: tile groups summed
-constexpr int kFrameThreads = kSumGroups * kStatInts;
+constexpr int kCountWarps = kStatThreads / 32 - 1;
+constexpr int kCountThreads = 32 * kCountWarps;
+// Tiles a thread block at most.
+constexpr int kMaxGroup = 64;
 constexpr int kApplyX = 32, kApplyY = 8;
 constexpr int kOff = 0, kEo0 = 1, kBo = 5;
+// The counting warps meet at named barrier kBarCount; warps 1..kSumWarps
+// then sum a tile's histograms and hand the statistics in buffer b to
+// warp 0 at named barrier kBarFull + b, and warp 0 hands the buffer back
+// at kBarFree + b.
+constexpr int kSumWarps = kStatInts / 32;
+constexpr int kBarCount = 1, kBarFull = 2, kBarFree = 4;
+constexpr int kHandOff = 32 * (1 + kSumWarps);
+// nhv_sao_estimate's modes.
+constexpr int kModeFrame = 0, kModeCtb = 1, kModeMerge = 2;
+// The workspace's counters (int32): the 64-bit ticket (count, then
+// generation) at kTicket; the per-plane done counters and sums follow
+// at kCounters.
+constexpr int kTicket = 0;
+constexpr int kCounters = 4;
+// A published word: type (3 bits), band (5), the offsets (6 bits each,
+// two's complement) from bit kWordOff; the tag in the upper 32 bits.
+constexpr int kWordOff = 8;
+constexpr int kWordOffBits = 6;
 
 // (dy0, dx0, dy1, dx1) of EO classes 0-3 (ref/sao.py: EO_NEIGHBORS).
 __constant__ int kNeighbors[4][4] = {
@@ -107,46 +151,6 @@ __device__ __forceinline__ void hist_add(int* cnt, int* sum, int key,
   atomicAdd(sum + key, val);
 }
 
-__global__ void __launch_bounds__(kStatThreads)
-    sao_stats_kernel(const int* __restrict__ src, const int* __restrict__ rec,
-                     int height, int width, int tile_shift, int bit_depth,
-                     int* __restrict__ stats) {
-  __shared__ int hist[kStatWarps][kStatInts];
-  const int warp = threadIdx.x >> 5;
-  for (int i = threadIdx.x; i < kStatWarps * kStatInts; i += kStatThreads)
-    (&hist[0][0])[i] = 0;
-  __syncthreads();
-  const int plane = blockIdx.z, ty = blockIdx.y, tx = blockIdx.x;
-  const int tile = 1 << tile_shift;
-  const int y0 = ty << tile_shift, x0 = tx << tile_shift;
-  const int th = min(tile, height - y0), tw = min(tile, width - x0);
-  const int n = th * tw;
-  const long long base = (long long)plane * height * width;
-  const int* __restrict__ r = rec + base;
-  const int* __restrict__ s = src + base;
-  int* h = hist[warp];
-  for (int i = threadIdx.x; i < n; i += kStatThreads) {
-    const int y = y0 + i / tw, x = x0 + i % tw;
-    const int p = __ldg(r + (long long)y * width + x);
-    const int d = __ldg(s + (long long)y * width + x) - p;
-    const int band = p >> (bit_depth - 5);
-    if (band >= 0 && band < 32) hist_add(h + kBoCnt, h + kBoSum, band, d);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int cat = eo_category(r, height, width, y, x, p, c);
-      if (cat) hist_add(h + kEoCnt, h + kEoSum, c * 4 + cat - 1, d);
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < kStatInts) {
-    int total = 0;
-#pragma unroll
-    for (int w = 0; w < kStatWarps; ++w) total += hist[w][threadIdx.x];
-    const int ntx = gridDim.x, nty = gridDim.y;
-    stats[(((long long)plane * nty + ty) * ntx + tx) * kStatInts +
-          threadIdx.x] = total;
-  }
-}
 
 // --- the decision --------------------------------------------------------
 
@@ -285,99 +289,278 @@ __device__ __forceinline__ void store_choice(const Choice& ch, long long t,
   }
 }
 
-// CTB SAO: grid (ceil(ntx / kDecideWarps), nty, batch), kDecideWarps
-// warps; warp w decides tile (ty, tx0 + w).
-__global__ void __launch_bounds__(kDecideWarps * 32)
-    sao_decide_ctb_kernel(const int* __restrict__ stats, int nty, int ntx,
-                          int cap, float price_off, float price_eo,
-                          float price_bo, float price_merge, int merge,
-                          int* __restrict__ type_map,
-                          int* __restrict__ band_map,
-                          int* __restrict__ off_map) {
-  // Pass-1 choices: jobs 0..W-1 the block's tiles, W..2W-1 the tiles
-  // above them, 2W the tile left of the first.
-  __shared__ Choice pass1[kJobs];
-  const int warp = threadIdx.x >> 5;
-  const int plane = blockIdx.z, ty = blockIdx.y;
-  const int tx0 = blockIdx.x * kDecideWarps;
-  const long long row = ((long long)plane * nty + ty) * ntx;
-  const int tx = tx0 + warp;
-  const bool mine = tx < ntx;
-  Bins own{0, 0, 0, 0};
-  Choice ch{};
-  if (mine) {
-    own = load_bins(stats + (row + tx) * kStatInts);
-    ch = decide(own, cap, true, price_off, price_eo, price_bo);
-  }
-  if (!merge) {
-    if (mine) store_choice(ch, row + tx, type_map, band_map, off_map);
-    return;
-  }
-  if (mine && (threadIdx.x & 31) == 0) pass1[warp] = ch;
-  for (int job = kDecideWarps + warp; job < kJobs; job += kDecideWarps) {
-    int jy = ty - 1, jx = tx0 + job - kDecideWarps;   // above
-    if (job == 2 * kDecideWarps) {                     // left
-      jy = ty;
-      jx = tx0 - 1;
-    }
-    if (jy < 0 || jx < 0 || jx >= ntx) continue;
-    const Bins nb = load_bins(
-        stats + (((long long)plane * nty + jy) * ntx + jx) * kStatInts);
-    const Choice nc = decide(nb, cap, true, price_off, price_eo, price_bo);
-    if ((threadIdx.x & 31) == 0) pass1[job] = nc;
-  }
-  __syncthreads();
-  if (!mine) return;
-  Choice best = ch;
-#pragma unroll
-  for (int dir = 0; dir < 2; ++dir) {                  // left, then up
-    const bool has = dir == 0 ? tx > 0 : ty > 0;
-    const Choice& n = pass1[dir == 0 ? (warp > 0 ? warp - 1 : 2 * kDecideWarps)
-                                     : kDecideWarps + warp];
-    const int nt = has ? n.type : kOff, nbd = has ? n.band : 0;
-    int noff[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) noff[j] = has ? n.off[j] : 0;
-    const float d = nt == kOff ? 0.0f : params_delta(own, nt, nbd, noff);
-    const float cost = has ? __fadd_rn(d, price_merge) : CUDART_INF_F;
-    if (cost < best.cost) {
-      best.cost = cost;
-      best.type = nt;
-      best.band = nbd;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) best.off[j] = noff[j];
-    }
-  }
-  store_choice(best, row + tx, type_map, band_map, off_map);
+// --- the estimate: statistics, then the decision ------------------------
+
+__device__ __forceinline__ unsigned long long load_word(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
 }
 
-// Per-plane SAO: grid (batch), kFrameThreads threads; sums the plane's
-// nt tile statistics (wrapping) and decides with no prices.
-__global__ void __launch_bounds__(kFrameThreads)
-    sao_decide_frame_kernel(const int* __restrict__ stats, int nt, int cap,
-                            int* __restrict__ type_map,
-                            int* __restrict__ band_map,
-                            int* __restrict__ off_map) {
-  __shared__ unsigned part[kSumGroups][kStatInts];
-  __shared__ int total[kStatInts];
-  const int plane = blockIdx.x;
-  const int e = threadIdx.x % kStatInts, g = threadIdx.x / kStatInts;
-  const int* st = stats + (long long)plane * nt * kStatInts;
-  unsigned acc = 0;
-  for (int t = g; t < nt; t += kSumGroups)
-    acc += (unsigned)st[(long long)t * kStatInts + e];
-  part[g][e] = acc;
-  __syncthreads();
-  if (threadIdx.x < kStatInts) {
-    unsigned sum = 0;
+__device__ __forceinline__ void store_word(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+// Named barriers: `n` threads (whole warps) meet at barrier `id`.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ unsigned pack_params(const Choice& ch) {
+  unsigned w = (unsigned)ch.type | (unsigned)ch.band << 3;
 #pragma unroll
-    for (int k = 0; k < kSumGroups; ++k) sum += part[k][threadIdx.x];
-    total[threadIdx.x] = (int)sum;
+  for (int j = 0; j < 4; ++j)
+    w |= ((unsigned)ch.off[j] & ((1u << kWordOffBits) - 1))
+         << (kWordOff + kWordOffBits * j);
+  return w;
+}
+
+__device__ __forceinline__ Choice unpack_params(unsigned p) {
+  Choice ch;
+  ch.cost = 0.0f;
+  ch.type = p & 7;
+  ch.band = (p >> 3) & 31;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    ch.off[j] = (int)(p << (32 - kWordOff - kWordOffBits * (j + 1))) >>
+                (32 - kWordOffBits);
+  return ch;
+}
+
+// The low 32 bits of word `t` once it carries `tag`, in lane `lane` of
+// the warp where `want`; lanes poll their own words at once (32 polls
+// back to back, then __nanosleep backoff, a trap after a second).
+__device__ __forceinline__ unsigned poll_word(const unsigned long long* w,
+                                              bool want, unsigned tag) {
+  unsigned long long v = 0;
+  if (want) {
+    unsigned spins = 0, ns = 16;
+    unsigned long long t0 = 0;
+    while ((unsigned)((v = load_word(w)) >> 32) != tag) {
+      if (++spins < 32) continue;
+      if (t0 == 0) t0 = global_ns();
+      __nanosleep(ns);
+      if (ns < 128) ns <<= 1;
+      check_spin(t0);
+    }
+  }
+  return (unsigned)v;
+}
+
+// Tile t's first decision (raster over plane, row, column) from its
+// statistics `own`, in warp 0; it never waits.  Per-plane SAO: the
+// tile's statistics go into the plane's sums, and the plane's last tile
+// reads them back, leaves zeros and decides.  CTB SAO: the tile's pass
+// 1, stored (kModeCtb) or kept for the merge pass in `cost` / `params`
+// and published as tile t's word (kModeMerge).
+template <int kMode>
+__device__ void first_decision(const Bins& own, long long t, int per_plane,
+                               int cap, float price_off, float price_eo,
+                               float price_bo, unsigned tag, int* type_map,
+                               int* band_map, int* off_map, int* counters,
+                               int batch, unsigned long long* words,
+                               float* cost, unsigned* params) {
+  const int lane = threadIdx.x & 31;
+  if (kMode == kModeFrame) {
+    // The tile's sums go in before it counts itself done (a fence).
+    const int plane = (int)(t / per_plane);
+    int* done = counters + kCounters + plane;
+    unsigned* sums = reinterpret_cast<unsigned*>(counters + kCounters +
+                                                 batch) +
+                     (long long)plane * kStatInts;
+    if (lane < 16) {
+      atomicAdd(sums + kEoCnt + lane, (unsigned)own.ec);
+      atomicAdd(sums + kEoSum + lane, (unsigned)own.es);
+    }
+    atomicAdd(sums + kBoCnt + lane, (unsigned)own.bc);
+    atomicAdd(sums + kBoSum + lane, (unsigned)own.bs);
+    __threadfence();
+    int last = 0;
+    if (lane == 0) last = atomicAdd(done, 1) == per_plane - 1;
+    if (!__shfl_sync(kFull, last, 0)) return;
+    __threadfence();
+    Bins all;
+    all.ec = lane < 16 ? (int)atomicExch(sums + kEoCnt + lane, 0u) : 0;
+    all.es = lane < 16 ? (int)atomicExch(sums + kEoSum + lane, 0u) : 0;
+    all.bc = (int)atomicExch(sums + kBoCnt + lane, 0u);
+    all.bs = (int)atomicExch(sums + kBoSum + lane, 0u);
+    if (lane == 0) atomicExch(done, 0);
+    const Choice ch = decide(all, cap, false, 0.f, 0.f, 0.f);
+    store_choice(ch, plane, type_map, band_map, off_map);
+    return;
+  }
+  const Choice ch = decide(own, cap, true, price_off, price_eo, price_bo);
+  if (kMode == kModeCtb) {
+    store_choice(ch, t, type_map, band_map, off_map);
+    return;
+  }
+  if (lane == 0) {
+    const unsigned p = pack_params(ch);
+    store_word(words + t, (unsigned long long)tag << 32 | p);
+    *cost = ch.cost;
+    *params = p;
+  }
+}
+
+// CTB SAO's merge pass of tile t, in warp 0: its left, then its upper
+// neighbour's pass-1 parameters (their words: lane 0 polls the left,
+// lane 1 the upper one, at once) priced on its statistics `own` at the
+// merge price against its own pass 1 (`cost`, `params`), strict `<`.
+__device__ void merge_tile(const Bins& own, long long t, int ntx,
+                           int per_plane, float price_merge, unsigned tag,
+                           float cost, unsigned params, int* type_map,
+                           int* band_map, int* off_map,
+                           const unsigned long long* words) {
+  const int lane = threadIdx.x & 31;
+  const int cell = (int)(t % per_plane);
+  const int ty = cell / ntx, tx = cell % ntx;
+  const bool has = lane == 0 ? tx > 0 : (lane == 1 && ty > 0);
+  const unsigned p =
+      poll_word(words + (lane == 0 ? t - 1 : t - ntx), has, tag);
+  Choice best = unpack_params(params);
+  best.cost = cost;
+#pragma unroll
+  for (int dir = 0; dir < 2; ++dir) {                // left, then up
+    if (dir == 0 ? tx == 0 : ty == 0) continue;
+    const Choice nb = unpack_params(__shfl_sync(kFull, p, dir));
+    const float d = nb.type == kOff
+                        ? 0.0f
+                        : params_delta(own, nb.type, nb.band, nb.off);
+    const float c = __fadd_rn(d, price_merge);
+    if (c < best.cost) {
+      best.cost = c;
+      best.type = nb.type;
+      best.band = nb.band;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) best.off[j] = nb.off[j];
+    }
+  }
+  store_choice(best, t, type_map, band_map, off_map);
+}
+
+// Grid (groups), kStatThreads threads.  A thread block takes group g
+// (its blockIdx.x, or under kModeMerge its ticket: groups in raster
+// order) and its tiles g * per_group .. + per_group - 1 in order.  Warps
+// 1-31 count the samples of tile k into their own histograms; after a
+// barrier of theirs warps 1-3 sum the histograms into the tile's
+// statistics (written out, and handed to warp 0 at a named barrier)
+// while the others go on to tile k + 1; warp 0 takes the first decision
+// of tile k meanwhile.  Two histogram and statistics buffers alternate.
+// Under
+// kModeMerge warp 0 then runs the group's merge passes, once every tile
+// of the group has published its pass 1: a word waits on no merge, so
+// no chain of waits runs through the groups.  The ticket's upper 32
+// bits are the launch's generation: the block that takes the last
+// ticket zeroes the count and moves the generation on, and a word's tag
+// is the generation + 1.
+template <int kMode>
+__global__ void __launch_bounds__(kStatThreads)
+    sao_estimate_kernel(const int* __restrict__ src,
+                        const int* __restrict__ rec, int height, int width,
+                        int tile_shift, int bit_depth, int batch, int nty,
+                        int ntx, int per_group, int cap, float price_off,
+                        float price_eo, float price_bo, float price_merge,
+                        int* __restrict__ stats, int* __restrict__ type_map,
+                        int* __restrict__ band_map, int* __restrict__ off_map,
+                        int* __restrict__ counters,
+                        unsigned long long* __restrict__ words) {
+  __shared__ int hist[2][kCountWarps][kStatInts];
+  __shared__ int total[2][kStatInts];
+  __shared__ float pass1_cost[kMaxGroup];
+  __shared__ unsigned pass1_params[kMaxGroup];
+  __shared__ long long group;
+  __shared__ unsigned launch_tag;
+  const int warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < 2 * kCountWarps * kStatInts;
+       i += kStatThreads)
+    (&hist[0][0][0])[i] = 0;
+  if (threadIdx.x == 0) {
+    long long g = blockIdx.x;
+    unsigned tag = 0;
+    if (kMode == kModeMerge) {
+      unsigned long long* ticket =
+          reinterpret_cast<unsigned long long*>(counters + kTicket);
+      const unsigned long long old = atomicAdd(ticket, 1ull);
+      g = (long long)(old & 0xffffffffull);
+      tag = (unsigned)(old >> 32) + 1u;
+      if (g == gridDim.x - 1)         // every ticket is taken
+        atomicAdd(ticket, (1ull << 32) - gridDim.x);
+    }
+    group = g;
+    launch_tag = tag;
   }
   __syncthreads();
-  if (threadIdx.x >= 32) return;
-  const Choice ch = decide(load_bins(total), cap, false, 0.f, 0.f, 0.f);
-  store_choice(ch, plane, type_map, band_map, off_map);
+  const int per_plane = nty * ntx;
+  const long long ntiles = (long long)batch * per_plane;
+  const long long first = group * per_group;
+  const int n = (int)min((long long)per_group, ntiles - first);
+  const int tile = 1 << tile_shift;
+  if (warp == 0) {
+    for (int k = 0; k < n; ++k) {
+      bar_sync(kBarFull + (k & 1), kHandOff);
+      const Bins own = load_bins(total[k & 1]);
+      if (k + 2 < n) bar_arrive(kBarFree + (k & 1), kHandOff);
+      first_decision<kMode>(own, first + k, per_plane, cap, price_off,
+                            price_eo, price_bo, launch_tag, type_map,
+                            band_map, off_map, counters, batch, words,
+                            &pass1_cost[k], &pass1_params[k]);
+    }
+    if (kMode == kModeMerge) {
+      __syncwarp();
+      for (int k = 0; k < n; ++k)
+        merge_tile(load_bins(stats + (first + k) * kStatInts), first + k,
+                   ntx, per_plane, price_merge, launch_tag, pass1_cost[k],
+                   pass1_params[k], type_map, band_map, off_map, words);
+    }
+    return;
+  }
+  const int counter = threadIdx.x - 32;
+  for (int k = 0; k < n; ++k) {
+    const int buf = k & 1;
+    const long long t = first + k;
+    const int plane = (int)(t / per_plane), cell = (int)(t % per_plane);
+    const int y0 = (cell / ntx) << tile_shift, x0 = (cell % ntx) << tile_shift;
+    const int th = min(tile, height - y0), tw = min(tile, width - x0);
+    const int cnt = th * tw;
+    const long long base = (long long)plane * height * width;
+    const int* __restrict__ r = rec + base;
+    const int* __restrict__ s = src + base;
+    int* h = hist[buf][warp - 1];
+    for (int i = counter; i < cnt; i += kCountThreads) {
+      const int y = y0 + i / tw, x = x0 + i % tw;
+      const int p = __ldg(r + (long long)y * width + x);
+      const int d = __ldg(s + (long long)y * width + x) - p;
+      const int band = p >> (bit_depth - 5);
+      if (band >= 0 && band < 32) hist_add(h + kBoCnt, h + kBoSum, band, d);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int cat = eo_category(r, height, width, y, x, p, c);
+        if (cat) hist_add(h + kEoCnt, h + kEoSum, c * 4 + cat - 1, d);
+      }
+    }
+    bar_sync(kBarCount, kCountThreads);
+    if (warp <= kSumWarps) {
+      const int e = counter;
+      int sum = 0;
+#pragma unroll
+      for (int w = 0; w < kCountWarps; ++w) {
+        sum += hist[buf][w][e];
+        hist[buf][w][e] = 0;
+      }
+      stats[t * kStatInts + e] = sum;
+      if (k >= 2) bar_sync(kBarFree + buf, kHandOff);   // warp 0 took k - 2
+      total[buf][e] = sum;
+      bar_arrive(kBarFull + buf, kHandOff);
+    }
+  }
 }
 
 // --- the application -----------------------------------------------------
@@ -416,57 +599,93 @@ bool bad_shape(int batch, int height, int width, int bit_depth) {
          bit_depth > 16 || batch > 65535;
 }
 
-}  // namespace
+// Thread blocks of the estimate kernel that the card holds at once, by
+// device (0: not asked yet).
+constexpr int kMaxDevices = 64;
+int resident_blocks[3][kMaxDevices];
 
-// Statistics of `batch` (height, width) int32 src / rec planes over tiles
-// of 1 << tile_shift samples: `stats` is (batch, nty, ntx, 96) int32.
-extern "C" int nhv_sao_stats(const int* src, const int* rec, int batch,
-                             int height, int width, int tile_shift,
-                             int bit_depth, int* stats, void* stream,
-                             int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (bad_shape(batch, height, width, bit_depth) || tile_shift < 0 ||
-      tile_shift > 15)
-    return (int)cudaErrorInvalidValue;
-  if (batch == 0 || height == 0 || width == 0) return (int)cudaSuccess;
-  const int tile = 1 << tile_shift;
-  const dim3 grid((width + tile - 1) / tile, (height + tile - 1) / tile,
-                  batch);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  sao_stats_kernel<<<grid, kStatThreads, 0, (cudaStream_t)stream>>>(
-      src, rec, height, width, tile_shift, bit_depth, stats);
+template <int kMode>
+int launch_estimate(const int* src, const int* rec, int batch, int height,
+                    int width, int tile_shift, int bit_depth, int nty,
+                    int ntx, int cap, const float* prices, int* stats,
+                    int* type_map, int* band_map, int* off_map,
+                    int* counters, unsigned long long* words,
+                    cudaStream_t stream, int device) {
+  int& resident = resident_blocks[kMode][device];
+  if (resident == 0) {
+    int per_sm = 0, sms = 0;
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, sao_estimate_kernel<kMode>, kStatThreads, 0);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   device);
+    if (err != cudaSuccess) return (int)err;
+    resident = per_sm * sms > 0 ? per_sm * sms : 1;
+  }
+  // Groups of consecutive tiles, as many as the card holds at once, so
+  // that one grid runs in one wave and a block's decisions overlap its
+  // later tiles' counting.
+  const long long ntiles = (long long)batch * nty * ntx;
+  const int fill = (int)((ntiles + resident - 1) / resident);
+  const int per_group = fill < kMaxGroup ? fill : kMaxGroup;
+  const long long groups = (ntiles + per_group - 1) / per_group;
+  sao_estimate_kernel<kMode><<<(unsigned)groups, kStatThreads, 0, stream>>>(
+      src, rec, height, width, tile_shift, bit_depth, batch, nty, ntx,
+      per_group, cap, prices[0], prices[1], prices[2], prices[3], stats,
+      type_map, band_map, off_map, counters, words);
   return (int)cudaGetLastError();
 }
 
-// The decision from `stats` ((batch, nty, ntx, 96), as nhv_sao_stats
-// writes them).  frame != 0: per-plane SAO, the tiles summed, outputs
-// (batch), (batch), (batch, 4); else CTB SAO with the four prices and
-// the merge pass where merge != 0, outputs (batch, nty, ntx), (batch,
-// nty, ntx), (batch, nty, ntx, 4).  cap is the offsets' magnitude bound.
-extern "C" int nhv_sao_decide(const int* stats, int batch, int nty, int ntx,
-                              int frame, int cap, float price_off,
-                              float price_eo, float price_bo,
-                              float price_merge, int merge, int* type_map,
-                              int* band_map, int* off_map, void* stream,
-                              int device) {
+}  // namespace
+
+// The estimate of `batch` (height, width) int32 src / rec planes over
+// tiles of 1 << tile_shift samples: `stats` (batch, nty, ntx, 96) int32,
+// and the parameters: mode kModeFrame one set a plane, type / band
+// (batch) and offsets (batch, 4), with no prices; kModeCtb / kModeMerge
+// a set a tile, (batch, nty, ntx) and (batch, nty, ntx, 4), with the
+// four prices, the merge pass under kModeMerge.  cap (< 32) bounds the
+// offsets.  `counters` is the workspace's int32 part (kCounters + batch
+// * 97 ints), `words` its word a tile (kModeMerge), both zeroed once
+// when allocated and left so by every launch; launches that share them
+// must not overlap (one stream).
+extern "C" int nhv_sao_estimate(const int* src, const int* rec, int batch,
+                                int height, int width, int tile_shift,
+                                int bit_depth, int mode, int cap,
+                                float price_off, float price_eo,
+                                float price_bo, float price_merge,
+                                int* stats, int* type_map, int* band_map,
+                                int* off_map, int* counters,
+                                unsigned long long* words, void* stream,
+                                int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (batch < 0 || nty < 0 || ntx < 0 || cap < 0 || batch > 65535 ||
-      nty > 65535)
+  if (bad_shape(batch, height, width, bit_depth) || tile_shift < 0 ||
+      tile_shift > 15 || mode < kModeFrame || mode > kModeMerge || cap < 0 ||
+      cap >= 1 << (kWordOffBits - 1) || device < 0 || device >= kMaxDevices)
     return (int)cudaErrorInvalidValue;
-  if (batch == 0 || nty == 0 || ntx == 0) return (int)cudaSuccess;
+  if (batch == 0 || height == 0 || width == 0) return (int)cudaSuccess;
+  const long long nty = ((height - 1) >> tile_shift) + 1;
+  const long long ntx = ((width - 1) >> tile_shift) + 1;
+  if (batch * nty * ntx > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const float prices[4] = {price_off, price_eo, price_bo, price_merge};
   cudaStream_t s = (cudaStream_t)stream;
-  if (frame) {
-    sao_decide_frame_kernel<<<batch, kFrameThreads, 0, s>>>(
-        stats, nty * ntx, cap, type_map, band_map, off_map);
-  } else {
-    const dim3 grid((ntx + kDecideWarps - 1) / kDecideWarps, nty, batch);
-    sao_decide_ctb_kernel<<<grid, kDecideWarps * 32, 0, s>>>(
-        stats, nty, ntx, cap, price_off, price_eo, price_bo, price_merge,
-        merge, type_map, band_map, off_map);
-  }
-  return (int)cudaGetLastError();
+  if (mode == kModeFrame)
+    return launch_estimate<kModeFrame>(src, rec, batch, height, width,
+                                       tile_shift, bit_depth, (int)nty,
+                                       (int)ntx, cap, prices, stats, type_map,
+                                       band_map, off_map, counters, words, s,
+                                       device);
+  if (mode == kModeCtb)
+    return launch_estimate<kModeCtb>(src, rec, batch, height, width,
+                                     tile_shift, bit_depth, (int)nty,
+                                     (int)ntx, cap, prices, stats, type_map,
+                                     band_map, off_map, counters, words, s,
+                                     device);
+  return launch_estimate<kModeMerge>(src, rec, batch, height, width,
+                                     tile_shift, bit_depth, (int)nty,
+                                     (int)ntx, cap, prices, stats, type_map,
+                                     band_map, off_map, counters, words, s,
+                                     device);
 }
 
 // Apply per-tile parameters ((batch, nty, ntx) type and band maps, (batch,

@@ -28,10 +28,8 @@ from nanohevc_tpu_torch.kernels.decode import (
 from nanohevc_tpu_torch.kernels.loop_filter import (
     deblock_planes,
     sao_apply,
-    sao_decide,
     sao_decide_reference,
     sao_estimate,
-    sao_statistics,
     sao_statistics_reference,
 )
 from nanohevc_tpu_torch.kernels.wavefront import (
@@ -53,10 +51,8 @@ __all__ = [
     "mode_search_encode_plane_reference",
     "mode_search_supported",
     "sao_apply",
-    "sao_decide",
     "sao_decide_reference",
     "sao_estimate",
-    "sao_statistics",
     "sao_statistics_reference",
     "slab_encode_plane",
     "slab_encode_plane_reference",

@@ -83,14 +83,12 @@ SIGNATURES = {
     # planes, batch, height, width, bit_depth, is_chroma, qp_scalar, qps,
     # out, stream, device
     "deblock": {"nhv_deblock": [_P] + [_I] * 6 + [_P, _P, _P, _I]},
-    # src, rec, batch, height, width, tile_shift, bit_depth, stats,
-    # stream, device; stats, batch, nty, ntx, frame, cap, 4 prices,
-    # merge, type, band, offsets, stream, device; planes, type, band,
-    # offsets, batch, height, width, tile_shift, bit_depth, out, stream,
-    # device
-    "sao": {"nhv_sao_stats": [_P, _P] + [_I] * 5 + [_P, _P, _I],
-            "nhv_sao_decide": [_P] + [_I] * 5 + [ctypes.c_float] * 4 + [_I]
-                              + [_P] * 4 + [_I],
+    # src, rec, batch, height, width, tile_shift, bit_depth, mode, cap,
+    # 4 prices, stats, type, band, offsets, counters, words, stream,
+    # device; planes, type, band, offsets, batch, height, width,
+    # tile_shift, bit_depth, out, stream, device
+    "sao": {"nhv_sao_estimate": [_P, _P] + [_I] * 7
+                                + [ctypes.c_float] * 4 + [_P] * 6 + [_P, _I],
             "nhv_sao_apply": [_P] * 4 + [_I] * 5 + [_P, _P, _I]},
 }
 

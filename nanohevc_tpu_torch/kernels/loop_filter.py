@@ -7,26 +7,28 @@ SAO as XLA ops inside its closed-loop encode and decode
 `ops/sao.py` and `ops/sao_ctb.py`).  The port's plain versions are its
 own `ops.deblock_plane`, `ops.sao.estimate_sao` / `apply_sao` and
 `ops.sao_ctb.estimate_sao_ctb` / `apply_sao_ctb`, unchanged.  The
-kernels give the same pixels and parameters bit for bit, in four
+kernels give the same pixels and parameters bit for bit, in three
 launches a plane batch:
 
-- `deblock_planes`: `csrc/deblock.cu`, both passes fused, a thread
-  block a 32x64 tile with a 4-sample halo in shared memory;
-- `sao_statistics`: `csrc/sao.cu`'s statistics kernel, a thread block a
-  (plane, tile), the 16 EO and 32 band counts and sums of every tile as
-  96 int32 (`STAT_LAYOUT`);
-- `sao_decide`: its decision kernel, the 34 candidates of a tile in a
-  warp, the first minimum, the merge pass (CTB SAO) or the plane's
-  tiles summed first (per-plane SAO);
+- `deblock_planes`: `csrc/deblock.cu`, both passes fused, 32x64 tiles
+  with a 4-sample halo in shared memory (cp.async copies, the next
+  tile's in flight while a thread block filters this one), a thread a
+  line of an edge;
+- `sao_estimate`: `csrc/sao.cu`'s estimate kernel, a thread block a
+  group of tiles: the 16 EO and 32 band counts and sums of each tile as
+  96 int32 (`STAT_LAYOUT`, an output too), then in one warp, while the
+  others count the next tile, the 34 candidates and their first
+  minimum, and the merge pass on the neighbours' published choices (CTB
+  SAO) or the plane's sums, decided by its last tile (per-plane SAO);
 - `sao_apply`: its application kernel, one elementwise pass.
 
-`sao_estimate` is `sao_statistics` then `sao_decide`.  Each wrapper
-dispatches on the device of its input: a CPU tensor goes to the plain
-version, a CUDA tensor to the kernel (build and launch errors raise),
-any other device raises.  There is no fallback.  A launch adds one to
-the wrapper's `launches`; the kernels run on the current stream and do
-not synchronise, and the host passes every scalar (QP, the four
-float32 prices) as an argument, so no call waits on the card.
+Each wrapper dispatches on the device of its input: a CPU tensor goes
+to the plain version, a CUDA tensor to the kernel (build and launch
+errors raise), any other device raises.  There is no fallback.  A
+launch adds one to the wrapper's `launches`; the kernels run on the
+current stream and do not synchronise, and the host passes every scalar
+(QP, the four float32 prices) as an argument, so no call waits on the
+card.
 """
 
 from __future__ import annotations
@@ -132,12 +134,12 @@ def deblock_planes(planes: torch.Tensor, qp, bit_depth: int = 8,
 deblock_planes.launches = 0
 
 
-# --- SAO statistics -----------------------------------------------------------
+# --- SAO statistics and decision: the estimate -------------------------------
 
 def sao_statistics_reference(src: torch.Tensor, rec: torch.Tensor,
                              tile: int, bit_depth: int = 8) -> torch.Tensor:
-    """Plain version of `sao_statistics`: `ops.sao.class_stats` in the
-    kernel's layout, (..., nty, ntx, 96) int32."""
+    """Plain version of the estimate's statistics: `ops.sao.class_stats`
+    in the kernel's layout, (..., nty, ntx, 96) int32."""
     batch = tuple(rec.shape[:-2])
     st = ops_sao.class_stats(_flat(src), _flat(rec), tile, bit_depth)
     b, _, nty, ntx = st["bo_cnt"].shape
@@ -145,39 +147,6 @@ def sao_statistics_reference(src: torch.Tensor, rec: torch.Tensor,
     out = torch.cat(parts, dim=1).permute(0, 2, 3, 1).to(torch.int32)
     return out.reshape(batch + (nty, ntx, STAT_INTS))
 
-
-def sao_statistics(src: torch.Tensor, rec: torch.Tensor, tile: int,
-                   bit_depth: int = 8) -> torch.Tensor:
-    """Integer SAO statistics of every (plane, tile) of (..., H, W)
-    src / rec: (..., nty, ntx, 96) int32 in `STAT_LAYOUT`.  Every value
-    is exact in int32 where tile^2 * (2^bit_depth - 1) < 2^31.  On a CUDA
-    tensor one launch of `csrc/sao.cu`'s statistics kernel."""
-    if not _on_card(rec):
-        return sao_statistics_reference(src, rec, tile, bit_depth)
-    shift = _tile_shift(tile)
-    if not 5 <= bit_depth <= 16:
-        raise ValueError(f"unsupported bit depth: {bit_depth}")
-    if tuple(src.shape) != tuple(rec.shape) or src.device != rec.device:
-        raise ValueError("sao_statistics needs src and rec of one shape "
-                         "on one device")
-    s, r = _flat(src), _flat(rec)
-    b, h, w = r.shape
-    nty, ntx = ops_sao.tile_grid(h, w, tile)
-    stats = torch.empty((b, nty, ntx, STAT_INTS), dtype=torch.int32,
-                        device=r.device)
-    if stats.numel():
-        stream, index = _launch_args(r)
-        _check(cuda_kernels("sao").lib.nhv_sao_stats(
-            s.data_ptr(), r.data_ptr(), b, h, w, shift, bit_depth,
-            stats.data_ptr(), stream, index), "nhv_sao_stats")
-        sao_statistics.launches += 1
-    return stats.reshape(tuple(rec.shape[:-2]) + (nty, ntx, STAT_INTS))
-
-
-sao_statistics.launches = 0
-
-
-# --- SAO decision -------------------------------------------------------------
 
 def sao_prices(qp: int, rd_lambda_scale: float = 1.0) -> tuple:
     """CTB SAO's four float32 prices, lambda * bits of an off, EO, BO and
@@ -203,10 +172,10 @@ def _stats_dict(stats: torch.Tensor, grid_dims: int) -> dict:
 
 def sao_decide_reference(stats: torch.Tensor, *, bit_depth: int = 8,
                          prices=None, merge: bool = True) -> tuple:
-    """Plain version of `sao_decide`: the decision of `ops.sao.
-    estimate_sao` (prices None: the tiles summed, wrapped to int32) or
-    of `ops.sao_ctb.estimate_sao_ctb` (prices: off, EO, BO, merge),
-    from statistics in the kernel's layout, with the ops' helpers."""
+    """Plain version of the estimate's decision, from statistics in the
+    kernel's layout: that of `ops.sao.estimate_sao` (prices None: the
+    tiles summed, wrapped to int32) or of `ops.sao_ctb.estimate_sao_ctb`
+    (prices: off, EO, BO, merge), with the ops' helpers."""
     batch = tuple(stats.shape[:-3])
     st = stats.reshape((-1,) + tuple(stats.shape[-3:]))
     b = st.shape[0]
@@ -250,69 +219,109 @@ def sao_decide_reference(stats: torch.Tensor, *, bit_depth: int = 8,
     return tuple(x.reshape(batch + tuple(x.shape[1:])) for x in best[1:])
 
 
-def sao_decide(stats: torch.Tensor, *, bit_depth: int = 8, prices=None,
-               merge: bool = True) -> tuple:
-    """SAO parameters from (..., nty, ntx, 96) statistics
-    (`sao_statistics`): with prices None one set a plane, (type (...),
-    band_pos (...), offsets (..., 4)); with the four CTB prices
-    (`sao_prices`) per-tile maps (..., nty, ntx) and (..., nty, ntx, 4),
-    merge pass included where `merge`.  On a CUDA tensor one launch of
-    `csrc/sao.cu`'s decision kernel."""
-    if not _on_card(stats):
-        return sao_decide_reference(stats, bit_depth=bit_depth,
-                                    prices=prices, merge=merge)
-    if stats.dtype != torch.int32 or stats.shape[-1] != STAT_INTS:
-        raise ValueError("sao_decide needs (..., nty, ntx, 96) int32 "
-                         "statistics")
-    batch = tuple(stats.shape[:-3])
-    st = stats.reshape((-1,) + tuple(stats.shape[-3:])).contiguous()
-    b, nty, ntx = st.shape[:3]
-    frame = prices is None
-    grid = () if frame else (nty, ntx)
-    dev = st.device
-    type_map = torch.empty((b,) + grid, dtype=torch.int32, device=dev)
-    band_map = torch.empty_like(type_map)
-    off_map = torch.empty((b,) + grid + (4,), dtype=torch.int32, device=dev)
-    if b and nty and ntx:
-        stream, index = _launch_args(st)
-        p = (0.0,) * 4 if frame else tuple(float(x) for x in prices)
-        _check(cuda_kernels("sao").lib.nhv_sao_decide(
-            st.data_ptr(), b, nty, ntx, int(frame), max_offset(bit_depth),
-            *p, int(merge), type_map.data_ptr(), band_map.data_ptr(),
-            off_map.data_ptr(), stream, index), "nhv_sao_decide")
-        sao_decide.launches += 1
-    return tuple(x.reshape(batch + tuple(x.shape[1:]))
-                 for x in (type_map, band_map, off_map))
+# The estimate's workspace on each card, by device index: (counters,
+# words, planes, tiles).  `counters` holds the 64-bit ticket and its
+# generation (COUNTER_INTS ints), then a done counter and 96 sums a
+# plane for `planes` planes; `words` a published word a tile for
+# `tiles` tiles.  Zeroed once here (grown, never shrunk) and left at
+# rest by every launch but for the ticket's generation; a replaced
+# workspace stays allocated, since a captured CUDA graph may still hold
+# it.
+COUNTER_INTS = 4
+_WORKSPACES: dict = {}
+_RETIRED: list = []
 
 
-sao_decide.launches = 0
+def _workspace(dev: torch.device, planes: int, tiles: int) -> tuple:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    ws = _WORKSPACES.get(index)
+    if ws is not None and ws[2] >= planes and ws[3] >= tiles:
+        return ws
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("sao_estimate: call it once outside CUDA graph "
+                           "capture at this batch and tile count first (its "
+                           "workspace is allocated and zeroed then)")
+    planes = max(planes, 64, 2 * ws[2] if ws else 0)
+    tiles = max(tiles, 1 << 16, 2 * ws[3] if ws else 0)
+    if ws is not None:
+        _RETIRED.append(ws)
+    ws = _WORKSPACES[index] = (
+        torch.zeros(COUNTER_INTS + planes * (1 + STAT_INTS),
+                    dtype=torch.int32, device=dev),
+        torch.zeros(tiles, dtype=torch.int64, device=dev), planes, tiles)
+    return ws
 
 
 def sao_estimate(src: torch.Tensor, rec: torch.Tensor, *, tile=None,
                  qp=None, bit_depth: int = 8, rd_lambda_scale: float = 1.0,
-                 merge: bool = True) -> tuple:
+                 merge: bool = True, return_stats: bool = False):
     """SAO parameters of (..., H, W) src / rec planes.
 
     tile None: one parameter set a plane, (type (...), band_pos (...),
     offsets (..., 4)), as `ops.sao.estimate_sao`; a power of two: CTB
-    SAO's maps over tiles of that size at `qp`, as `ops.sao_ctb.
-    estimate_sao_ctb`.  On a CPU tensor those plain versions; on a CUDA
-    tensor `sao_statistics` then `sao_decide`, two launches.
+    SAO's maps over tiles of that size at `qp`, (..., nty, ntx) and
+    (..., nty, ntx, 4), merge pass included where `merge`, as `ops.
+    sao_ctb.estimate_sao_ctb`.  With `return_stats`, (parameters,
+    statistics): the (..., nty, ntx, 96) int32 statistics in
+    `STAT_LAYOUT` of the tiles the parameters come from (tiles of
+    `FRAME_STATS_TILE` for per-plane SAO; plain version
+    `sao_statistics_reference`).  On a CPU tensor the plain versions; on
+    a CUDA tensor one launch of `csrc/sao.cu`'s estimate kernel, the
+    statistics and the decision in one grid.  Calls on one card share a
+    workspace, so they must not overlap on two streams.
     """
+    stats_tile = FRAME_STATS_TILE if tile is None else tile
     if not _on_card(rec):
         if tile is None:
-            return ops_sao.estimate_sao(src, rec, bit_depth)
-        return ops_ctb.estimate_sao_ctb(src, rec, tile, qp, bit_depth,
-                                        rd_lambda_scale, merge)
-    if tile is None:
-        stats = sao_statistics(src, rec, FRAME_STATS_TILE, bit_depth)
-        return sao_decide(stats, bit_depth=bit_depth)
-    if not tile * tile * ((1 << bit_depth) - 1) < 2 ** 31:
-        raise ValueError(f"SAO tile {tile} at {bit_depth} bits overflows "
-                         "int32 statistics")
-    stats = sao_statistics(src, rec, tile, bit_depth)
-    return sao_decide(stats, bit_depth=bit_depth,
-                      prices=sao_prices(qp, rd_lambda_scale), merge=merge)
+            params = ops_sao.estimate_sao(src, rec, bit_depth)
+        else:
+            params = ops_ctb.estimate_sao_ctb(src, rec, tile, qp, bit_depth,
+                                              rd_lambda_scale, merge)
+        if return_stats:
+            return params, sao_statistics_reference(src, rec, stats_tile,
+                                                    bit_depth)
+        return params
+    shift = _tile_shift(stats_tile)
+    if not 5 <= bit_depth <= 16:
+        raise ValueError(f"unsupported bit depth: {bit_depth}")
+    if not stats_tile * stats_tile * ((1 << bit_depth) - 1) < 2 ** 31:
+        raise ValueError(f"SAO tile {stats_tile} at {bit_depth} bits "
+                         "overflows int32 statistics")
+    if tuple(src.shape) != tuple(rec.shape) or src.device != rec.device:
+        raise ValueError("sao_estimate needs src and rec of one shape on "
+                         "one device")
+    s, r = _flat(src), _flat(rec)
+    b, h, w = r.shape
+    nty, ntx = ops_sao.tile_grid(h, w, stats_tile)
+    grid = () if tile is None else (nty, ntx)
+    dev = r.device
+    stats = torch.empty((b, nty, ntx, STAT_INTS), dtype=torch.int32,
+                        device=dev)
+    type_map = torch.empty((b,) + grid, dtype=torch.int32, device=dev)
+    band_map = torch.empty_like(type_map)
+    off_map = torch.empty((b,) + grid + (4,), dtype=torch.int32, device=dev)
+    if stats.numel():
+        mode = 0 if tile is None else (2 if merge else 1)
+        prices = ((0.0,) * 4 if tile is None
+                  else sao_prices(qp, rd_lambda_scale))
+        counters, words, _, _ = _workspace(dev, b, b * nty * ntx)
+        stream, index = _launch_args(r)
+        _check(cuda_kernels("sao").lib.nhv_sao_estimate(
+            s.data_ptr(), r.data_ptr(), b, h, w, shift, bit_depth, mode,
+            max_offset(bit_depth), *prices, stats.data_ptr(),
+            type_map.data_ptr(), band_map.data_ptr(), off_map.data_ptr(),
+            counters.data_ptr(), words.data_ptr(), stream, index),
+            "nhv_sao_estimate")
+        sao_estimate.launches += 1
+    batch = tuple(rec.shape[:-2])
+    params = tuple(x.reshape(batch + tuple(x.shape[1:]))
+                   for x in (type_map, band_map, off_map))
+    if return_stats:
+        return params, stats.reshape(batch + (nty, ntx, STAT_INTS))
+    return params
+
+
+sao_estimate.launches = 0
 
 
 # --- SAO application ----------------------------------------------------------

@@ -5,20 +5,28 @@ of their schedules and arithmetic, and their wrappers against JAX.
 phase 3i holds them to their plain versions there).  Here:
 
 - a numpy model of the fused deblocking schedule (thread-block tiles of
-  the kernel's size, read from its source, loaded with a 4-sample halo,
-  the vertical pass over the tile's rows and halo rows item by item,
-  then the horizontal pass on its output) equals `ops.deblock_plane` and
+  the kernel's size, read from its source, copied with a 4-sample halo;
+  the vertical pass's (row, octet) items warp by warp over the tile's
+  rows and halo rows, a luma segment decided from lines 0 and 3 of its
+  quad as the lanes exchange them; then the horizontal pass's (octet of
+  rows, column) items on its output) equals `ops.deblock_plane` and
   JAX's `deblock_plane`, on shapes with tails, shapes narrower than a
-  tile and a batch with a (B,) QP;
-- a numpy model of the decision kernel's lanes (a lane a band and an EO
-  bin, its float32 ops one rounding each, the class sums and band
-  windows gathered lane by lane, the lane-local and butterfly first
-  minimum, the merge pass on pass-1 choices recomputed for the tiles
-  above and to the left of a thread block) equals `estimate_sao_ctb` and
-  `estimate_sao` (the port's and JAX's), ties included;
-- the three wrappers on CPU tensors equal JAX's functions, a `meta`
-  tensor raises, the CPU route never loads CUDA code, and the closed
-  loop's encoder and decoder reach the filters through the wrappers.
+  tile and a batch with a (B,) QP; the shared pitch keeps a quarter
+  warp's 16-byte accesses on distinct banks;
+- a numpy model of the estimate kernel's decision epilogue (the lanes
+  of a warp, their float32 ops one rounding each, the class sums and
+  band windows gathered lane by lane, the lane-local and butterfly first
+  minimum; CTB SAO's thread blocks as generators over groups of tiles,
+  taking tickets, publishing pass 1 as tagged words and polling their
+  neighbours' under several schedules; per-plane SAO's uint32 sums in a
+  shuffled tile order, decided by the plane's last tile), two launches
+  back to back on one workspace, equals `estimate_sao_ctb` and
+  `estimate_sao` (the port's and JAX's), ties included, and leaves the
+  workspace at rest; a schedule that reads words without their tag
+  does not;
+- the wrappers on CPU tensors equal JAX's functions, a `meta` tensor
+  raises, the CPU route never loads CUDA code, and the closed loop's
+  encoder and decoder reach the filters through the wrappers.
 
 The tolerance is 0 throughout.
 """
@@ -64,8 +72,12 @@ DEBLOCK_CU = (CSRC / "deblock.cu").read_text()
 SAO_CU = (CSRC / "sao.cu").read_text()
 TILE_H, TILE_W = cu_int(DEBLOCK_CU, "kTileH"), cu_int(DEBLOCK_CU, "kTileW")
 HALO, THREADS = cu_int(DEBLOCK_CU, "kHalo"), cu_int(DEBLOCK_CU, "kThreads")
+PITCH = TILE_W + 2 * HALO + int(re.search(
+    r"constexpr int kPitch = kCols \+ (\d+);", DEBLOCK_CU).group(1))
 BETA, TC = cu_table(DEBLOCK_CU, "kBeta"), cu_table(DEBLOCK_CU, "kTc")
-DECIDE_WARPS = cu_int(SAO_CU, "kDecideWarps")
+COUNTERS = cu_int(SAO_CU, "kCounters")
+WORD_OFF, WORD_OFF_BITS = (cu_int(SAO_CU, "kWordOff"),
+                           cu_int(SAO_CU, "kWordOffBits"))
 
 
 def test_kernel_tables_are_the_spec_tables():
@@ -74,10 +86,21 @@ def test_kernel_tables_are_the_spec_tables():
     neighbors = cu_table(SAO_CU, "kNeighbors")
     assert neighbors == [v for row in ref_sao.EO_NEIGHBORS for v in row]
     assert cu_int(SAO_CU, "kStatInts") == lf.STAT_INTS
-    # both passes' items fit the thread block once (the kernel's asserts)
-    assert (TILE_W // 8 + 1) * ((TILE_H + 2 * HALO) // 4) <= THREADS
-    assert (TILE_H // 8 + 1) * (TILE_W // 4) <= THREADS
+    assert COUNTERS == lf.COUNTER_INTS
+    # segments stay aligned, warps run whole, quads are segments
     assert TILE_H % 8 == 0 and TILE_W % 8 == 0 and HALO == 4
+    assert THREADS % 32 == 0
+    # the 8 lanes of a quarter warp of the vertical pass (8 rows of an
+    # octet) meet 8 distinct 16-byte slots of the banks in both loads
+    for first in range(0, len(vertical_items(TILE_H, TILE_W)), 8):
+        lanes = vertical_items(TILE_H, TILE_W)[first:first + 8]
+        for half in (0, 4):
+            slots = {(r * PITCH + 8 * j + half) // 4 % 8 for r, j in lanes}
+            assert len(slots) == len(lanes)
+    # every offset fits its field of a published word
+    assert WORD_OFF + 4 * WORD_OFF_BITS == 32
+    assert max(map(ref_sao.max_offset, range(5, 17))) < 1 << (
+        WORD_OFF_BITS - 1)
 
 
 # --- the fused deblocking schedule ------------------------------------------
@@ -91,84 +114,108 @@ def clamp3(v, lo, hi):
     return min(max(v, lo), hi)
 
 
-def filter_luma(s, r0, c, beta, tc, pix_max):
-    """deblock.cu's filter_luma on lines r0..r0+3 of s, q0 at column c."""
-    p = [[int(s[r0 + lr, c - 1 - i]) for i in range(4)] for lr in range(4)]
-    q = [[int(s[r0 + lr, c + i]) for i in range(4)] for lr in range(4)]
-    dp0 = abs(p[0][2] - 2 * p[0][1] + p[0][0])
-    dq0 = abs(q[0][2] - 2 * q[0][1] + q[0][0])
-    dp3 = abs(p[3][2] - 2 * p[3][1] + p[3][0])
-    dq3 = abs(q[3][2] - 2 * q[3][1] + q[3][0])
-    dp03, dq03 = dp0 + dp3, dq0 + dq3
-    if not dp03 + dq03 < beta:
-        return
+def vertical_items(tile_h, tile_w):
+    """(shared row, octet) of each vertical-pass item, in deblock.cu's
+    order: item i is row 8 * (i // 8 // octets) + i % 8 of octet
+    i // 8 % octets."""
+    octets = tile_w // 8 + 1
+    return [(8 * ((i >> 3) // octets) + (i & 7), (i >> 3) % octets)
+            for i in range((tile_h + 2 * HALO) * octets)]
+
+
+def horizontal_items(tile_h, tile_w):
+    """(octet of rows, tile column) of each horizontal-pass item."""
+    return [(i // tile_w, i % tile_w)
+            for i in range((tile_h // 8 + 1) * tile_w)]
+
+
+def luma_terms(v, beta, tc):
+    """A lane's own line of [p3 p2 p1 p0 q0 q1 q2 q3]: d_p, and 2 d_q
+    plus its strong test (the words the quad exchanges)."""
+    p3, p2, p1, p0, q0, q1, q2, q3 = v
+    dp, dq = abs(p2 - 2 * p1 + p0), abs(q2 - 2 * q1 + q0)
     tc5 = (5 * tc + 1) >> 1
+    strong = (2 * (dp + dq) < (beta >> 2)
+              and abs(p3 - p0) + abs(q0 - q3) < (beta >> 3)
+              and abs(p0 - q0) < tc5)
+    return dp, 2 * dq + int(strong)
 
-    def strong_at(lr, dp, dq):
-        return (2 * (dp + dq) < (beta >> 2)
-                and abs(p[lr][3] - p[lr][0]) + abs(q[lr][0] - q[lr][3])
-                < (beta >> 3)
-                and abs(p[lr][0] - q[lr][0]) < tc5)
 
+def filter_luma_line(v, on, lead, last, beta, tc, pix_max):
+    """deblock.cu's filter_luma_line on v (changed in place) with the
+    terms of its quad's lanes 0 (`lead`) and 3 (`last`); returns whether
+    v changed."""
+    (dp0, dqs0), (dp3, dqs3) = lead, last
+    dp03, dq03 = dp0 + dp3, (dqs0 >> 1) + (dqs3 >> 1)
+    if not (on and dp03 + dq03 < beta):
+        return False
+    p3, p2, p1, p0, q0, q1, q2, q3 = v
     c2 = 2 * tc
-    if strong_at(0, dp0, dq0) and strong_at(3, dp3, dq3):
-        for lr in range(4):
-            p3, p2, p1, p0 = p[lr][3], p[lr][2], p[lr][1], p[lr][0]
-            q0, q1, q2, q3 = q[lr]
-            r = r0 + lr
-            s[r, c - 3] = clamp3((2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3,
-                                 p2 - c2, p2 + c2)
-            s[r, c - 2] = clamp3((p2 + p1 + p0 + q0 + 2) >> 2, p1 - c2,
-                                 p1 + c2)
-            s[r, c - 1] = clamp3(
-                (p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3, p0 - c2,
-                p0 + c2)
-            s[r, c] = clamp3((p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3,
-                             q0 - c2, q0 + c2)
-            s[r, c + 1] = clamp3((p0 + q0 + q1 + q2 + 2) >> 2, q1 - c2,
-                                 q1 + c2)
-            s[r, c + 2] = clamp3((p0 + q0 + q1 + 3 * q2 + 2 * q3 + 4) >> 3,
-                                 q2 - c2, q2 + c2)
-        return
-    side = (beta + (beta >> 1)) >> 3
-    th = tc >> 1
-    for lr in range(4):
-        p2, p1, p0 = p[lr][2], p[lr][1], p[lr][0]
-        q0, q1, q2 = q[lr][0], q[lr][1], q[lr][2]
-        delta = (9 * (q0 - p0) - 3 * (q1 - p1) + 8) >> 4
-        if not abs(delta) < 10 * tc:
-            continue
-        dc = clamp3(delta, -tc, tc)
-        r = r0 + lr
-        s[r, c - 1] = clamp3(p0 + dc, 0, pix_max)
-        s[r, c] = clamp3(q0 - dc, 0, pix_max)
-        if dp03 < side:
-            s[r, c - 2] = clamp3(
-                p1 + clamp3((((p2 + p0 + 1) >> 1) - p1 + dc) >> 1, -th, th),
-                0, pix_max)
-        if dq03 < side:
-            s[r, c + 1] = clamp3(
-                q1 + clamp3((((q2 + q0 + 1) >> 1) - q1 - dc) >> 1, -th, th),
-                0, pix_max)
+    if dqs0 & dqs3 & 1:
+        v[1:7] = [
+            clamp3((2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3, p2 - c2,
+                   p2 + c2),
+            clamp3((p2 + p1 + p0 + q0 + 2) >> 2, p1 - c2, p1 + c2),
+            clamp3((p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3, p0 - c2,
+                   p0 + c2),
+            clamp3((p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3, q0 - c2,
+                   q0 + c2),
+            clamp3((p0 + q0 + q1 + q2 + 2) >> 2, q1 - c2, q1 + c2),
+            clamp3((p0 + q0 + q1 + 3 * q2 + 2 * q3 + 4) >> 3, q2 - c2,
+                   q2 + c2)]
+        return True
+    delta = (9 * (q0 - p0) - 3 * (q1 - p1) + 8) >> 4
+    if not abs(delta) < 10 * tc:
+        return False
+    side, th = (beta + (beta >> 1)) >> 3, tc >> 1
+    dc = clamp3(delta, -tc, tc)
+    v[3], v[4] = clamp3(p0 + dc, 0, pix_max), clamp3(q0 - dc, 0, pix_max)
+    if dp03 < side:
+        v[2] = clamp3(p1 + clamp3((((p2 + p0 + 1) >> 1) - p1 + dc) >> 1,
+                                  -th, th), 0, pix_max)
+    if dq03 < side:
+        v[5] = clamp3(q1 + clamp3((((q2 + q0 + 1) >> 1) - q1 - dc) >> 1,
+                                  -th, th), 0, pix_max)
+    return True
 
 
-def filter_chroma(s, r, c, tc, pix_max):
-    p1, p0, q0, q1 = (int(s[r, c + k]) for k in (-2, -1, 0, 1))
+def filter_chroma_line(v, tc, pix_max):
+    p1, p0, q0, q1 = v[2:6]
     delta = clamp3(((q0 - p0) * 4 + p1 - q1 + 4) >> 3, -tc, tc)
-    s[r, c - 1] = clamp3(p0 + delta, 0, pix_max)
-    s[r, c] = clamp3(q0 - delta, 0, pix_max)
+    v[3], v[4] = clamp3(p0 + delta, 0, pix_max), clamp3(q0 - delta, 0,
+                                                        pix_max)
+
+
+def warp_pass(lines, ons, is_chroma, beta, tc, pix_max):
+    """One warp's lanes of a pass: each lane's octet `lines[lane]`
+    (read by every lane before any writes), filtered where `ons[lane]`;
+    a luma lane reads its quad's lines 0 and 3 as __shfl_sync does.
+    Returns which lanes changed their octet."""
+    if is_chroma:
+        for v, on in zip(lines, ons):
+            if on:
+                filter_chroma_line(v, tc, pix_max)
+        return list(ons)
+    terms = [luma_terms(v, beta, tc) for v in lines]
+    return [filter_luma_line(v, on, terms[lane & ~3], terms[(lane & ~3) + 3],
+                             beta, tc, pix_max)
+            for lane, (v, on) in enumerate(zip(lines, ons))]
 
 
 def fused_deblock_model(planes, qps, bit_depth, is_chroma, tile_h=TILE_H,
                         tile_w=TILE_W, halo_rows=True):
     """deblock.cu's schedule: per thread block a tile_h x tile_w tile
-    with a HALO-sample halo in 'shared memory' (0 off the plane), the
-    vertical pass's (segment, edge) items (on the halo rows too unless
-    `halo_rows` is False), then the horizontal pass's on its output (the
-    transpose view), then the tile written back."""
+    with a HALO-sample halo in 'shared memory' (0 off the plane); the
+    vertical pass's (row, octet) items warp by warp (on the halo rows
+    too unless `halo_rows` is False), each octet read, filtered with its
+    quad and written back; then the horizontal pass's (octet of rows,
+    column) items on its output, the tile's rows among each octet
+    written to the output."""
     b, h, w = planes.shape
     out = np.empty_like(planes)
     pix_max = (1 << bit_depth) - 1
+    v_items, h_items = (vertical_items(tile_h, tile_w),
+                        horizontal_items(tile_h, tile_w))
     for plane in range(b):
         qp = int(qps[plane])
         beta = BETA[clamp3(qp, 0, 51)] << (bit_depth - 8)
@@ -181,38 +228,43 @@ def fused_deblock_model(planes, qps, bit_depth, is_chroma, tile_h=TILE_H,
                 s[ys.start - y0 + HALO:ys.stop - y0 + HALO,
                   xs.start - x0 + HALO:xs.stop - x0 + HALO] = \
                     planes[plane, ys, xs]
-                for g in range(s.shape[0] // 4):
-                    if not halo_rows and not HALO <= 4 * g < HALO + tile_h:
-                        continue
-                    for j in range(tile_w // 8 + 1):
-                        k, gy = x0 // 8 + j, y0 - HALO + 4 * g
-                        if not 1 <= k <= ctrunc(w - 4, 8):
-                            continue
+                for first in range(0, len(v_items), 32):
+                    lanes = v_items[first:first + 32]
+                    lines = [[int(x) for x in s[r, 8 * j:8 * j + 8]]
+                             for r, j in lanes]
+                    ons = []
+                    for r, j in lanes:
+                        kx, gy = x0 // 8 + j, y0 - HALO + r
+                        on = 1 <= kx <= ctrunc(w - 4, 8) and (
+                            halo_rows or HALO <= r < HALO + tile_h)
                         if is_chroma:
-                            for lr in range(4):
-                                if 0 <= gy + lr < h:
-                                    filter_chroma(s, 4 * g + lr,
-                                                  HALO + 8 * j, tc, pix_max)
-                        elif gy >= 0 and gy // 4 < h // 4:
-                            filter_luma(s, 4 * g, HALO + 8 * j, beta, tc,
+                            on = on and 0 <= gy < h
+                        else:
+                            seg = gy - (r & 3)
+                            on = on and seg >= 0 and seg // 4 < h // 4
+                        ons.append(on)
+                    changed = warp_pass(lines, ons, is_chroma, beta, tc,
                                         pix_max)
-                st = s.T
-                for j in range(tile_h // 8 + 1):
-                    for g in range(tile_w // 4):
-                        k, gx = y0 // 8 + j, x0 + 4 * g
-                        if not 1 <= k <= ctrunc(h - 4, 8):
-                            continue
-                        if is_chroma:
-                            for lr in range(4):
-                                if gx + lr < w:
-                                    filter_chroma(st, HALO + 4 * g + lr,
-                                                  HALO + 8 * j, tc, pix_max)
-                        elif gx // 4 < w // 4:
-                            filter_luma(st, HALO + 4 * g, HALO + 8 * j, beta,
-                                        tc, pix_max)
-                th, tw = min(tile_h, h - y0), min(tile_w, w - x0)
-                out[plane, y0:y0 + th, x0:x0 + tw] = \
-                    s[HALO:HALO + th, HALO:HALO + tw]
+                    for (r, j), v, ch in zip(lanes, lines, changed):
+                        if ch:
+                            s[r, 8 * j:8 * j + 8] = v
+                for first in range(0, len(h_items), 32):
+                    lanes = h_items[first:first + 32]
+                    lines = [[int(x) for x in s[8 * k:8 * k + 8, HALO + c]]
+                             for k, c in lanes]
+                    ons = []
+                    for k, c in lanes:
+                        ky, gx = y0 // 8 + k, x0 + c
+                        on = 1 <= ky <= ctrunc(h - 4, 8)
+                        ons.append(on and (gx < w if is_chroma
+                                           else gx // 4 < w // 4))
+                    warp_pass(lines, ons, is_chroma, beta, tc, pix_max)
+                    for (k, c), v in zip(lanes, lines):
+                        for t in range(8):
+                            row = 8 * k + t - HALO
+                            if (0 <= row < tile_h and y0 + row < h
+                                    and x0 + c < w):
+                                out[plane, y0 + row, x0 + c] = v[t]
     return out
 
 
@@ -343,53 +395,166 @@ def lanes_params_delta(st, typ, band, off):
     return d
 
 
-def decide_model(stats, bit_depth, prices=None, merge=True):
-    """sao.cu's decision kernels on (B, nty, ntx, 96) statistics: the
-    per-plane kernel (prices None: the tiles summed with wrap-around, one
-    warp decides) or the CTB kernel (thread blocks of DECIDE_WARPS tiles
-    of a row, pass 1 for them and for the tiles above and to the left,
-    then the merge pass)."""
+def pack_word(choice, tag):
+    """sao.cu's published word: type, band and the four 6-bit offsets in
+    the low 32 bits (pack_params), the tag in the high 32."""
+    _, typ, band, off = choice
+    w = typ | band << 3
+    for j, o in enumerate(off):
+        w |= (o & ((1 << WORD_OFF_BITS) - 1)) << (WORD_OFF + WORD_OFF_BITS * j)
+    return tag << 32 | w
+
+
+def unpack_word(word):
+    """(type, band, offsets) of a word, as wait_params reads them."""
+    p, half = word & 0xffffffff, 1 << (WORD_OFF_BITS - 1)
+    off = [((p >> (WORD_OFF + WORD_OFF_BITS * j)) + half) %
+           (1 << WORD_OFF_BITS) - half for j in range(4)]
+    return p & 7, (p >> 3) & 31, off
+
+
+class Workspace:
+    """nhv_sao_estimate's workspace as the wrapper allocates it (zeros):
+    the ticket's count and generation, per-plane done counts and uint32
+    sums, a word a tile."""
+
+    def __init__(self, planes=8):
+        self.ticket = self.generation = 0
+        self.done = [0] * planes
+        self.sums = np.zeros((planes, lf.STAT_INTS), np.uint32)
+        self.words = {}
+
+    def at_rest(self):
+        return self.ticket == 0 and not any(self.done) and not self.sums.any()
+
+
+def ctb_group(ws, block, groups, per_group, stats, cap, prices, merge, out,
+              check_tag):
+    """One thread block of the estimate kernel under CTB SAO: its group
+    is its ticket under merge (the block taking the last one zeroes the
+    count and moves the generation on; the tag is the generation + 1),
+    else its blockIdx `block`.  For each tile of the group in order,
+    after its statistics (a `yield`): the tile's pass 1, stored, or under
+    merge published as its word (a `yield`).  Then, under merge, for each
+    tile in order: its left and upper neighbours' words polled (a
+    `yield` a failed poll), the merge pass, the maps stored."""
+    b, nty, ntx, _ = stats.shape
+    g, tag = block, 0
+    if merge:
+        g, tag = ws.ticket, (ws.generation + 1) & 0xffffffff
+        ws.ticket += 1
+        if g == groups - 1:
+            ws.ticket = 0
+            ws.generation += 1
+    tiles = range(g * per_group, min(g * per_group + per_group,
+                                     b * nty * ntx))
+    pass1 = {}
+
+    def where(t):
+        plane, cell = divmod(t, nty * ntx)
+        return (plane,) + divmod(cell, ntx)
+
+    for t in tiles:
+        yield "statistics"
+        pass1[t] = lanes_decide(stats[where(t)], cap, prices)
+        if merge:
+            ws.words[t] = pack_word(pass1[t], tag)
+            yield "published"
+        else:
+            for m, v in zip(out, pass1[t][1:]):
+                m[where(t)] = v
+    if not merge:
+        return
+    for t in tiles:
+        plane, ty, tx = where(t)
+        own, best = stats[plane, ty, tx], pass1[t]
+        nbrs = [n for has, n in ((tx > 0, t - 1), (ty > 0, t - ntx)) if has]
+        while check_tag and any(ws.words.get(n, 0) >> 32 != tag
+                                for n in nbrs):
+            yield "poll"
+        for nbr in nbrs:                                   # left, then up
+            nt, nb, no = unpack_word(ws.words.get(nbr, 0))
+            d = F(0.0) if nt == 0 else lanes_params_delta(own, nt, nb, no)
+            cost = F(d + F(prices[3]))
+            if cost < best[0]:
+                best = (cost, nt, nb, no)
+        for m, v in zip(out, best[1:]):
+            m[plane, ty, tx] = v
+
+
+# Schedules of the CTB blocks: (blocks resident at once, tiles a group).
+SCHEDULES = {"random": (3, 3), "one resident": (1, 1),
+             "newest first": (None, 2)}
+
+
+def estimate_model(stats, bit_depth, prices=None, merge=True, ws=None,
+                   rng=None, schedule="random", check_tag=True):
+    """sao.cu's estimate kernel from (B, nty, ntx, 96) statistics (its
+    counting is held to `sao_statistics_reference` on the card): the
+    decisions of every thread block under a schedule.
+
+    Per-plane SAO (prices None): the tiles in a shuffled order add their
+    statistics to the plane's uint32 sums and count themselves done; the
+    plane's last tile reads and zeroes the sums and decides.  CTB SAO:
+    `ctb_group` generators over groups of `SCHEDULES[schedule][1]`
+    tiles, started in a shuffled blockIdx order and run as the schedule
+    says: "random" (up to 3 resident blocks, a random one steps), "one
+    resident" (a block runs to its end before the next starts), "newest
+    first" (every block started, the newest that is not polling steps,
+    else the oldest)."""
+    rng = rng or np.random.default_rng(0)
+    ws = ws or Workspace(stats.shape[0])
     cap = ref_sao.max_offset(bit_depth)
     b, nty, ntx, _ = stats.shape
     if prices is None:
-        tot = stats.astype(np.int64).sum(axis=(1, 2))
-        tot = ((tot + 2 ** 31) % 2 ** 32 - 2 ** 31).astype(np.int64)
-        res = [lanes_decide(t, cap, None) for t in tot]
-        return (np.array([r[1] for r in res], np.int32),
-                np.array([r[2] for r in res], np.int32),
-                np.array([r[3] for r in res], np.int32))
-    tmap = np.zeros((b, nty, ntx), np.int32)
-    bmap, omap = tmap.copy(), np.zeros((b, nty, ntx, 4), np.int32)
-    wn = DECIDE_WARPS
-    for p in range(b):
-        for ty in range(nty):
-            for tx0 in range(0, ntx, wn):
-                pass1 = {}
-                for job in range(2 * wn + 1 if merge else wn):
-                    jy, jx = (ty, tx0 + job) if job < wn else \
-                        (ty - 1, tx0 + job - wn) if job < 2 * wn else \
-                        (ty, tx0 - 1)
-                    if 0 <= jy and 0 <= jx < ntx:
-                        pass1[job] = lanes_decide(stats[p, jy, jx], cap,
-                                                  prices)
-                for w in range(wn):
-                    tx = tx0 + w
-                    if tx >= ntx:
-                        continue
-                    best = pass1[w]
-                    for has, key in ((tx > 0, w - 1 if w else 2 * wn),
-                                     (ty > 0, wn + w)):
-                        if not (merge and has):
-                            continue
-                        _, nt, nb, no = pass1[key]
-                        d = F(0.0) if nt == 0 else lanes_params_delta(
-                            stats[p, ty, tx], nt, nb, no)
-                        cost = F(d + F(prices[3]))
-                        if cost < best[0]:
-                            best = (cost, nt, nb, list(no))
-                    tmap[p, ty, tx], bmap[p, ty, tx] = best[1], best[2]
-                    omap[p, ty, tx] = best[3]
-    return tmap, bmap, omap
+        out = (np.zeros(b, np.int32), np.zeros(b, np.int32),
+               np.zeros((b, 4), np.int32))
+        for t in rng.permutation(b * nty * ntx):
+            plane, cell = divmod(int(t), nty * ntx)
+            ty, tx = divmod(cell, ntx)
+            ws.sums[plane] += stats[plane, ty, tx].astype(np.uint32)
+            ws.done[plane] += 1
+            if ws.done[plane] == nty * ntx:
+                total = ws.sums[plane].view(np.int32).astype(np.int64)
+                ws.sums[plane] = 0
+                ws.done[plane] = 0
+                _, typ, band, off = lanes_decide(total, cap, None)
+                out[0][plane], out[1][plane], out[2][plane] = typ, band, off
+        return out
+    out = (np.zeros((b, nty, ntx), np.int32), np.zeros((b, nty, ntx), np.int32),
+           np.zeros((b, nty, ntx, 4), np.int32))
+    resident, per_group = SCHEDULES[schedule]
+    groups = -(-b * nty * ntx // per_group)
+    waiting = groups
+    blocks = iter(rng.permutation(groups).tolist())
+    active, said = [], []                 # generators, their last yield
+    steps = 0
+    while waiting or active:
+        steps += 1
+        assert steps < 100 * b * nty * ntx + 100, "the schedule deadlocked"
+        start = waiting and len(active) < (resident or groups) and (
+            schedule != "random" or not active or rng.random() < 0.5)
+        if start:
+            waiting -= 1
+            active.append(ctb_group(ws, next(blocks), groups, per_group,
+                                    stats, cap, prices, merge, out,
+                                    check_tag))
+            said.append(None)
+            pick = len(active) - 1
+        elif schedule == "random":
+            pick = int(rng.integers(len(active)))
+        else:                 # the newest that is not polling, else the oldest
+            free = [i for i, y in enumerate(said) if y != "poll"]
+            pick = free[-1] if free else 0
+        try:
+            said[pick] = next(active[pick])
+        except StopIteration:
+            active.pop(pick)
+            said.pop(pick)
+            continue
+        if said[pick] == "published":     # a word to read: poll again
+            said = [None if y == "poll" else y for y in said]
+    return out
 
 
 def same(got, want):
@@ -398,47 +563,88 @@ def same(got, want):
         assert g.dtype == np.int32 and np.array_equal(g, np.asarray(w))
 
 
+@pytest.mark.parametrize("schedule", list(SCHEDULES))
 @pytest.mark.parametrize("merge", [True, False], ids=["merge", "no-merge"])
-@pytest.mark.parametrize("h,w,tile", SHAPES + [(40, 300, 16)])
-def test_decision_lanes_equal_estimate_sao_ctb(h, w, tile, merge):
-    """Wider than DECIDE_WARPS tiles at tile 16, so thread blocks meet
-    at a left neighbour computed by the block to their left."""
-    src, rec = pair(h, w, 8, h + w)
-    stats = lf.sao_statistics_reference(torch.from_numpy(src)[None],
-                                        torch.from_numpy(rec)[None], tile)
-    got = decide_model(stats.numpy(), 8, lf.sao_prices(27, 0.5), merge)
-    same(got, t_ctb.estimate_sao_ctb(torch.from_numpy(src)[None],
-                                     torch.from_numpy(rec)[None], tile, 27,
-                                     8, 0.5, merge))
-    same([g[0] for g in got], j_ctb.estimate_sao_ctb(
-        jnp.asarray(src), jnp.asarray(rec), tile, 27, 8, 0.5, merge))
+@pytest.mark.parametrize("h,w,tile", SHAPES + [(40, 300, 16), (100, 30, 32)])
+def test_decision_lanes_equal_estimate_sao_ctb(h, w, tile, merge, schedule):
+    """The estimate kernel's epilogue under each schedule, two launches
+    back to back on one workspace with no reset between them (the second
+    on other planes), == `estimate_sao_ctb` (the port's and JAX's); the
+    workspace is left at rest.  (40, 300) at tile 16 has 19 tile
+    columns, (100, 30) at tile 32 one."""
+    ws = Workspace()
+    rng = np.random.default_rng(h * w + tile)
+    for seed in (h + w, h + w + 1):
+        src, rec = pair(h, w, 8, seed)
+        stats = lf.sao_statistics_reference(torch.from_numpy(src)[None],
+                                            torch.from_numpy(rec)[None], tile)
+        got = estimate_model(stats.numpy(), 8, lf.sao_prices(27, 0.5), merge,
+                             ws, rng, schedule)
+        same(got, t_ctb.estimate_sao_ctb(torch.from_numpy(src)[None],
+                                         torch.from_numpy(rec)[None], tile,
+                                         27, 8, 0.5, merge))
+        same([g[0] for g in got], j_ctb.estimate_sao_ctb(
+            jnp.asarray(src), jnp.asarray(rec), tile, 27, 8, 0.5, merge))
+        assert ws.at_rest()
+    assert ws.generation == (2 if merge else 0)
+
+
+def test_estimate_schedule_needs_its_tags():
+    """A block that read its neighbours' words without their tag would,
+    on the second of two launches, take pass-1 parameters left by the
+    first where it runs ahead of its neighbours (the newest block first:
+    every merge is priced on a stale word); the tagged words give the
+    plain result under the same schedule."""
+    pairs = [pair(128, 256, 8, 107), pair(128, 256, 8, 7)]
+    stats = [lf.sao_statistics_reference(torch.from_numpy(a)[None],
+                                         torch.from_numpy(b)[None], 16).numpy()
+             for a, b in pairs]
+    src, rec = (torch.from_numpy(x)[None] for x in pairs[1])
+    want = t_ctb.estimate_sao_ctb(src, rec, 16, 22)
+    assert not all(np.array_equal(a.numpy(), b.numpy()) for a, b in zip(
+        want, t_ctb.estimate_sao_ctb(src, rec, 16, 22, merge=False)))
+    for check_tag in (True, False):
+        ws = Workspace()
+        for st in stats:
+            got = estimate_model(st, 8, lf.sao_prices(22), True, ws,
+                                 schedule="newest first", check_tag=check_tag)
+        agree = all(np.array_equal(g, w.numpy()) for g, w in zip(got, want))
+        assert agree == check_tag
 
 
 @pytest.mark.parametrize("bit_depth", [8, 10])
 def test_decision_lanes_equal_estimate_sao(bit_depth):
+    """Per-plane SAO: three planes, the blocks in a shuffled order, two
+    launches back to back on one workspace."""
     pairs = [pair(48, 64, bit_depth, s) for s in range(3)]
     src = np.stack([p[0] for p in pairs])
     rec = np.stack([p[1] for p in pairs])
     stats = lf.sao_statistics_reference(torch.from_numpy(src),
                                         torch.from_numpy(rec),
                                         lf.FRAME_STATS_TILE, bit_depth)
-    got = decide_model(stats.numpy(), bit_depth)
-    same(got, t_sao.estimate_sao(torch.from_numpy(src), torch.from_numpy(rec),
-                                 bit_depth))
+    ws = Workspace()
+    for seed in (1, 2):
+        got = estimate_model(stats.numpy(), bit_depth, ws=ws,
+                             rng=np.random.default_rng(seed))
+        same(got, t_sao.estimate_sao(torch.from_numpy(src),
+                                     torch.from_numpy(rec), bit_depth))
+        assert ws.at_rest()
     for i in range(len(pairs)):
         same([g[i] for g in got], j_sao.estimate_sao(
             jnp.asarray(src[i]), jnp.asarray(rec[i]), bit_depth))
 
 
 def test_decision_lanes_per_plane_sums_wrap():
-    """Per-plane sums past int32 wrap as the plain version's do."""
+    """Per-plane sums past int32 wrap as the plain version's do, in any
+    order of the blocks."""
     stats = np.zeros((1, 2, 3, lf.STAT_INTS), np.int32)
     stats[..., 32 + 7] = 400_000_000                   # band 7's count
     stats[..., 64 + 7] = 2_000_000_000                 # and sum
     stats[..., 0] = 1000
     stats[..., 16] = -900_000
-    got = decide_model(stats, 10)
-    same(got, lf.sao_decide_reference(torch.from_numpy(stats), bit_depth=10))
+    want = lf.sao_decide_reference(torch.from_numpy(stats), bit_depth=10)
+    for seed in range(3):
+        same(estimate_model(stats, 10, rng=np.random.default_rng(seed)), want)
 
 
 def test_decision_lanes_take_the_first_of_equal_scores():
@@ -452,7 +658,7 @@ def test_decision_lanes_take_the_first_of_equal_scores():
     rec = np.full((40, 72), 100, np.int32)
     s, r = torch.from_numpy(src)[None], torch.from_numpy(rec)[None]
     st = lf.sao_statistics_reference(s, r, lf.FRAME_STATS_TILE).numpy()
-    got = decide_model(st, 8)
+    got = estimate_model(st, 8)
     assert (got[0][0], got[1][0]) == (ref_sao.SAO_BO, 9)
     same(got, t_sao.estimate_sao(s, r))
     same([g[0] for g in got], j_sao.estimate_sao(jnp.asarray(src),
@@ -460,7 +666,7 @@ def test_decision_lanes_take_the_first_of_equal_scores():
     for tie_src, scale in ((src, 1.0), (rec, 0.0)):
         ts = torch.from_numpy(tie_src)[None]
         st = lf.sao_statistics_reference(ts, r, 16).numpy()
-        got = decide_model(st, 8, lf.sao_prices(22, scale))
+        got = estimate_model(st, 8, lf.sao_prices(22, scale))
         same(got, t_ctb.estimate_sao_ctb(ts, r, 16, 22, 8, scale))
         same([g[0] for g in got], j_ctb.estimate_sao_ctb(
             jnp.asarray(tie_src), jnp.asarray(rec), 16, 22, 8, scale))
@@ -473,10 +679,23 @@ def test_decision_lanes_take_the_first_of_equal_scores():
     crafted[1, ..., 32:64] = 3                          # flat band counts
     crafted[1, ..., 64:96] = 3
     for prices in (None, lf.sao_prices(22, 0.0)):
-        got = decide_model(crafted, 8, prices)
+        got = estimate_model(crafted, 8, prices)
         assert (np.asarray(got[0]) == ref_sao.SAO_EO0 + 1).all()
         same(got, lf.sao_decide_reference(torch.from_numpy(crafted),
                                           prices=prices))
+
+
+def test_published_words_round_trip():
+    """Every type, band position and offset in [-31, 31] survives the
+    word, whatever the tag."""
+    offs = np.arange(-31, 32)
+    for typ in range(6):
+        for band in range(29):
+            off = [int(x) for x in np.roll(offs, typ + band)[:4]]
+            for tag in (1, 0xffffffff):
+                word = pack_word((None, typ, band, off), tag)
+                assert word >> 32 == tag
+                assert unpack_word(word) == (typ, band, off)
 
 
 def test_statistics_layout_is_jaxs_tile_stats():
@@ -513,15 +732,19 @@ def test_wrappers_on_cpu_equal_jax():
                                       22))
     same([lf.sao_apply(r, *maps, 32)], [j_ctb.apply_sao_ctb(
         jnp.asarray(rec), *(jnp.asarray(m.numpy()) for m in maps), 32)])
+    again, stats = lf.sao_estimate(s, r, tile=32, qp=22, return_stats=True)
+    same(again, maps)
+    tile_stats = j_ctb.sao_tile_stats(jnp.asarray(src), jnp.asarray(rec), 32)
+    assert np.array_equal(stats[..., 32:64].permute(2, 0, 1).numpy(),
+                          np.asarray(tile_stats["bo_cnt"]))
 
 
 def test_wrappers_refuse_other_devices():
     meta = torch.empty((1, 16, 16), dtype=torch.int32, device="meta")
-    stats = torch.empty((1, 1, 1, lf.STAT_INTS), dtype=torch.int32,
-                        device="meta")
     calls = [lambda: lf.deblock_planes(meta, 22),
-             lambda: lf.sao_statistics(meta, meta, 16),
-             lambda: lf.sao_decide(stats),
+             lambda: lf.sao_estimate(meta, meta, return_stats=True),
+             lambda: lf.sao_estimate(meta, meta, tile=16, qp=22,
+                                     return_stats=True),
              lambda: lf.sao_estimate(meta, meta),
              lambda: lf.sao_estimate(meta, meta, tile=16, qp=22),
              lambda: lf.sao_apply(meta, 0, 0, [0] * 4)]
