@@ -1,0 +1,10 @@
+"""fetch_ms_per_frame (ms, program span): host time of the program's
+"frame.fetch" span: each plane's outputs copied back to the host, with
+the wait for the card, per frame of the traced window; none where the
+program has no such span."""
+
+from benchlib.program import span_ms_per_frame
+
+
+def read(ctx):
+    return span_ms_per_frame(ctx, "frame.fetch")

@@ -1,0 +1,10 @@
+"""residual_coding_ms_per_frame (ms, program span): host time of the
+program's "entropy.residual" span: each plane's residual coder (CABAC in
+the cells), per frame of the traced window; none where the program has
+no such span."""
+
+from benchlib.program import span_ms_per_frame
+
+
+def read(ctx):
+    return span_ms_per_frame(ctx, "entropy.residual")

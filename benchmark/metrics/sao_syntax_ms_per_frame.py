@@ -1,0 +1,10 @@
+"""sao_syntax_ms_per_frame (ms, program span): host time of the
+program's "entropy.sao" span: the frame's SAO NAL (the CTB SAO writer's
+walk over the tiles), per frame of the traced window; none where the
+program has no such span."""
+
+from benchlib.program import span_ms_per_frame
+
+
+def read(ctx):
+    return span_ms_per_frame(ctx, "entropy.sao")

@@ -22,7 +22,13 @@ Layout mirrors the JAX package so each counterpart is easy to find:
 - `parallel`: the device mesh (`make_mesh`) and the multi-frame batch
   encoders, frame- and space-sharded over it (`parallel.spatial`);
 - `ops.sparse`: the level-prefix device-to-host transfer;
-- `utils.tracing`: stage stopwatch and profiler regions;
+- `utils.tracing`: the frame call's stages and byte counters.  Run
+  the frame API under `torch.profiler` to see the `nhevc.*` stages
+  (the planes' upload, fetch and conversions, the entropy coder's SAO,
+  mode, scan and residual parts) beside the kernels and copies on the
+  card; read `tracing.SPANS.report()` and `tracing.COUNTS` for their
+  totals.  With no profiler recording, each stage costs one flag read.
+  Also the sequence runner's stopwatch;
   `utils.checks`: sampled oracle parity of an open-loop encode;
 - `cli`: `python -m nanohevc_tpu_torch [--device cuda|cpu]
   demo|encode|encode-seq|decode`.

@@ -84,6 +84,7 @@ from nanohevc_tpu_torch.kernels.wavefront import (
 )
 from nanohevc_tpu_torch.kernels.wavefront_rd import wavefront_rd_encode_planes
 from nanohevc_tpu_torch.ops.mode_rate import mpm_mode_bits
+from nanohevc_tpu_torch.utils.tracing import count, span
 
 
 # --- the RD decision's slot batches -------------------------------------------
@@ -376,6 +377,15 @@ def plane_args(config, is_luma: bool) -> dict:
     )
 
 
+def _fetch(t):
+    """A tensor (or tuple of them) as host numpy, counting the bytes."""
+    if isinstance(t, tuple):
+        return tuple(_fetch(a) for a in t)
+    a = t.cpu()
+    count("frame.bytes_down", a.nbytes)
+    return a.numpy()
+
+
 def encode_frame_closed_loop(frame: Frame, config, *,
                              device: str | torch.device = "cuda") -> tuple:
     """Closed-loop encode of a Frame -> (recon Frame, bitstream bytes).
@@ -383,6 +393,12 @@ def encode_frame_closed_loop(frame: Frame, config, *,
     `config` is an `EncoderConfig`.  The bitstream decodes to the recon
     pixel for pixel through `decode_frame`; it carries each plane's SAO
     or CTB-SAO parameters in a SAO NAL.
+
+    While a torch profiler records, each plane's upload, fetch (with
+    the wait for the card) and conversions are the spans
+    "frame.upload", "frame.fetch" and "frame.convert" of
+    `utils.tracing`, and the bytes sent and brought back are counted as
+    "frame.bytes_up" and "frame.bytes_down".
     """
     from nanohevc_tpu_torch.runtime.bitstream import assemble_bitstream
 
@@ -391,18 +407,21 @@ def encode_frame_closed_loop(frame: Frame, config, *,
     plane_levels, plane_modes, sao, sao_ctb = {}, {}, {}, {}
     for (name, src), (_, dst) in zip(_planes_of(frame), _planes_of(recon)):
         args = plane_args(config, name == "Y")
-        out = encode_plane_closed_loop(
-            torch.from_numpy(src.data.astype(np.int32)).to(dev), config.qp,
-            **args)
-        dst.data[...] = out["recon"].cpu().numpy().astype(np.int16)
-        plane_levels[name] = (out["levels"].cpu().numpy(), args["n"])
-        plane_modes[name] = out["modes"].cpu().numpy()
-        if config.sao:
-            t, pos, offs = (a.cpu().numpy() for a in out["sao"])
-            sao[name] = (int(t), int(pos), offs)
-        if config.sao_ctb:
-            sao_ctb[name] = (config.sao_tile,) + tuple(
-                a.cpu().numpy() for a in out["sao_ctb"])
+        with span("frame.upload"):
+            x = torch.from_numpy(src.data.astype(np.int32)).to(dev)
+        count("frame.bytes_up", x.nbytes)
+        out = encode_plane_closed_loop(x, config.qp, **args)
+        with span("frame.fetch"):      # waits for the card's work
+            got = {k: _fetch(v) for k, v in out.items()}
+        with span("frame.convert"):
+            dst.data[...] = got["recon"].astype(np.int16)
+            plane_levels[name] = (got["levels"], args["n"])
+            plane_modes[name] = got["modes"]
+            if config.sao:
+                t, pos, offs = got["sao"]
+                sao[name] = (int(t), int(pos), offs)
+            if config.sao_ctb:
+                sao_ctb[name] = (config.sao_tile,) + got["sao_ctb"]
     bitstream = assemble_bitstream(
         frame.width, frame.height, config.qp, plane_levels, plane_modes,
         bit_depth=config.bit_depth, scan=config.scan,

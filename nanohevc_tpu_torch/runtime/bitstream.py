@@ -1,4 +1,4 @@
-# Copy of nanohevc_tpu/runtime/bitstream.py (only the import lines differ).
+# Copy of nanohevc_tpu/runtime/bitstream.py (only the import lines and the `span` blocks differ).
 """Frame bitstream assembly/parsing over the native entropy codec.
 
 Layout (framework-defined, spec-style framing):
@@ -31,6 +31,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from nanohevc_tpu_torch.runtime import entropy
+from nanohevc_tpu_torch.utils.tracing import span
 
 
 # Container format version, written as vps_version by the native
@@ -183,11 +184,13 @@ def assemble_bitstream(
     if sao and sao_ctb:
         raise ValueError("pass per-frame sao OR sao_ctb, not both")
     if sao:
-        out.append(entropy.wrap_nal(entropy.NAL_SAO, write_sao_params(sao)))
+        with span("entropy.sao"):
+            out.append(entropy.wrap_nal(entropy.NAL_SAO, write_sao_params(sao)))
     if sao_ctb:
-        out.append(entropy.wrap_nal(
-            entropy.NAL_SAO, write_sao_ctb_params(sao_ctb, bit_depth)
-        ))
+        with span("entropy.sao"):
+            out.append(entropy.wrap_nal(
+                entropy.NAL_SAO, write_sao_ctb_params(sao_ctb, bit_depth)
+            ))
     plane_ids = {"Y": 0, "U": 1, "V": 2}
     for name, (levels, block_size) in plane_levels.items():
         levels = np.ascontiguousarray(levels, dtype=np.int32)
@@ -196,21 +199,24 @@ def assemble_bitstream(
             modes = np.ascontiguousarray(plane_modes[name], dtype=np.int32)
             grid = _mode_grid(nb, width, height, block_size,
                               plane_ids[name])
-            if grid is not None:
-                mpay = entropy.encode_modes(modes, *grid)
-            else:
-                mpay = entropy.encode_levels(modes.reshape(nb, 1))
+            with span("entropy.modes"):
+                if grid is not None:
+                    mpay = entropy.encode_modes(modes, *grid)
+                else:
+                    mpay = entropy.encode_levels(modes.reshape(nb, 1))
         else:
             modes = None
             mpay = b""
         if entropy_coder == "cabac":
             from nanohevc_tpu_torch.runtime import hevc
 
-            sel = _slice_scan_sel(scan, modes, nb, block_size)
-            raster = _np_unpack(levels, sel, block_size)
-            payload = hevc.encode_plane_cabac(
-                raster, sel, c_idx=0 if name == "Y" else 1, qp=qp
-            )
+            with span("entropy.scan"):
+                sel = _slice_scan_sel(scan, modes, nb, block_size)
+                raster = _np_unpack(levels, sel, block_size)
+            with span("entropy.residual"):
+                payload = hevc.encode_plane_cabac(
+                    raster, sel, c_idx=0 if name == "Y" else 1, qp=qp
+                )
         elif entropy_coder == "hevc-slice":
             # full spec-syntax slice: modes ride IN the CTU structure
             # (8.4.2.2 MPM syntax), so no separate mode payload exists
@@ -228,12 +234,15 @@ def assemble_bitstream(
                     "entropy_coder='hevc-slice' needs the block grid; "
                     f"nb={nb} does not tile the SPS geometry for {name}"
                 )
-            sel = _slice_scan_sel(scan, modes, nb, block_size)
-            raster = _np_unpack(levels, sel, block_size)
-            payload = hevc.encode_slice_hevc(raster, modes, *grid, qp=qp)
+            with span("entropy.scan"):
+                sel = _slice_scan_sel(scan, modes, nb, block_size)
+                raster = _np_unpack(levels, sel, block_size)
+            with span("entropy.residual"):
+                payload = hevc.encode_slice_hevc(raster, modes, *grid, qp=qp)
             mpay = b""
         else:
-            payload = entropy.encode_levels(levels, tiles=entropy_tiles)
+            with span("entropy.residual"):
+                payload = entropy.encode_levels(levels, tiles=entropy_tiles)
         header = struct.pack(
             "<HHIIII", plane_ids[name], block_size, qp, nb,
             len(mpay), len(payload),

@@ -1,6 +1,6 @@
 """Observability and verification utilities."""
 
-from nanohevc_tpu_torch.utils.tracing import Stopwatch, throughput_stats, trace_region
+from nanohevc_tpu_torch.utils.tracing import Stopwatch, count, span, throughput_stats
 from nanohevc_tpu_torch.utils.checks import sample_parity_check
 
-__all__ = ["Stopwatch", "trace_region", "throughput_stats", "sample_parity_check"]
+__all__ = ["Stopwatch", "span", "count", "throughput_stats", "sample_parity_check"]

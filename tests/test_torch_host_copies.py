@@ -9,7 +9,10 @@ original: the
 source text (apart from the header line, the import lines, paths into
 the upstream reference project, which the copies give from its root,
 and, for the native runtime's build, where the libraries go), and the
-results of the public functions on seeded inputs.
+results of the public functions on seeded inputs.  The port's tracing
+spans (`with span(...)` blocks of `utils.tracing`, and their import)
+are the one addition a copy may make: with them taken out and their
+bodies dedented, the text is the original's.
 """
 
 import dataclasses
@@ -57,6 +60,47 @@ def _code(text: str) -> list:
             for line in text.splitlines()]
 
 
+_SPAN_IMPORT = "from nanohevc_tpu_torch.utils.tracing import span"
+_SPAN_BLOCK = re.compile(r'^( *)with span\("[\w.]+"\):(  +#.*)?$')
+
+
+def _without_spans(text: str) -> str:
+    """The copy with its tracing spans taken out: the import of `span`
+    dropped, and each `with span("..."):` line dropped with its block
+    dedented by one level."""
+    out, blocks = [], []          # blocks: indents of the open span lines
+    for line in text.splitlines():
+        indent = len(line) - len(line.lstrip(" "))
+        while blocks and line.strip() and indent <= blocks[-1]:
+            blocks.pop()
+        m = _SPAN_BLOCK.match(line)
+        if m:
+            blocks.append(len(m.group(1)))
+            continue
+        if line == _SPAN_IMPORT:
+            continue
+        out.append(line[4 * len(blocks):] if line.strip() else line)
+    return "\n".join(out)
+
+
+def test_without_spans_restores_the_original_text():
+    copy = ('from nanohevc_tpu_torch.utils.tracing import span\n'
+            'def f(x):\n'
+            '    with span("a.b"):\n'
+            '        y = g(x)\n'
+            '\n'
+            '        with span("a.c"):\n'
+            '            y = h(y)\n'
+            '    return y\n')
+    assert _without_spans(copy) == ('def f(x):\n'
+                                    '    y = g(x)\n'
+                                    '\n'
+                                    '    y = h(y)\n'
+                                    '    return y')
+    # Anything else a copy adds still differs from its original.
+    assert _without_spans(copy.replace("h(y)", "k(y)")) != _without_spans(copy)
+
+
 @pytest.mark.parametrize("rel", COPIES)
 def test_copy_differs_only_in_imports(rel):
     orig = (REPO / "nanohevc_tpu" / rel).read_text()
@@ -65,6 +109,7 @@ def test_copy_differs_only_in_imports(rel):
         header, _, copy = copy.partition("\n")
         assert header.startswith(f"# Copy of nanohevc_tpu/{rel} (only the "
                                  "import lines")
+        copy = _without_spans(copy)
     assert _code(copy) == _code(orig)
 
 

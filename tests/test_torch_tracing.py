@@ -1,0 +1,135 @@
+"""The port's stage spans and byte counters (`utils.tracing`).
+
+With no profiler recording, `span` and `count` read one flag: `span`
+returns the shared null context, nothing is recorded.  Under
+`torch.profiler`, a closed-loop frame call opens the spans "frame.upload",
+"frame.fetch", "frame.convert" (once a plane) and "entropy.modes",
+"entropy.scan", "entropy.residual" (once a plane), "entropy.sao" (once a
+frame), each as an "nhevc.<name>" range in the profiler's events, and
+counts the bytes each way.  The outputs are the same either way.
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from nanohevc_tpu_torch.config import EncoderConfig
+from nanohevc_tpu_torch.models import wavefront as wf
+from nanohevc_tpu_torch.models.all_intra import create_test_frame
+from nanohevc_tpu_torch.utils import tracing
+
+CONFIG = EncoderConfig(qp=30, deblock=True, sao_ctb=True, sao_tile=16,
+                       entropy_coder="cabac", scan="mode")
+PER_PLANE = ("frame.upload", "frame.fetch", "frame.convert",
+             "entropy.modes", "entropy.scan", "entropy.residual")
+
+
+def encode(frame):
+    return wf.encode_frame_closed_loop(frame, CONFIG, device="cpu")
+
+
+@pytest.fixture(autouse=True)
+def fresh():
+    tracing.reset()
+    yield
+    tracing.reset()
+
+
+class _FlagOnly:
+    """Stands for torch.autograd.profiler: counts reads of the flag."""
+
+    def __init__(self):
+        self.reads = 0
+
+    @property
+    def _is_profiler_enabled(self):
+        self.reads += 1
+        return False
+
+
+def _refused(name):
+    raise AssertionError(f"profiler range {name!r} entered")
+
+
+def test_off_span_and_count_read_one_flag(monkeypatch):
+    flag = _FlagOnly()
+    monkeypatch.setattr(tracing, "_profiler", flag)
+    monkeypatch.setattr(tracing, "_Range", _refused)
+    with tracing.span("frame.upload") as s:
+        assert s is None
+    assert tracing.span("entropy.sao") is tracing.NULL_SPAN
+    assert flag.reads == 2
+    tracing.count("frame.bytes_up", 100)
+    assert flag.reads == 3
+    assert tracing.SPANS.totals == {} and tracing.COUNTS == {}
+
+
+def test_off_frame_call_records_nothing(monkeypatch):
+    monkeypatch.setattr(tracing, "_Range", _refused)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", _refused)
+    encode(create_test_frame(24, 40))
+    assert tracing.SPANS.totals == {} and tracing.SPANS.counts == {}
+    assert tracing.COUNTS == {}
+
+
+def test_profiled_frame_calls_open_each_span(tmp_path):
+    frame = create_test_frame(24, 40)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        encode(frame)
+        encode(frame)
+    counts = tracing.SPANS.counts
+    assert {k: counts[k] for k in PER_PLANE} == {k: 6 for k in PER_PLANE}
+    assert counts["entropy.sao"] == 2
+    assert set(counts) == set(PER_PLANE) | {"entropy.sao"}
+    assert all(t > 0 for t in tracing.SPANS.totals.values())
+    names = {ev.name for ev in prof.events()}
+    assert {tracing.PREFIX + k for k in counts} <= names
+    report = tracing.SPANS.report()
+    assert report["entropy.residual"]["calls"] == 6
+    # Operator ranges, not user annotations: the profiler mirrors a user
+    # annotation onto the card's timeline, where a stage that waits for
+    # the card would read as device time.
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    cats = {e.get("cat") for e in events
+            if str(e.get("name", "")).startswith(tracing.PREFIX)}
+    assert cats and "user_annotation" not in cats
+
+
+def test_profiled_counters_are_the_bytes_moved(monkeypatch):
+    sent, fetched = [], []
+    plane_call = wf.encode_plane_closed_loop
+
+    def capture(plane, qp, **kw):
+        out = plane_call(plane, qp, **kw)
+        sent.append(plane.nbytes)
+        for v in out.values():
+            fetched.extend(a.nbytes for a in (v if isinstance(v, tuple)
+                                               else (v,)))
+        return out
+
+    monkeypatch.setattr(wf, "encode_plane_closed_loop", capture)
+    with profile(activities=[ProfilerActivity.CPU]):
+        encode(create_test_frame(24, 40))
+    # int32 planes up: 24x40 luma, two 12x20 chroma planes.
+    assert sum(sent) == 4 * (24 * 40 + 2 * 12 * 20)
+    assert tracing.COUNTS == {"frame.bytes_up": sum(sent),
+                              "frame.bytes_down": sum(fetched)}
+    tracing.reset()
+    assert tracing.COUNTS == {} and tracing.SPANS.totals == {}
+
+
+def test_outputs_equal_with_and_without_the_profiler():
+    frame = create_test_frame(24, 40)
+    recon0, bits0 = encode(frame)
+    with profile(activities=[ProfilerActivity.CPU]):
+        recon1, bits1 = encode(frame)
+    assert bits1 == bits0
+    for a, b in zip((recon0.y, recon0.u, recon0.v),
+                    (recon1.y, recon1.u, recon1.v)):
+        assert a.data.dtype == b.data.dtype == np.int16
+        assert np.array_equal(a.data, b.data)
+    assert tracing.SPANS.counts["entropy.sao"] == 1
