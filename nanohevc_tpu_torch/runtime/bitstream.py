@@ -1,4 +1,4 @@
-# Copy of nanohevc_tpu/runtime/bitstream.py (only the import lines and the `span` blocks differ).
+# Copy of nanohevc_tpu/runtime/bitstream.py (only the import lines, the `span` blocks and `assemble_bitstream`, whose CABAC branch codes the levels in their scan order, differ).
 """Frame bitstream assembly/parsing over the native entropy codec.
 
 Layout (framework-defined, spec-style framing):
@@ -31,7 +31,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from nanohevc_tpu_torch.runtime import entropy
-from nanohevc_tpu_torch.utils.tracing import span
+from nanohevc_tpu_torch.utils.tracing import count, span
 
 
 # Container format version, written as vps_version by the native
@@ -212,11 +212,11 @@ def assemble_bitstream(
 
             with span("entropy.scan"):
                 sel = _slice_scan_sel(scan, modes, nb, block_size)
-                raster = _np_unpack(levels, sel, block_size)
             with span("entropy.residual"):
-                payload = hevc.encode_plane_cabac(
-                    raster, sel, c_idx=0 if name == "Y" else 1, qp=qp
+                payload = hevc.encode_plane_cabac_scan(
+                    levels, sel, c_idx=0 if name == "Y" else 1, qp=qp
                 )
+            count("entropy.scan_order_blocks", nb)
         elif entropy_coder == "hevc-slice":
             # full spec-syntax slice: modes ride IN the CTU structure
             # (8.4.2.2 MPM syntax), so no separate mode payload exists

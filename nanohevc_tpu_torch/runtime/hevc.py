@@ -1,4 +1,4 @@
-# Copy of nanohevc_tpu/runtime/hevc.py, building through runtime/build.py.
+# Copy of nanohevc_tpu/runtime/hevc.py, building through runtime/build.py, with a scan-order entry.
 """ctypes bindings for the HEVC-conformant CABAC entropy stage.
 
 The spec-true counterpart of runtime/entropy.py: the ITU-T H.265 9.3
@@ -10,7 +10,8 @@ native/hevc_cabac.cpp.  The reference project declares this capability
 Levels enter in per-block RASTER layout — the syntax applies its own
 spec 6.5.3 scan, selected per block (0 diag / 1 horizontal /
 2 vertical), which is how the mode-dependent scan rule reaches the
-coded stream.
+coded stream.  `encode_plane_cabac_scan` takes them already in that
+scan order, as the frame encoder packs them, and writes the same bytes.
 """
 
 from __future__ import annotations
@@ -41,6 +42,8 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_int32, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int32,
         ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
     ]
+    lib.nhc_encode_plane_scan.restype = ctypes.c_int64
+    lib.nhc_encode_plane_scan.argtypes = lib.nhc_encode_plane.argtypes
     lib.nhc_decode_plane.restype = ctypes.c_int32
     lib.nhc_decode_plane.argtypes = [
         ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, ctypes.c_int64,
@@ -101,14 +104,45 @@ def encode_plane_cabac(
     if n != n2 or n not in (4, 8, 16, 32):
         raise ValueError(f"levels must be (nb, N, N), N in 4/8/16/32: "
                          f"{levels.shape}")
-    lg2 = n.bit_length() - 1
+    return _encode_plane(_lib().nhc_encode_plane, levels, n, scan_idx,
+                         c_idx, qp)
+
+
+def encode_plane_cabac_scan(
+    levels: np.ndarray, scan_idx, *, c_idx: int = 0, qp: int = 22
+) -> bytes:
+    """(nb, N*N) scan-packed int32 levels -> spec-CABAC payload.
+
+    Block b's word k is its coefficient at position k of its spec 6.5.3
+    scan scan_idx[b] (by 4x4 sub-blocks above 4x4), the layout
+    `bitstream._np_pack` gives.  The payload is `encode_plane_cabac`'s
+    of the same blocks in raster layout.
+    """
+    levels = np.ascontiguousarray(levels, dtype=np.int32)
+    if levels.ndim != 2:
+        raise ValueError(f"levels must be (nb, N*N): {levels.shape}")
+    nb, ncoef = levels.shape
+    n = {16: 4, 64: 8, 256: 16, 1024: 32}.get(ncoef)
+    if n is None:
+        raise ValueError(f"levels must be (nb, N*N), N in 4/8/16/32: "
+                         f"{levels.shape}")
+    return _encode_plane(_lib().nhc_encode_plane_scan, levels, n, scan_idx,
+                         c_idx, qp)
+
+
+def _encode_plane(entry, levels: np.ndarray, n: int, scan_idx, c_idx: int,
+                  qp: int) -> bytes:
+    """One of the plane entries on contiguous int32 levels of nb N x N
+    blocks (validated by the caller) -> the payload."""
+    nb = levels.shape[0]
     si = _scan_indices(scan_idx, nb)
     cap = levels.size * 4 + 1024
     out = np.empty(cap, dtype=np.uint8)
-    r = _lib().nhc_encode_plane(
-        levels.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), nb, lg2,
-        int(c_idx), si.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        int(qp), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), cap,
+    r = entry(
+        levels.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), nb,
+        n.bit_length() - 1, int(c_idx),
+        si.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), int(qp),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), cap,
     )
     if r < 0:
         raise RuntimeError(f"CABAC encoder failed: rc={r}")

@@ -544,6 +544,11 @@ int decode_remaining(CabacDecoder& dec, int rice) {
   return base + static_cast<int>(dec.bypass_bits(k));
 }
 
+// kScanOrder: the block's words are in its combined scan order (word k
+// is the coefficient at scan position k, word (sb << 4) + in the one at
+// position in of sub-block sb), as the frame encoder packs them; else
+// in raster order (word y * size + x).
+template <bool kScanOrder = false>
 void residual_encode(CabacEncoder& enc, ResidualCtxs& rc,
                      const int32_t* coeffs, int lg2, int c_idx,
                      int scan_idx) {
@@ -568,10 +573,14 @@ void residual_encode(CabacEncoder& enc, ResidualCtxs& rc,
     *x = (xs << 2) + xp;
     *y = (ys << 2) + yp;
   };
+  // the word of coefficient (x, y) at scan position k
+  auto at = [&](int k, int x, int y) {
+    return kScanOrder ? coeffs[k] : coeffs[y * size + x];
+  };
   for (int k = total - 1; k >= 0; --k) {
     int x, y;
     coef_xy(k, &x, &y);
-    if (coeffs[y * size + x]) {
+    if (at(k, x, y)) {
       last_scan = k;
       break;
     }
@@ -591,7 +600,7 @@ void residual_encode(CabacEncoder& enc, ResidualCtxs& rc,
       scan_xy(scan_idx, 2, in, &xp, &yp);
       int x = lg2 == 2 ? xp : (xs << 2) + xp;
       int y = lg2 == 2 ? yp : (ys << 2) + yp;
-      if (coeffs[y * size + x]) {
+      if (at((sb << 4) + in, x, y)) {
         csbf.set(xs, ys);
         break;
       }
@@ -629,7 +638,7 @@ void residual_encode(CabacEncoder& enc, ResidualCtxs& rc,
     for (int k = start; k >= first_in_sb; --k) {
       int x, y;
       coef_xy(k, &x, &y);
-      int sig = coeffs[y * size + x] != 0;
+      int sig = at(k, x, y) != 0;
       int in_sb = k & 15;
       if (lg2 == 2) in_sb = k;
       if (k == last_scan) {
@@ -655,7 +664,7 @@ void residual_encode(CabacEncoder& enc, ResidualCtxs& rc,
     for (int i = 0; i < n_sig; ++i) {
       int x, y;
       coef_xy(sig_pos[i], &x, &y);
-      int v = coeffs[y * size + x];
+      int v = at(sig_pos[i], x, y);
       abs_lv[i] = v < 0 ? -v : v;
     }
     for (int i = 0; i < n_gt1; ++i) {
@@ -678,7 +687,7 @@ void residual_encode(CabacEncoder& enc, ResidualCtxs& rc,
     for (int i = 0; i < n_sig; ++i) {
       int x, y;
       coef_xy(sig_pos[i], &x, &y);
-      enc.bypass(coeffs[y * size + x] < 0);
+      enc.bypass(at(sig_pos[i], x, y) < 0);
     }
     // remaining levels
     int rice = 0;
@@ -1461,6 +1470,40 @@ int64_t nhc_encode_plane(const int32_t* coeffs, int64_t nb, int32_t lg2,
     // empty plane: a single terminate so the stream is self-delimiting
     enc.terminate(1);
   }
+  enc.finish();
+  if (static_cast<int64_t>(buf.size()) > cap) return -1;
+  std::memcpy(out, buf.data(), buf.size());
+  return static_cast<int64_t>(buf.size());
+}
+
+// nhc_encode_plane on blocks in their combined scan order (scan_idx[b]'s
+// spec 6.5.3 scan, by 4x4 sub-blocks above 4x4), the layout the frame
+// encoder packs its levels in: the same payload as nhc_encode_plane of
+// the blocks unpacked to raster, without the unpacking.
+int64_t nhc_encode_plane_scan(const int32_t* coeffs, int64_t nb, int32_t lg2,
+                              int32_t c_idx, const uint8_t* scan_idx,
+                              int32_t qp, uint8_t* out, int64_t cap) {
+  if (lg2 < 2 || lg2 > 5 || nb < 0) return -2;
+  int ncoef = 1 << (2 * lg2);
+  std::vector<uint8_t> buf;
+  buf.reserve(static_cast<size_t>(nb) * 8 + 64);
+  ResidualCtxs rc;
+  rc.init(qp);
+  CabacEncoder enc(&buf);
+  Ctx& cbf = c_idx == 0 ? rc.cbf_luma : rc.cbf_chroma;
+  for (int64_t b = 0; b < nb; ++b) {
+    const int32_t* blk = coeffs + b * ncoef;
+    int any = 0;
+    for (int i = 0; i < ncoef; ++i)
+      if (blk[i]) {
+        any = 1;
+        break;
+      }
+    enc.encode(cbf, any);
+    if (any) residual_encode<true>(enc, rc, blk, lg2, c_idx, scan_idx[b]);
+    enc.terminate(b + 1 == nb ? 1 : 0);
+  }
+  if (nb == 0) enc.terminate(1);
   enc.finish();
   if (static_cast<int64_t>(buf.size()) > cap) return -1;
   std::memcpy(out, buf.data(), buf.size());

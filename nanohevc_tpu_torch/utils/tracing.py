@@ -11,7 +11,9 @@
   annotation onto the card's timeline over the work launched inside it,
   and a stage that waits for the card would then read as device time;
 - count(name, n): adds n to `COUNTS[name]` while a profiler records
-  (the bytes a frame call moves: "frame.bytes_up", "frame.bytes_down");
+  (the bytes a frame call moves: "frame.bytes_up", "frame.bytes_down";
+  the blocks the CABAC coder reads in their scan order:
+  "entropy.scan_order_blocks");
 - reset(): empties `SPANS` and `COUNTS`;
 - Stopwatch + throughput_stats: wall-clock Mpix/s counters for the
   sequence runner's per-run stats, as in the JAX package.

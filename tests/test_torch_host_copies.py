@@ -11,8 +11,11 @@ the upstream reference project, which the copies give from its root,
 and, for the native runtime's build, where the libraries go), and the
 results of the public functions on seeded inputs.  The port's tracing
 spans (`with span(...)` blocks of `utils.tracing`, and their import)
-are the one addition a copy may make: with them taken out and their
-bodies dedented, the text is the original's.
+are one addition a copy may make: with them taken out and their
+bodies dedented, the text is the original's.  The other is a function
+changed by design, named in `CHANGED` and in the copy's header line: it
+is taken out of both texts, and held to its original by the bytes it
+writes instead (`test_bitstream_bytes_and_parse_equal`).
 """
 
 import dataclasses
@@ -50,6 +53,16 @@ COPIES = [
 ]
 # Copies whose native-library build moved out of the source tree.
 BUILD_COPIES = ["runtime/build.py", "runtime/hevc.py"]
+# Functions a copy changes by design.  The copy's CABAC branch of
+# `assemble_bitstream` hands the coder the scan-packed levels as they
+# come, which `residual_encode` reads through the block's layout from
+# the new entry `nhc_encode_plane_scan`; the original unpacks them to
+# raster first.
+CHANGED = {
+    "runtime/bitstream.py": ("assemble_bitstream",),
+    "runtime/native/hevc_cabac.cpp": ("residual_encode",
+                                      "nhc_encode_plane_scan"),
+}
 
 
 def _code(text: str) -> list:
@@ -60,7 +73,8 @@ def _code(text: str) -> list:
             for line in text.splitlines()]
 
 
-_SPAN_IMPORT = "from nanohevc_tpu_torch.utils.tracing import span"
+_SPAN_IMPORT = re.compile(
+    r"^from nanohevc_tpu_torch\.utils\.tracing import (count, )?span$")
 _SPAN_BLOCK = re.compile(r'^( *)with span\("[\w.]+"\):(  +#.*)?$')
 
 
@@ -77,7 +91,7 @@ def _without_spans(text: str) -> str:
         if m:
             blocks.append(len(m.group(1)))
             continue
-        if line == _SPAN_IMPORT:
+        if _SPAN_IMPORT.match(line):
             continue
         out.append(line[4 * len(blocks):] if line.strip() else line)
     return "\n".join(out)
@@ -101,15 +115,74 @@ def test_without_spans_restores_the_original_text():
     assert _without_spans(copy.replace("h(y)", "k(y)")) != _without_spans(copy)
 
 
+def _without_functions(text: str, names) -> str:
+    """The text with each top-level function of `names` taken out: its
+    definition, the comment and `template` lines right above it, and its
+    body (Python: up to the next unindented line other than the
+    signature's closing parenthesis; C++: up to the closing brace at the
+    start of a line, and one blank line after)."""
+    lines, out, i = text.splitlines(), [], 0
+    head = re.compile(r"^(def |\w[\w:<>*& ]* )(%s)\(" % "|".join(names))
+    while i < len(lines):
+        if not head.match(lines[i]):
+            out.append(lines[i])
+            i += 1
+            continue
+        while out and re.match(r"^(#|//|template |@)", out[-1]):
+            out.pop()
+        i += 1
+        if lines[i - 1].startswith("def "):
+            while i < len(lines) and (not lines[i] or lines[i][0] in " )"):
+                i += 1
+        else:
+            while lines[i] != "}":
+                i += 1
+            i += 1 + (i + 1 < len(lines) and not lines[i + 1])
+    return "\n".join(out)
+
+
+@pytest.mark.parametrize("lang", ["py", "cpp"])
+def test_without_functions_drops_the_named_functions_only(lang):
+    if lang == "py":
+        orig = ('import a\n\n\ndef f(\n    x,\n) -> int:\n    return g(x)\n\n\n'
+                'def h(x):\n    f(x)\n    return x\n')
+        copy = orig.replace("g(x)", "k(x)").replace(
+            "def h", "def f2(y):\n    return y\n\n\ndef h")
+        kept = 'import a\n\n\ndef h(x):\n    f(x)\n    return x'
+    else:
+        # g calls f, indented as every call inside a body is: the call
+        # is not a definition, and g stays whole.
+        orig = ('int g(int x) {\n  f(&x, 1);\n  return x;\n}\n\n'
+                'void f(int* p,\n       int n) {\n  p[0] = n;\n}\n\n'
+                'int h() { return 0; }\n')
+        copy = orig.replace("p[0]", "p[n]").replace(
+            "void f", "// why\ntemplate <bool kB = false>\nvoid f").replace(
+            "int h", "int f2(int y) {\n  return y;\n}\n\nint h")
+        kept = ('int g(int x) {\n  f(&x, 1);\n  return x;\n}\n\n'
+                'int h() { return 0; }')
+    names = ("f", "f2")
+    assert _without_functions(orig, names) == kept
+    assert _without_functions(copy, names) == kept
+    # A change outside the named functions still shows.
+    assert _without_functions(copy.replace("return x", "return -x"),
+                              names) != kept
+    assert _without_functions(copy, ("f",)) != kept
+
+
 @pytest.mark.parametrize("rel", COPIES)
 def test_copy_differs_only_in_imports(rel):
     orig = (REPO / "nanohevc_tpu" / rel).read_text()
     copy = (REPO / "nanohevc_tpu_torch" / rel).read_text()
+    changed = CHANGED.get(rel, ())
     if rel.endswith(".py"):
         header, _, copy = copy.partition("\n")
         assert header.startswith(f"# Copy of nanohevc_tpu/{rel} (only the "
                                  "import lines")
+        assert all(f"`{name}`" in header for name in changed)
         copy = _without_spans(copy)
+    if changed:
+        orig = _without_functions(orig, changed)
+        copy = _without_functions(copy, changed)
     assert _code(copy) == _code(orig)
 
 
@@ -350,17 +423,41 @@ def test_ref_deblock_equal(is_chroma):
 
 # --- runtime ----------------------------------------------------------------
 
-def _planes(n_y, rng, with_modes):
-    """Y at N = n_y and U/V at max(4, N/2) of a 32x48 frame."""
+def _planes(n_y, rng, with_modes, hw=(32, 48), density=0.3, peak=3):
+    """Y at N = n_y and U/V at max(4, N/2) of an h x w frame, levels in
+    [-peak, peak] with the given share nonzero at most."""
     levels, modes = {}, {}
-    for name, (h, w), n in (("Y", (32, 48), n_y),
-                            ("U", (16, 24), max(4, n_y // 2)),
-                            ("V", (16, 24), max(4, n_y // 2))):
-        nb = (h // n) * (w // n)
-        lv = rng.integers(-3, 4, (nb, n * n)) * (rng.random((nb, n * n)) < 0.3)
+    h, w = hw
+    for name, (ph, pw), n in (("Y", (h, w), n_y),
+                              ("U", (h // 2, w // 2), max(4, n_y // 2)),
+                              ("V", (h // 2, w // 2), max(4, n_y // 2))):
+        nb = (ph // n) * (pw // n)
+        lv = (rng.integers(-peak, peak + 1, (nb, n * n))
+              * (rng.random((nb, n * n)) < density))
         levels[name] = (lv.astype(np.int32), n)
         modes[name] = rng.integers(0, 35, nb).astype(np.int32)
     return levels, (modes if with_modes else None)
+
+
+def _sao_ctb(rng, hw, tile):
+    """CTB SAO maps of every plane at `tile`, runs of equal parameters
+    included so that both merge flags are written."""
+    out = {}
+    for name, (ph, pw) in (("Y", hw), ("U", (hw[0] // 2, hw[1] // 2)),
+                           ("V", (hw[0] // 2, hw[1] // 2))):
+        nty, ntx = -(-ph // tile), -(-pw // tile)
+        tmap = rng.integers(0, 6, (nty, ntx))
+        bmap = rng.integers(0, 32, (nty, ntx))
+        omap = rng.integers(-7, 8, (nty, ntx, 4))
+        for ty, tx in itertools.product(range(nty), range(ntx)):
+            r = rng.random()
+            src = ((ty, tx - 1) if tx and r < 0.3 else
+                   (ty - 1, tx) if ty and r < 0.6 else None)
+            if src:
+                for m in (tmap, bmap, omap):
+                    m[ty, tx] = m[src]
+        out[name] = (tile, tmap, bmap, omap)
+    return out
 
 
 BITSTREAM_CASES = [
@@ -371,6 +468,34 @@ BITSTREAM_CASES = [
         ("cabac", True, "mode", 8), ("cabac", True, "horizontal", 16),
         ("hevc-slice", True, "diag", 8), ("hevc-slice", True, "mode", 4),
     )
+] + [
+    # The benchmark's two configurations: mode scan, CABAC, deblocking,
+    # CTB SAO at 64, Y at N=8 with U/V at N=4, and Y at N=4.
+    dict(entropy_coder="cabac", with_modes=True, scan="mode", n=n,
+         hw=(128, 192), sao_tile=64)
+    for n in (8, 4)
+] + [
+    # Every fixed scan at the sizes with more than one sub-block row.
+    dict(entropy_coder="cabac", with_modes=True, scan=s, n=n, hw=(64, 96))
+    for s, n in (("diag", 16), ("vertical", 16), ("diag", 32),
+                 ("horizontal", 32), ("vertical", 32))
+] + [
+    # No level at all; and levels up to int16's range, so that the
+    # remaining levels escape to exp-Golomb and the Rice parameter rises.
+    dict(entropy_coder="cabac", with_modes=True, scan="mode", n=8,
+         hw=(64, 96), density=0.0),
+    dict(entropy_coder="cabac", with_modes=True, scan="mode", n=8,
+         hw=(64, 96), density=0.6, peak=32767),
+] + [
+    # The options of `assemble_bitstream` outside its CABAC branch:
+    # per-frame SAO, the range coder on two tiles, and 10-bit samples
+    # (the SPS and the CTB SAO offsets' width).
+    dict(entropy_coder="cabac", with_modes=True, scan="mode", n=8,
+         sao_frame=True),
+    dict(entropy_coder="range", with_modes=True, scan="diag", n=8,
+         hw=(64, 96), tiles=2),
+    dict(entropy_coder="cabac", with_modes=True, scan="mode", n=8,
+         hw=(128, 192), sao_tile=64, bit_depth=10),
 ]
 
 
@@ -378,21 +503,43 @@ BITSTREAM_CASES = [
                          ids=lambda c: "-".join(str(v) for v in c.values()))
 def test_bitstream_bytes_and_parse_equal(case):
     rng = np.random.default_rng(len(str(case)))
-    levels, modes = _planes(case["n"], rng, case["with_modes"])
-    kw = dict(bit_depth=8, scan=case["scan"], entropy_coder=case["entropy_coder"],
-              dequant_rescale=case["n"] == 16, intra_smoothing=case["n"] == 4)
-    want = j_bits.assemble_bitstream(48, 32, 27, levels, modes, **kw)
-    got = t_bits.assemble_bitstream(48, 32, 27, levels, modes, **kw)
+    hw = case.get("hw", (32, 48))
+    levels, modes = _planes(case["n"], rng, case["with_modes"], hw,
+                            case.get("density", 0.3), case.get("peak", 3))
+    kw = dict(bit_depth=case.get("bit_depth", 8), scan=case["scan"],
+              entropy_coder=case["entropy_coder"],
+              dequant_rescale=case["n"] == 16, intra_smoothing=case["n"] == 4,
+              entropy_tiles=case.get("tiles", 1))
+    if case.get("sao_frame"):
+        kw["sao"] = {name: (int(rng.integers(0, 6)), int(rng.integers(0, 32)),
+                            rng.integers(-7, 8, 4).astype(np.int32))
+                     for name in "YUV"}
+    if "sao_tile" in case:
+        kw.update(dequant_rescale=True, intra_smoothing=True, deblock=True,
+                  sao_ctb=_sao_ctb(rng, hw, case["sao_tile"]))
+    want = j_bits.assemble_bitstream(hw[1], hw[0], 27, levels, modes, **kw)
+    got = t_bits.assemble_bitstream(hw[1], hw[0], 27, levels, modes, **kw)
     assert got == want
     jp, tp = j_bits.parse_bitstream(want), t_bits.parse_bitstream(got)
     assert jp.keys() == tp.keys()
     for key in jp:
         assert jp[key].keys() == tp[key].keys()
         for k, v in jp[key].items():
-            if isinstance(v, np.ndarray):
-                assert np.array_equal(tp[key][k], v), (key, k)
-            else:
-                assert tp[key][k] == v, (key, k)
+            assert _same(tp[key][k], v), (key, k)
+
+
+def _same(a, b) -> bool:
+    """Equal values, with arrays, and tuples and dicts of them, compared
+    element by element."""
+    if isinstance(b, dict):
+        return (isinstance(a, dict) and a.keys() == b.keys()
+                and all(_same(a[k], b[k]) for k in b))
+    if isinstance(b, np.ndarray):
+        return isinstance(a, np.ndarray) and np.array_equal(a, b)
+    if isinstance(b, (tuple, list)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(map(_same, a, b)))
+    return a == b
 
 
 @pytest.mark.parametrize("chroma420", [False, True], ids=["mono", "420"])

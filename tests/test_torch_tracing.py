@@ -6,7 +6,8 @@ returns the shared null context, nothing is recorded.  Under
 "frame.fetch", "frame.convert" (once a plane) and "entropy.modes",
 "entropy.scan", "entropy.residual" (once a plane), "entropy.sao" (once a
 frame), each as an "nhevc.<name>" range in the profiler's events, and
-counts the bytes each way.  The outputs are the same either way.
+counts the bytes each way and the blocks the CABAC coder reads in
+scan order.  The outputs are the same either way.
 """
 
 import json
@@ -100,12 +101,13 @@ def test_profiled_frame_calls_open_each_span(tmp_path):
 
 
 def test_profiled_counters_are_the_bytes_moved(monkeypatch):
-    sent, fetched = [], []
+    sent, fetched, blocks = [], [], []
     plane_call = wf.encode_plane_closed_loop
 
     def capture(plane, qp, **kw):
         out = plane_call(plane, qp, **kw)
         sent.append(plane.nbytes)
+        blocks.append(out["levels"].shape[0])
         for v in out.values():
             fetched.extend(a.nbytes for a in (v if isinstance(v, tuple)
                                                else (v,)))
@@ -116,8 +118,11 @@ def test_profiled_counters_are_the_bytes_moved(monkeypatch):
         encode(create_test_frame(24, 40))
     # int32 planes up: 24x40 luma, two 12x20 chroma planes.
     assert sum(sent) == 4 * (24 * 40 + 2 * 12 * 20)
+    # The CABAC coder reads every block of the three slices in the
+    # scan order it was fetched in.
     assert tracing.COUNTS == {"frame.bytes_up": sum(sent),
-                              "frame.bytes_down": sum(fetched)}
+                              "frame.bytes_down": sum(fetched),
+                              "entropy.scan_order_blocks": sum(blocks)}
     tracing.reset()
     assert tracing.COUNTS == {} and tracing.SPANS.totals == {}
 
