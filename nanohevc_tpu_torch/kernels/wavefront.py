@@ -55,6 +55,7 @@ from nanohevc_tpu_torch.kernels.mode_search import angle_table
 from nanohevc_tpu_torch.kernels.slab_pipeline import BLOCK_SIZES, transform_table
 from nanohevc_tpu_torch.ops.intra import mode_filter_flags
 from nanohevc_tpu_torch.params import encoder_tables, qp_scalars
+from nanohevc_tpu_torch.utils.tracing import count, span
 
 # The TPU kernels' two configurations, (mode_set, decision).
 BODIES = {("dc_planar", "energy"): 0, ("all", "satd"): 1}
@@ -356,30 +357,48 @@ def wavefront_encode_planes(planes: torch.Tensor, qp: int, n: int, *,
     `wavefront_encode_planes.launches` and the grids the C call
     launched to `wavefront_encode_planes.grids`, and counts the launch
     in `wavefront_encode_planes.launches_by_config` under (mode_set,
-    decision, smoothing, rdoq); on a CPU tensor it runs the plain
-    version.  `scan` matters under `rdoq` only (the levels come back in
-    raster order).  `_max_grid`, a cap on the grid (0: none), is for the
-    tests of the kernel's schedule on small grids.
+    decision, smoothing, rdoq); while a torch profiler records, its host
+    work is the span "wavefront.launch" and the blocks it codes are
+    counted as "wavefront.blocks" (`utils.tracing`).  On a CPU tensor it
+    runs the plain version.  `scan` matters under `rdoq` only (the
+    levels come back in raster order).  `_max_grid`, a cap on the grid
+    (0: none), is for the tests of the kernel's schedule on small grids.
     """
-    validate_planes("wavefront_encode_planes", planes, n, bit_depth, scan,
-                    wavefront_covers(n, mode_set, decision, use_dst),
-                    f"n={n}, mode_set={mode_set!r}, decision={decision!r}, "
-                    f"use_dst={use_dst}")
     kw = dict(mode_set=mode_set, decision=decision, bit_depth=bit_depth,
               use_dst=use_dst, dequant_rescale=dequant_rescale,
               intra_smoothing=intra_smoothing, rdoq=rdoq, scan=scan,
               rd_lambda_scale=rd_lambda_scale)
-    if planes.device.type == "cpu":
-        return wavefront_encode_planes_reference(planes, qp, n, **kw)
-    if planes.numel() == 0:
-        return _outputs(planes, n)
-    out, grids = _launch(cuda_kernels(), planes, qp, n, max_grid=_max_grid,
-                         **kw)
+    if isinstance(planes, torch.Tensor) and planes.device.type == "cuda":
+        return _encode_on_card(planes, qp, n, _max_grid, kw)
+    _validate(planes, n, kw)
+    return wavefront_encode_planes_reference(planes, qp, n, **kw)
+
+
+def _validate(planes: torch.Tensor, n: int, kw: dict) -> None:
+    mode_set, decision, use_dst = kw["mode_set"], kw["decision"], kw["use_dst"]
+    validate_planes("wavefront_encode_planes", planes, n, kw["bit_depth"],
+                    kw["scan"], wavefront_covers(n, mode_set, decision, use_dst),
+                    f"n={n}, mode_set={mode_set!r}, decision={decision!r}, "
+                    f"use_dst={use_dst}")
+
+
+def _encode_on_card(planes: torch.Tensor, qp: int, n: int, max_grid: int,
+                    kw: dict) -> dict:
+    """The card's path of `wavefront_encode_planes`: checks, tables and
+    one launch (the span "wavefront.launch"), then the counters."""
+    with span("wavefront.launch"):
+        _validate(planes, n, kw)
+        if planes.numel() == 0:
+            return _outputs(planes, n)
+        out, grids = _launch(cuda_kernels(), planes, qp, n,
+                             max_grid=max_grid, **kw)
     wavefront_encode_planes.launches += 1
     wavefront_encode_planes.grids += grids
-    key = (mode_set, decision, intra_smoothing and n > 4, bool(rdoq))
+    key = (kw["mode_set"], kw["decision"],
+           kw["intra_smoothing"] and n > 4, bool(kw["rdoq"]))
     by_config = wavefront_encode_planes.launches_by_config
     by_config[key] = by_config.get(key, 0) + 1
+    count("wavefront.blocks", out["modes"].numel())
     return out
 
 

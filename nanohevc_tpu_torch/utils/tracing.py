@@ -2,9 +2,11 @@
 
 - span(name): one stage of a frame call ("frame.upload", "frame.fetch",
   "frame.convert", "entropy.sao", "entropy.modes", "entropy.scan",
-  "entropy.residual").  While a torch profiler records, it opens the
-  host range "nhevc.<name>" in the profiler's trace, on the clock of
-  every kernel and copy on the card, and adds its host time to `SPANS`;
+  "entropy.residual"; "wavefront.launch", the wavefront kernel
+  wrapper's host work on the card's path).  While a torch profiler
+  records, it opens the host range "nhevc.<name>" in the profiler's
+  trace, on the clock of every kernel and copy on the card, and adds
+  its host time to `SPANS`;
   with no profiler recording it reads one flag and returns the shared
   `NULL_SPAN`.  The range is an operator range, not a
   `record_function` user annotation: the profiler mirrors a user
@@ -13,7 +15,8 @@
 - count(name, n): adds n to `COUNTS[name]` while a profiler records
   (the bytes a frame call moves: "frame.bytes_up", "frame.bytes_down";
   the blocks the CABAC coder reads in their scan order:
-  "entropy.scan_order_blocks");
+  "entropy.scan_order_blocks"; the blocks the wavefront kernel codes,
+  over each batch's padded geometry: "wavefront.blocks");
 - reset(): empties `SPANS` and `COUNTS`;
 - Stopwatch + throughput_stats: wall-clock Mpix/s counters for the
   sequence runner's per-run stats, as in the JAX package.

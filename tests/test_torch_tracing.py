@@ -7,7 +7,10 @@ returns the shared null context, nothing is recorded.  Under
 "entropy.scan", "entropy.residual" (once a plane), "entropy.sao" (once a
 frame), each as an "nhevc.<name>" range in the profiler's events, and
 counts the bytes each way and the blocks the CABAC coder reads in
-scan order.  The outputs are the same either way.
+scan order.  On the card's path the wavefront kernel's wrapper opens
+"wavefront.launch" and counts the blocks it codes as "wavefront.blocks"
+(driven here with the launch replaced by the plain loop).  The outputs
+are the same either way.
 """
 
 import json
@@ -18,6 +21,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from nanohevc_tpu_torch.config import EncoderConfig
+from nanohevc_tpu_torch.kernels import wavefront as kwf
 from nanohevc_tpu_torch.models import wavefront as wf
 from nanohevc_tpu_torch.models.all_intra import create_test_frame
 from nanohevc_tpu_torch.utils import tracing
@@ -138,3 +142,62 @@ def test_outputs_equal_with_and_without_the_profiler():
         assert a.data.dtype == b.data.dtype == np.int16
         assert np.array_equal(a.data, b.data)
     assert tracing.SPANS.counts["entropy.sao"] == 1
+
+
+@pytest.fixture
+def card_path(monkeypatch):
+    """The wavefront wrapper's card path on CPU tensors: the C call
+    replaced by the plain loop, the wrapper's counters put back after.
+    Returns the path as `encode_planes_closed_loop` calls the wrapper."""
+    def launch(kern, planes, qp, n, *, max_grid=0, **kw):
+        return kwf.wavefront_encode_planes_reference(planes, qp, n, **kw), 1
+
+    monkeypatch.setattr(kwf, "_launch", launch)
+    monkeypatch.setattr(kwf, "cuda_kernels", lambda: None)
+    for attr, value in (("launches", 0), ("grids", 0),
+                        ("launches_by_config", {})):
+        monkeypatch.setattr(kwf.wavefront_encode_planes, attr, value)
+    return lambda planes, qp, n, **kw: kwf._encode_on_card(planes, qp, n, 0,
+                                                           kw)
+
+
+LOOP = dict(mode_set="all", decision="satd", bit_depth=8, use_dst=False,
+            dequant_rescale=True, intra_smoothing=True, rdoq=False,
+            scan="mode", rd_lambda_scale=1.0)
+
+
+@pytest.mark.parametrize("profiled", [False, True])
+def test_wavefront_span_and_blocks_only_while_profiling(card_path, profiled):
+    planes = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (2, 24, 40), dtype=np.int32))
+    want = kwf.wavefront_encode_planes_reference(planes, 30, 8, **LOOP)
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            out = card_path(planes, 30, 8, **LOOP)
+        assert tracing.SPANS.counts == {"wavefront.launch": 1}
+        assert tracing.COUNTS == {"wavefront.blocks": 2 * 3 * 5}
+        assert tracing.PREFIX + "wavefront.launch" in {
+            ev.name for ev in prof.events()}
+    else:
+        out = card_path(planes, 30, 8, **LOOP)
+        assert tracing.SPANS.totals == {} and tracing.COUNTS == {}
+    assert kwf.wavefront_encode_planes.launches == 1
+    for k in want:
+        assert torch.equal(out[k], want[k])
+
+
+@pytest.mark.parametrize("shape", [(24, 40), (38, 50)])
+def test_wavefront_blocks_are_each_planes_padded_blocks(card_path,
+                                                        monkeypatch, shape):
+    frame = create_test_frame(*shape)
+    recon0, bits0 = encode(frame)
+    monkeypatch.setattr(wf, "wavefront_encode_planes", card_path)
+    with profile(activities=[ProfilerActivity.CPU]):
+        recon1, bits1 = encode(frame)
+    assert bits1 == bits0 and np.array_equal(recon1.y.data, recon0.y.data)
+    # Luma at N=8, chroma at N=4, each padded up to whole blocks.
+    h, w = shape
+    want = (-(-h // 8) * -(-w // 8)
+            + 2 * -(-(h // 2) // 4) * -(-(w // 2) // 4))
+    assert tracing.COUNTS["wavefront.blocks"] == want
+    assert tracing.SPANS.counts["wavefront.launch"] == 3
