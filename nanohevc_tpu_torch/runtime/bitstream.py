@@ -1,4 +1,4 @@
-# Copy of nanohevc_tpu/runtime/bitstream.py (only the import lines, the `span` blocks and `assemble_bitstream`, whose CABAC branch codes the levels in their scan order, differ).
+# Copy of nanohevc_tpu/runtime/bitstream.py (only the import lines, the `span` blocks, `assemble_bitstream`, whose CABAC branch codes the levels in their scan order, and `write_sao_ctb_params`, which codes the tiles with array operations, differ).
 """Frame bitstream assembly/parsing over the native entropy codec.
 
 Layout (framework-defined, spec-style framing):
@@ -331,6 +331,11 @@ def write_sao_ctb_params(
     params), so any upstream RD merge decision is automatically
     consistent.  sao_ctb maps plane name to (tile, type_map (nty,ntx),
     band_map, off_map (nty,ntx,4)) int arrays.
+
+    The tiles are coded with array operations: every syntax element of
+    a tile is a (value, width) field, width 0 where the element is
+    absent, and the fields are expanded MSB-first into bits in raster
+    order and packed, the last byte zero-padded.
     """
     from nanohevc_tpu_torch.ref.sao import SAO_BO, SAO_OFF
 
@@ -345,39 +350,34 @@ def write_sao_ctb_params(
         if tile & (tile - 1) or not 8 <= tile <= 256:
             raise ValueError(f"sao tile must be a power of two: {tile}")
 
-        def params(ty, tx):
-            return (
-                int(tmap[ty, tx]), int(bmap[ty, tx]),
-                tuple(int(v) for v in omap[ty, tx]),
-            )
-
-        bw = _TileBitWriter()
-        for ty in range(nty):
-            for tx in range(ntx):
-                cur = params(ty, tx)
-                if tx > 0:
-                    if cur == params(ty, tx - 1):
-                        bw.put(1, 1)
-                        continue
-                    bw.put(0, 1)
-                if ty > 0:
-                    if cur == params(ty - 1, tx):
-                        bw.put(1, 1)
-                        continue
-                    bw.put(0, 1)
-                t, pos, offs = cur
-                if t == SAO_OFF:
-                    bw.put(0, 2)
-                    continue
-                if t == SAO_BO:
-                    bw.put(2, 2)
-                    bw.put(pos, 5)
-                else:                      # EO classes 1-4
-                    bw.put(1, 2)
-                    bw.put(t - 1, 2)
-                for o in offs:
-                    bw.put(o, off_w)
-        payload = bw.bytes()
+        # A tile merges with a neighbor whose type, band and offsets are
+        # all equal to its own, whatever the type.
+        par = np.concatenate([tmap[..., None], bmap[..., None], omap], -1)
+        left = np.zeros((nty, ntx), bool)
+        left[:, 1:] = (par[:, 1:] == par[:, :-1]).all(-1)
+        up = np.zeros((nty, ntx), bool)
+        up[1:] = (par[1:] == par[:-1]).all(-1) & ~left[1:]
+        coded = ~(left | up)
+        on = coded & (tmap != SAO_OFF)
+        bo = tmap == SAO_BO
+        # Fields of a tile: merge_left, merge_up, type, EO class or band,
+        # then the offsets.
+        value = np.empty((nty, ntx, 4 + omap.shape[-1]), np.int64)
+        width = np.zeros_like(value)
+        value[..., 0], width[:, 1:, 0] = left, 1
+        value[..., 1], width[1:, :, 1] = up, ~left[1:]
+        value[..., 2] = np.where(bo, 2, tmap != SAO_OFF)
+        width[..., 2] = 2 * coded
+        value[..., 3] = np.where(bo, bmap, tmap - 1)
+        width[..., 3] = np.where(bo, 5, 2) * on
+        value[..., 4:], width[..., 4:] = omap, off_w * on[..., None]
+        # One entry a bit: its field's value shifted by the bits of the
+        # field that follow it.
+        width = width.reshape(-1)
+        end = np.repeat(np.cumsum(width), width)
+        shift = end - 1 - np.arange(end.size)
+        bits = (np.repeat(value.reshape(-1), width) >> shift) & 1
+        payload = np.packbits(bits).tobytes()
         out.append(struct.pack(
             "<BBHHBI", plane_ids[name], tile.bit_length() - 1,
             nty, ntx, off_w, len(payload),

@@ -57,9 +57,11 @@ BUILD_COPIES = ["runtime/build.py", "runtime/hevc.py"]
 # `assemble_bitstream` hands the coder the scan-packed levels as they
 # come, which `residual_encode` reads through the block's layout from
 # the new entry `nhc_encode_plane_scan`; the original unpacks them to
-# raster first.
+# raster first.  The copy's `write_sao_ctb_params` codes the CTB SAO
+# tiles with array operations where the original walks them one by one
+# (held to it case by case in tests/test_torch_sao_ctb_writer.py).
 CHANGED = {
-    "runtime/bitstream.py": ("assemble_bitstream",),
+    "runtime/bitstream.py": ("assemble_bitstream", "write_sao_ctb_params"),
     "runtime/native/hevc_cabac.cpp": ("residual_encode",
                                       "nhc_encode_plane_scan"),
 }
