@@ -304,9 +304,10 @@ MODE_SEARCH = EncoderConfig(mode_set="all", decision="satd")
 def rd_plain(planes, qp, n, *, mode_set="dc_planar", bit_depth=8,
              use_dst=False, dequant_rescale=False, intra_smoothing=False,
              rdoq=False, scan="diag", rd_lambda_scale=1.0):
-    """The RD kernel's plain version, `_encode_planes_rd` (looked up by
-    name at the call), with the wrapper's keywords."""
-    return torch_wf._encode_planes_rd(
+    """The RD kernel's plain version,
+    `kernels.wavefront_rd.wavefront_rd_encode_planes_reference` (looked
+    up by name at the call), with the wrapper's keywords."""
+    return krd.wavefront_rd_encode_planes_reference(
         planes, qp, n, mode_set=mode_set, use_dst=use_dst,
         bit_depth=bit_depth, scan=scan, dequant_rescale=dequant_rescale,
         intra_smoothing=intra_smoothing, rdoq=rdoq,
@@ -540,12 +541,13 @@ class PlainLoopEntries:
     """Counts the closed loop's plain entries while it is open: the
     plain loop (`wavefront_encode_planes_reference`, which the wrapper
     reaches for a CPU tensor) and the RD decision's slot batches
-    (`_encode_planes_rd`), each looked up by name where it is called."""
+    (`kernels.wavefront_rd.wavefront_rd_encode_planes_reference`), each
+    looked up by name where it is called."""
 
     def __enter__(self):
         self.count = 0
         self.saved = (kwf.wavefront_encode_planes_reference,
-                      torch_wf._encode_planes_rd)
+                      krd.wavefront_rd_encode_planes_reference)
 
         def counted(fn):
             def call(*args, **kwargs):
@@ -554,12 +556,12 @@ class PlainLoopEntries:
             return call
 
         kwf.wavefront_encode_planes_reference = counted(self.saved[0])
-        torch_wf._encode_planes_rd = counted(self.saved[1])
+        krd.wavefront_rd_encode_planes_reference = counted(self.saved[1])
         return self
 
     def __exit__(self, *exc):
         (kwf.wavefront_encode_planes_reference,
-         torch_wf._encode_planes_rd) = self.saved
+         krd.wavefront_rd_encode_planes_reference) = self.saved
         return False
 
 
@@ -1296,15 +1298,16 @@ def mixed_planes(shape, n: int, dev, rng):
 
 def phase_wavefront_rd_vs_plain(dev) -> dict:
     """3h: the RD closed loop's kernel == its plain loop
-    (`_encode_planes_rd`) on the card, 0 values differing in recon,
-    levels and modes: DC/planar and the 35 modes at N 4 DST, 4, 8, 16
-    and 32, each with smoothing off and on; RDOQ rotated over the cases
-    (off and every scan) with lambda scales 1, 2.5 and 0.5; 8/10/12-bit
-    and the dequant rescale rotated; QP 0/22/37/51 rotated; a 135x240
-    and a 45x200 crop (padded), each at batch 1 and 2; and, since the
-    rotation meets N 16 and 32 only under RDOQ, both mode sets at N 16
-    and 32 without it on the 135x240 crop (the candidates kept in their
-    lanes' registers, the pair decided by a shuffle).  Then,
+    (`wavefront_rd_encode_planes_reference`) on the card, 0 values
+    differing in recon, levels and modes: DC/planar and the 35 modes at
+    N 4 DST, 4, 8, 16 and 32, each with smoothing off and on; RDOQ
+    rotated over the cases (off and every scan) with lambda scales 1,
+    2.5 and 0.5; 8/10/12-bit and the dequant rescale rotated; QP
+    0/22/37/51 rotated; a 135x240 and a 45x200 crop (padded), each at
+    batch 1 and 2; and, since the rotation meets N 16 and 32 only under
+    RDOQ, both mode sets at N 16 and 32 without it on the 135x240 crop
+    (the candidates kept in their lanes' registers, the pair decided by
+    a shuffle).  Then,
     each against the plain loop and run three more times, each == the
     first: the 1080p luma plane at N=8 under each mode set, and 7d's
     batches under decision="rd" as encode_sequence gives them, a batch's

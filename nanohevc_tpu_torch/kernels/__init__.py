@@ -37,7 +37,10 @@ from nanohevc_tpu_torch.kernels.wavefront import (
     wavefront_encode_planes_reference,
     wavefront_supported,
 )
-from nanohevc_tpu_torch.kernels.wavefront_rd import wavefront_rd_encode_planes
+from nanohevc_tpu_torch.kernels.wavefront_rd import (
+    wavefront_rd_encode_planes,
+    wavefront_rd_encode_planes_reference,
+)
 
 __all__ = [
     "deblock_planes",
@@ -60,5 +63,6 @@ __all__ = [
     "wavefront_encode_planes",
     "wavefront_encode_planes_reference",
     "wavefront_rd_encode_planes",
+    "wavefront_rd_encode_planes_reference",
     "wavefront_supported",
 ]

@@ -37,6 +37,7 @@ from nanohevc_tpu_torch.kernels.slab_pipeline import (
     transform_table,
     validate_plane,
 )
+from nanohevc_tpu_torch.ops.mode_decision import decide_modes
 
 
 def mode_search_supported(n: int, width: int) -> bool:
@@ -53,10 +54,6 @@ def mode_search_encode_plane_reference(plane: torch.Tensor, qp: int, n: int, *,
     blocks, modes (nb,) int32).  Rows below the last full block-row pass
     through to recon unchanged.
     """
-    # models.all_intra routes planes to this module, so its mode
-    # decision is imported at call time.
-    from nanohevc_tpu_torch.models.all_intra import decide_modes
-
     src = plane.to(torch.int32)
     blocks = ops.tile_plane(src, n)
     refs = ops.extract_refs(src, n, boundary=1 << (bit_depth - 1))

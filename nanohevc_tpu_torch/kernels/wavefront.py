@@ -54,6 +54,7 @@ from nanohevc_tpu_torch import ops
 from nanohevc_tpu_torch.kernels.mode_search import angle_table
 from nanohevc_tpu_torch.kernels.slab_pipeline import BLOCK_SIZES, transform_table
 from nanohevc_tpu_torch.ops.intra import mode_filter_flags
+from nanohevc_tpu_torch.ops.mode_decision import decide_modes
 from nanohevc_tpu_torch.params import encoder_tables, qp_scalars
 from nanohevc_tpu_torch.utils.tracing import count, span
 
@@ -154,10 +155,6 @@ def wavefront_encode_planes_reference(
     `dc_planar` and `all`, which prices a batch, runs in
     `kernels.wavefront_rd` instead.
     """
-    # models.all_intra imports the kernels' modules, so its mode
-    # decision is imported at call time.
-    from nanohevc_tpu_torch.models.all_intra import decide_modes
-
     b, hp, wp = planes.shape
     nby, nbx = hp // n, wp // n
     dev = planes.device

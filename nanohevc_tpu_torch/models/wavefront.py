@@ -40,7 +40,7 @@ Routing (`encode_planes_closed_loop`), one rule:
   hand-written CUDA kernel, one persistent cooperative launch per call
   that prices the batches on the card (the port's counterpart of the RD
   branch of JAX's XLA scan); on the CPU the plain loop
-  `_encode_planes_rd`.
+  `kernels.wavefront_rd.wavefront_rd_encode_planes_reference`.
 - `kernel_split` and `unroll` are TPU layout knobs and are not taken.
 
 The in-loop filters follow every route, on the padded recon and in
@@ -78,162 +78,11 @@ from nanohevc_tpu_torch.kernels.loop_filter import (
 )
 from nanohevc_tpu_torch.kernels.wavefront import (
     FIXED_MODES,
-    code_residual,
     wavefront_encode_planes,
     wavefront_supported,
 )
 from nanohevc_tpu_torch.kernels.wavefront_rd import wavefront_rd_encode_planes
-from nanohevc_tpu_torch.ops.mode_rate import mpm_mode_bits
 from nanohevc_tpu_torch.utils.tracing import count, span
-
-
-# --- the RD decision's slot batches -------------------------------------------
-#
-# The RD decision prices candidates with the adaptive rate model, whose
-# statistics come from the whole batch it is given.  JAX decides each
-# diagonal of a frame on all nby slots of its skewed layout, the slots
-# off the plane included (they hold neighbouring rows' blocks and read
-# references from the skewed buffers); these helpers rebuild that
-# layout, so that every batch holds the same rows as JAX's.
-
-def _skew_tables(nby: int, nbx: int) -> tuple:
-    """(bx (ndiag, nby), valid (ndiag, nby)) of the skewed wavefront:
-    slot by of diagonal d holds block (by, d - by)."""
-    ndiag = nby + nbx - 1
-    bx = np.arange(ndiag)[:, None] - np.arange(nby)[None, :]
-    return bx, (bx >= 0) & (bx < nbx)
-
-
-def _skew_blocks(raster: torch.Tensor, nby: int, nbx: int) -> torch.Tensor:
-    """Raster (B, nby*nbx, ...) -> skewed (B, ndiag, nby, ...) by one pad
-    and reshape: skewed[d, by] = raster[by, d - by] where valid, and the
-    pad or a neighbouring row's block where not."""
-    b = raster.shape[0]
-    rest = tuple(raster.shape[2:])
-    ndiag = nby + nbx - 1
-    x = raster.reshape(b, nby, nbx, *rest)
-    pad = x.new_zeros((b, nby, ndiag + 1 - nbx, *rest))
-    x = torch.cat([x, pad], dim=2).reshape(b, nby * (ndiag + 1), *rest)
-    return x[:, :nby * ndiag].reshape(b, nby, ndiag, *rest).transpose(1, 2)
-
-
-def _deskew_blocks(skewed: torch.Tensor, nby: int, nbx: int) -> torch.Tensor:
-    """Skewed (B, ndiag, nby, ...) -> raster (B, nby*nbx, ...), the
-    inverse shear of `_skew_blocks`."""
-    b, ndiag = skewed.shape[:2]
-    rest = tuple(skewed.shape[3:])
-    x = skewed.transpose(1, 2).reshape(b, nby * ndiag, *rest)
-    x = torch.cat([x, x.new_zeros((b, nby, *rest))], dim=1)
-    return x.reshape(b, nby, ndiag + 1, *rest)[:, :, :nbx].reshape(
-        b, nby * nbx, *rest)
-
-
-def _skew_buffers(nby: int, nbx: int, n: int, device) -> tuple:
-    """Zero skewed boundary buffers (bottom rows, right columns): row by
-    of the first holds recon row (by+1)*N-1 from column by*N+N+1; row
-    bx+nby of the second holds recon column (bx+1)*N-1 from row
-    bx*N+N+1.  Diagonal d then reads at offset d*N and writes at
-    d*N+N+1 in every slot."""
-    ndiag = nby + nbx - 1
-    width = (ndiag + 2) * n + 2
-    return (torch.zeros((nby, width), dtype=torch.int32, device=device),
-            torch.zeros((ndiag + nby, width), dtype=torch.int32, device=device))
-
-
-def _read_refs_skewed(s_bot: torch.Tensor, r_sp: torch.Tensor, d: int, n: int,
-                      nby: int, boundary: int, bx: torch.Tensor) -> torch.Tensor:
-    """(nby, 4N+2) references of diagonal d's slots from the skewed
-    buffers, laid out as `ops.extract_refs_at` lays them out."""
-    top_rows = s_bot[:, d * n:d * n + 2 * n + 1]
-    top = torch.cat([torch.full_like(top_rows[:1], boundary), top_rows[:-1]])
-    left = r_sp[d:d + nby, d * n:d * n + 2 * n + 1].flip(0)
-    left = torch.where((bx == 0)[:, None], boundary, left)
-    by = torch.arange(nby, device=bx.device)
-    corner_edge = ((by == 0) | (bx == 0))[:, None]
-    top = torch.cat([torch.where(corner_edge, boundary, top[:, :1]),
-                     top[:, 1:]], dim=1)
-    left = torch.cat([torch.where(corner_edge, boundary, left[:, :1]),
-                      left[:, 1:]], dim=1)
-    return torch.cat([top, left], dim=-1)
-
-
-def _write_bufs_skewed(s_bot: torch.Tensor, r_sp: torch.Tensor,
-                       rec: torch.Tensor, d: int, ok: torch.Tensor,
-                       bx: torch.Tensor, n: int, nby: int, nbx: int) -> None:
-    """Blend diagonal d's bottom rows and right columns into the buffers
-    in place; valid slots write, with the N-wide tail replicating the
-    last pixel at the plane's last block column (row), invalid slots
-    keep the old contents.  The padded planes are block-aligned."""
-    c0 = d * n + n + 1
-    okc = ok[:, None]
-    last_pix = rec[:, n - 1, n - 1:n]
-    old_b = s_bot[:, c0:c0 + 2 * n]
-    head = torch.where(okc, rec[:, n - 1, :], old_b[:, :n])
-    tail = torch.where(okc & (bx == nbx - 1)[:, None], last_pix, old_b[:, n:])
-    s_bot[:, c0:c0 + 2 * n] = torch.cat([head, tail], dim=1)
-    old_r = r_sp[d + 1:d + 1 + nby, c0:c0 + 2 * n].flip(0)
-    by = torch.arange(nby, device=rec.device)
-    head = torch.where(okc, rec[:, :, n - 1], old_r[:, :n])
-    tail = torch.where(okc & (by == nby - 1)[:, None], last_pix, old_r[:, n:])
-    r_sp[d + 1:d + 1 + nby, c0:c0 + 2 * n] = torch.cat([head, tail], 1).flip(0)
-
-
-def _encode_planes_rd(planes: torch.Tensor, qp: int, n: int, *,
-                      mode_set: str, use_dst: bool, bit_depth: int,
-                      scan: str, dequant_rescale: bool,
-                      intra_smoothing: bool, rdoq: bool,
-                      rd_lambda_scale: float) -> dict:
-    """The closed loop under decision="rd", frame by frame on JAX's
-    slot batches: (B, Hp, Wp) block-aligned planes -> the dict of
-    `wavefront_encode_planes_reference`.  The plain version of
-    `kernels.wavefront_rd.wavefront_rd_encode_planes`.
-
-    Each diagonal decides all nby slots in one `decide_modes` call, with
-    the exact MPM bits of the slots' left and above neighbours (the
-    previous diagonal's modes, DC where unavailable); the lambda of the
-    decision is unscaled and rd_lambda_scale reaches RDOQ only, as in
-    JAX.
-    """
-    from nanohevc_tpu_torch.models.all_intra import decide_modes
-
-    b, hp, wp = planes.shape
-    nby, nbx = hp // n, wp // n
-    ndiag = nby + nbx - 1
-    dev = planes.device
-    blocks = planes.reshape(b, nby, n, nbx, n).permute(0, 1, 3, 2, 4)
-    blocks_sk = _skew_blocks(blocks.reshape(b, nby * nbx, n, n), nby, nbx)
-    bx_t, ok_t = (torch.from_numpy(t).to(dev) for t in _skew_tables(nby, nbx))
-    boundary = 1 << (bit_depth - 1)
-    slot = torch.arange(nby, device=dev)
-    dc = torch.ones(1, dtype=torch.int32, device=dev)
-    frames = []
-    for f in range(b):
-        s_bot, r_sp = _skew_buffers(nby, nbx, n, dev)
-        prev = dc.expand(nby)
-        steps = []
-        for d in range(ndiag):
-            refs = _read_refs_skewed(s_bot, r_sp, d, n, nby, boundary, bx_t[d])
-            mode_bits = mpm_mode_bits(torch.where(slot == d, 1, prev),
-                                      torch.cat([dc, prev[:-1]]))
-            pred, prev = decide_modes(
-                blocks_sk[f, d], refs, n, mode_set, "rd",
-                smoothing=intra_smoothing, bit_depth=bit_depth, qp=qp,
-                use_dst=use_dst, dequant_rescale=dequant_rescale,
-                mode_bits=mode_bits)
-            levels, rec = code_residual(
-                blocks_sk[f, d], pred, qp, n, use_dst=use_dst,
-                bit_depth=bit_depth, dequant_rescale=dequant_rescale,
-                rdoq=rdoq, scan=scan, modes=prev,
-                rd_lambda_scale=rd_lambda_scale)
-            _write_bufs_skewed(s_bot, r_sp, rec, d, ok_t[d], bx_t[d], n, nby,
-                               nbx)
-            steps.append((rec, levels, prev))
-        frames.append([torch.stack(x) for x in zip(*steps)])
-    rec, levels, modes = (_deskew_blocks(torch.stack(x), nby, nbx)
-                          for x in zip(*frames))
-    recon = rec.reshape(b, nby, nbx, n, n).permute(0, 1, 3, 2, 4).reshape(
-        b, hp, wp)
-    return {"recon": recon, "levels": levels, "modes": modes}
 
 
 def pad_to_blocks(planes: torch.Tensor, n: int) -> torch.Tensor:

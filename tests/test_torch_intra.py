@@ -1,7 +1,8 @@
 """The port's angular prediction, smoothing and 35-mode decision vs JAX.
 
 The same seeded numpy planes go through `nanohevc_tpu` (ops and
-`models.all_intra.decide_modes`) and `nanohevc_tpu_torch` on the CPU.
+`models.all_intra.decide_modes`) and `nanohevc_tpu_torch` (ops and
+`ops.mode_decision.decide_modes`) on the CPU.
 Tolerance zero: every output is an integer and must be equal, dtype
 and shape included.
 """
@@ -17,8 +18,8 @@ from nanohevc_tpu.models import all_intra as jax_ai
 from nanohevc_tpu.ops import angular_tables as jax_tables
 from nanohevc_tpu.ops import intra as jax_intra
 from nanohevc_tpu_torch import ops as tops
-from nanohevc_tpu_torch.models import all_intra as torch_ai
 from nanohevc_tpu_torch.ops import angular_tables as torch_tables
+from nanohevc_tpu_torch.ops import mode_decision as torch_md
 
 SIZES = [4, 8, 16, 32]
 
@@ -155,7 +156,7 @@ class TestDecideModes:
         tb = tops.tile_plane(torch.from_numpy(x), n)
         jp, jm = jax_ai.decide_modes(jb, jr, n, "all", decision,
                                      smoothing=smoothing, bit_depth=bit_depth)
-        tp, tm = torch_ai.decide_modes(tb, tr, n, "all", decision,
+        tp, tm = torch_md.decide_modes(tb, tr, n, "all", decision,
                                        smoothing=smoothing, bit_depth=bit_depth)
         _same(jm, tm)
         _same(jp, tp)
@@ -167,7 +168,7 @@ class TestDecideModes:
         jb = jops.tile_plane(jnp.asarray(x), n)
         tb = tops.tile_plane(torch.from_numpy(x), n)
         jp, jm = jax_ai.decide_modes(jb, jr, n, mode_set, "satd", smoothing=True)
-        tp, tm = torch_ai.decide_modes(tb, tr, n, mode_set, "satd", smoothing=True)
+        tp, tm = torch_md.decide_modes(tb, tr, n, mode_set, "satd", smoothing=True)
         _same(jm, tm)
         _same(jp, tp)
 
@@ -177,8 +178,8 @@ class TestDecideModes:
         x = torch.full((16, 32), 128, dtype=torch.int32)
         refs = tops.extract_refs(x, 8)
         blocks = tops.tile_plane(x, 8)
-        _, m_all = torch_ai.decide_modes(blocks, refs, 8, "all", "satd")
-        _, m_dp = torch_ai.decide_modes(blocks, refs, 8, "dc_planar", "satd")
+        _, m_all = torch_md.decide_modes(blocks, refs, 8, "all", "satd")
+        _, m_dp = torch_md.decide_modes(blocks, refs, 8, "dc_planar", "satd")
         assert m_all.eq(0).all() and m_dp.eq(1).all()
 
     def test_chunked_search_equals_one_chunk(self, monkeypatch):
@@ -188,9 +189,9 @@ class TestDecideModes:
         x[:16, :16] = 128                          # some tied blocks
         tr = tops.extract_refs(torch.from_numpy(x), 8)
         tb = tops.tile_plane(torch.from_numpy(x), 8)
-        whole = torch_ai.decide_modes(tb, tr, 8, "all", "satd")
-        monkeypatch.setattr(torch_ai, "_SEARCH_CHUNK_ELEMS", 3 * tb.numel())
-        chunked = torch_ai.decide_modes(tb, tr, 8, "all", "satd")
+        whole = torch_md.decide_modes(tb, tr, 8, "all", "satd")
+        monkeypatch.setattr(torch_md, "_SEARCH_CHUNK_ELEMS", 3 * tb.numel())
+        chunked = torch_md.decide_modes(tb, tr, 8, "all", "satd")
         assert torch.equal(whole[0], chunked[0])
         assert torch.equal(whole[1], chunked[1])
 
@@ -199,4 +200,4 @@ class TestDecideModes:
         x, _, tr = _refs(91, 8)
         tb = tops.tile_plane(torch.from_numpy(x), 8)
         with pytest.raises(ValueError, match="needs qp"):
-            torch_ai.decide_modes(tb, tr, 8, "all", "rd")
+            torch_md.decide_modes(tb, tr, 8, "all", "rd")

@@ -1,4 +1,5 @@
-"""The port imports neither JAX nor the JAX package.
+"""The port imports neither JAX nor the JAX package, and its layers
+import one way.
 
 The GPU machine has no JAX, and the port keeps its own copies of the
 host modules it needs, so `nanohevc_tpu_torch` (and `chip_smoke.py`)
@@ -11,6 +12,11 @@ CTB SAO), the CLI's demo, an `encode --rdo --rdoq` and an `encode
 --hevc-export`, a 2-frame closed-loop sequence encoded and decoded,
 and an open-loop and a closed-loop batch on a 2 x 2 mesh of "cpu"
 entries (`parallel`).
+
+The layers: `models/` imports `kernels/`, which imports `ops/`; no
+module of `kernels/` imports `models`, `parallel`, `cli` or `runtime`,
+and no module of `ops/` imports those or `kernels`, at module level or
+inside a function (`test_layers_import_one_way`, statically).
 """
 
 import ast
@@ -69,6 +75,85 @@ def test_scanner_catches_jax():
     assert _forbidden("nanohevc_tpu")
     assert not _forbidden("nanohevc_tpu_torch.runtime.bitstream")
     assert not _forbidden("torch")
+
+
+# Layers each lower layer of the port must not import.
+ABOVE = {
+    "kernels": ("models", "parallel", "cli", "runtime"),
+    "ops": ("kernels", "models", "parallel", "cli", "runtime"),
+}
+
+
+def _top_names() -> dict:
+    """Name -> layer of every name the package's `__init__` imports
+    (`from nanohevc_tpu_torch import encode_frame_full` reaches the
+    models)."""
+    tree = ast.parse((PORT / "__init__.py").read_text())
+    return {alias.asname or alias.name: node.module.split(".")[1]
+            for node in tree.body if isinstance(node, ast.ImportFrom)
+            and (node.module or "").startswith("nanohevc_tpu_torch.")
+            for alias in node.names}
+
+
+def _port_layers(source: str, package: str):
+    """The layer (the part after `nanohevc_tpu_torch.`) of every port
+    module that `source` imports, at any depth, relative imports
+    resolved against `package`."""
+    top = _top_names()
+
+    def layers(module, names=()):
+        parts = module.split(".")
+        if parts[0] != "nanohevc_tpu_torch":
+            return
+        if len(parts) > 1:
+            yield parts[1]
+        else:
+            for name in names:
+                yield top.get(name, name)
+
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield from layers(alias.name)
+        elif isinstance(node, ast.ImportFrom):
+            module = node.module or ""
+            if node.level:
+                base = package.split(".")
+                base = base[:len(base) + 1 - node.level]
+                module = ".".join(base + ([module] if module else []))
+            yield from layers(module, [a.name for a in node.names])
+
+
+def _layer_files():
+    return [p for layer in ABOVE for p in sorted((PORT / layer).glob("*.py"))]
+
+
+@pytest.mark.parametrize("path", _layer_files(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_layers_import_one_way(path):
+    layer = path.parent.name
+    bad = sorted(set(_port_layers(path.read_text(),
+                                  f"nanohevc_tpu_torch.{layer}"))
+                 & set(ABOVE[layer]))
+    assert bad == [], f"{layer}/{path.name} imports {bad}"
+
+
+def test_layer_scanner_catches_upward_imports():
+    src = textwrap.dedent("""
+        import torch
+        from nanohevc_tpu_torch import ops, encode_frame_closed_loop
+        from . import wavefront
+
+        def f():
+            import nanohevc_tpu_torch.runtime.hevc
+            from nanohevc_tpu_torch.models.all_intra import encode_plane_full
+            from ..parallel import mesh
+            from nanohevc_tpu_torch import cli
+    """)
+    got = list(_port_layers(src, "nanohevc_tpu_torch.ops"))
+    assert got == ["ops", "models", "ops", "runtime", "models", "parallel",
+                   "cli"]
+    assert _layer_files()
 
 
 JAX_BLOCKED = textwrap.dedent("""

@@ -2,10 +2,11 @@
 
 Seeded textured planes go through `nanohevc_tpu.models.all_intra`
 (jitted, its XLA path) and `nanohevc_tpu_torch.models.all_intra` (on
-the CPU) with RDOQ, RD cbf (both rate modes) and `decision="rd"` (DC/
-planar and all 35 modes, with the MPM mode-rate term of the plane's
-grid), at N 4 (DST) to 32, 8 and 10 bits, QP 12/22/37 and on a plane
-that is not block-aligned.  Recon, levels, modes and nnz must be equal.
+the CPU; its mode decision is `ops.mode_decision`) with RDOQ, RD cbf
+(both rate modes) and `decision="rd"` (DC/planar and all 35 modes, with
+the MPM mode-rate term of the plane's grid), at N 4 (DST) to 32, 8 and
+10 bits, QP 12/22/37 and on a plane that is not block-aligned.  Recon,
+levels, modes and nnz must be equal.
 
 Near-tie rule.  The adaptive rate model's prices take their
 transcendentals in float64 on the host, so its bits may differ from
@@ -34,6 +35,7 @@ from nanohevc_tpu_torch import config as port_config
 from nanohevc_tpu_torch import frame as port_frame_mod
 from nanohevc_tpu_torch.cli import assemble_frame_bitstream
 from nanohevc_tpu_torch.models import all_intra as torch_ai
+from nanohevc_tpu_torch.ops import mode_decision as torch_md
 
 FLIPS = []
 KINDS = {
@@ -216,7 +218,7 @@ def test_angular_chunks_price_the_whole_batch(monkeypatch):
     plane = torch.from_numpy(textured(32, 48, 5))
     kw = _plane_kw(8, 8, "rd_all")
     whole = torch_ai.encode_plane_full(plane, 22, **kw)
-    monkeypatch.setattr(torch_ai, "_SEARCH_CHUNK_ELEMS", 3 * 24 * 64)
+    monkeypatch.setattr(torch_md, "_SEARCH_CHUNK_ELEMS", 3 * 24 * 64)
     chunked = torch_ai.encode_plane_full(plane, 22, **kw)
     for k in whole:
         assert torch.equal(whole[k], chunked[k]), k
@@ -236,7 +238,7 @@ def test_decide_modes_with_exact_mode_bits_matches_jax(mode_set):
     jp, jm = jax.jit(lambda b, r, q, mb: jax_ai.decide_modes(
         b, r, n, mode_set, "rd", qp=q, mode_bits=mb))(
             jb, jr, jnp.int32(30), jnp.asarray(bits))
-    tp, tm = torch_ai.decide_modes(
+    tp, tm = torch_md.decide_modes(
         torch.from_numpy(np.array(jb)), torch.from_numpy(np.array(jr)),
         n, mode_set, "rd", qp=30, mode_bits=torch.from_numpy(bits))
     assert np.array_equal(tm.numpy(), np.asarray(jm))

@@ -28,6 +28,7 @@ from nanohevc_tpu.frame import Plane as JaxPlane
 from nanohevc_tpu_torch.cli import main as torch_main
 from nanohevc_tpu_torch.config import EncoderConfig
 from nanohevc_tpu_torch.frame import Frame, Plane
+from nanohevc_tpu_torch.kernels import wavefront_rd as krd
 from nanohevc_tpu_torch.models import sequence as seq
 from nanohevc_tpu_torch.models import wavefront as torch_wf
 from nanohevc_tpu_torch.parallel import sharding as torch_sharding
@@ -54,14 +55,14 @@ def test_skew_and_deskew_match_jax(nby, nbx):
     raster = np.random.default_rng(nby * 10 + nbx).integers(
         -99, 99, (2, nby * nbx, 3, 3)).astype(np.int32)
     want = np.asarray(jax_wf._skew_blocks(jnp.asarray(raster), nby, nbx))
-    got = torch_wf._skew_blocks(torch.from_numpy(raster), nby, nbx)
+    got = krd._skew_blocks(torch.from_numpy(raster), nby, nbx)
     assert np.array_equal(got.numpy(), want)       # invalid slots included
-    back = torch_wf._deskew_blocks(got, nby, nbx)
+    back = krd._deskew_blocks(got, nby, nbx)
     assert np.array_equal(back.numpy(), raster)
     assert np.array_equal(
         np.asarray(jax_wf._deskew_blocks(jnp.asarray(want), nby, nbx)), raster)
     for j, t in zip(jax_wf._skew_tables(nby, nbx),
-                    torch_wf._skew_tables(nby, nbx)):
+                    krd._skew_tables(nby, nbx)):
         assert np.array_equal(j, t)
 
 
@@ -75,18 +76,18 @@ def test_skewed_buffer_reads_and_writes_match_jax(d):
     bx, ok = (t[d] for t in jax_wf._skew_tables(nby, nbx))
     want = np.asarray(jax_wf._read_refs_skewed(
         jnp.asarray(s_bot), jnp.asarray(r_sp), d, n, nby, 128, jnp.asarray(bx)))
-    got = torch_wf._read_refs_skewed(torch.from_numpy(s_bot),
-                                     torch.from_numpy(r_sp), d, n, nby, 128,
-                                     torch.from_numpy(bx))
+    got = krd._read_refs_skewed(torch.from_numpy(s_bot),
+                                torch.from_numpy(r_sp), d, n, nby, 128,
+                                torch.from_numpy(bx))
     assert np.array_equal(got.numpy(), want)
     rec = rng.integers(0, 256, (nby, n, n)).astype(np.int32)
     wb, wr = jax_wf._write_bufs_skewed(
         jnp.asarray(s_bot), jnp.asarray(r_sp), jnp.asarray(rec), d,
         jnp.asarray(ok), jnp.asarray(bx), n, nby, nbx, True, True)
     tb, tr = torch.from_numpy(s_bot.copy()), torch.from_numpy(r_sp.copy())
-    torch_wf._write_bufs_skewed(tb, tr, torch.from_numpy(rec), d,
-                                torch.from_numpy(ok), torch.from_numpy(bx),
-                                n, nby, nbx)
+    krd._write_bufs_skewed(tb, tr, torch.from_numpy(rec), d,
+                           torch.from_numpy(ok), torch.from_numpy(bx),
+                           n, nby, nbx)
     assert np.array_equal(tb.numpy(), np.asarray(wb))
     assert np.array_equal(tr.numpy(), np.asarray(wr))
 

@@ -524,7 +524,7 @@ def raster_encode(planes, qp, n, mode_set, decision, use_dst, rule=True):
     T[N+1..2N] and L[N+1..2N] are overwritten as the availability rule
     says (0, or T[N] / L[N] replicated at the last block-column / row)
     instead of read from the reconstruction."""
-    from nanohevc_tpu_torch.models.all_intra import decide_modes
+    from nanohevc_tpu_torch.ops.mode_decision import decide_modes
 
     b, hp, wp = planes.shape
     nby, nbx = hp // n, wp // n

@@ -39,7 +39,7 @@ import torch
 from nanohevc_tpu_torch import ops
 from nanohevc_tpu_torch.kernels import wavefront as kwf
 from nanohevc_tpu_torch.kernels.mode_search import angle_table
-from nanohevc_tpu_torch.models.all_intra import decide_modes
+from nanohevc_tpu_torch.ops.mode_decision import decide_modes
 from nanohevc_tpu_torch.ops.rate import ordered_cumsum, ordered_sum
 from nanohevc_tpu_torch.ops.rdoq import rd_lambda_calibrated
 from nanohevc_tpu_torch.ref.metrics import hadamard_matrix

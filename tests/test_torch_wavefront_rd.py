@@ -1,8 +1,8 @@
 """A model of the RD closed loop's kernel (`csrc/wavefront_rd.cu` with
 `csrc/rate_model.cuh`), held to the plain loop
-(`models.wavefront._encode_planes_rd`) and to JAX's closed-loop scan
-(`encode_planes_closed_loop(decision="rd")`) on the CPU before the card
-runs it.  The tolerance is 0 everywhere.
+(`kernels.wavefront_rd.wavefront_rd_encode_planes_reference`) and to
+JAX's closed-loop scan (`encode_planes_closed_loop(decision="rd")`) on
+the CPU before the card runs it.  The tolerance is 0 everywhere.
 
 The model follows the kernel's schedule, not the plain loop's: its
 thread blocks are generators, each owning a run of consecutive slots of
@@ -39,7 +39,7 @@ from nanohevc_tpu_torch import ops
 from nanohevc_tpu_torch.kernels import wavefront as kwf
 from nanohevc_tpu_torch.kernels import wavefront_rd as krd
 from nanohevc_tpu_torch.models import wavefront as torch_wf
-from nanohevc_tpu_torch.models.all_intra import _clip
+from nanohevc_tpu_torch.ops.mode_decision import _clip
 from nanohevc_tpu_torch.ops import rate
 from nanohevc_tpu_torch.ops.mode_rate import mpm_mode_bits
 
@@ -310,7 +310,7 @@ def kernel_model(planes, qp, n, *, mode_set="dc_planar", use_dst=False,
                  count_off_plane=True, slots=None, frames=None,
                  order="random", check_tags=True, wait_frame=True, seed=0):
     """wavefront_rd.cu on (B, Hp, Wp) block-aligned int32 planes -> the
-    dict of `_encode_planes_rd`.
+    dict of `wavefront_rd_encode_planes_reference`.
 
     The kernel's thread blocks are generators, one a run of `slots`
     consecutive slots of a frame, the grid holding `frames` frames'
@@ -485,7 +485,7 @@ def plain(planes, qp, n, **kw):
                 scan="diag", dequant_rescale=False, intra_smoothing=False,
                 rdoq=False, rd_lambda_scale=1.0)
     args.update(kw)
-    return torch_wf._encode_planes_rd(planes, qp, n, **args)
+    return krd.wavefront_rd_encode_planes_reference(planes, qp, n, **args)
 
 
 def padded(p, n):
@@ -830,8 +830,9 @@ def test_fixed_mode_sets_under_rd_run_the_wavefront_route(mode_set,
             return fn(*a, **k)
         return call
 
-    monkeypatch.setattr(torch_wf, "_encode_planes_rd",
-                        counted("rd", torch_wf._encode_planes_rd))
+    monkeypatch.setattr(
+        krd, "wavefront_rd_encode_planes_reference",
+        counted("rd", krd.wavefront_rd_encode_planes_reference))
     monkeypatch.setattr(kwf, "wavefront_encode_planes_reference",
                         counted("wavefront",
                                 kwf.wavefront_encode_planes_reference))
@@ -881,13 +882,13 @@ def test_wrapper_on_cpu_is_the_plain_loop(kw, monkeypatch):
     planes = torch.from_numpy(np.stack([textured(24, 32, 6 + f)
                                         for f in range(2)]))
     calls = []
-    real = torch_wf._encode_planes_rd
+    real = krd.wavefront_rd_encode_planes_reference
 
     def counted(*a, **k):
         calls.append(1)
         return real(*a, **k)
 
-    monkeypatch.setattr(torch_wf, "_encode_planes_rd", counted)
+    monkeypatch.setattr(krd, "wavefront_rd_encode_planes_reference", counted)
     before = krd.wavefront_rd_encode_planes.launches
     got = krd.wavefront_rd_encode_planes(planes, 25, 8, **kw)
     assert calls == [1]

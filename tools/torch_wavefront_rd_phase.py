@@ -6,8 +6,9 @@ compare the kernel with another tree's.
     python3 tools/torch_wavefront_rd_phase.py --parent build/parent
 
 Builds the kernels (printing the RD library's registers and spills),
-then runs `chip_smoke`'s 3h (the kernel == `_encode_planes_rd` on the
-card over the crops' cases, the 1080p luma plane at N=8 under both
+then runs `chip_smoke`'s 3h (the kernel ==
+`kernels.wavefront_rd.wavefront_rd_encode_planes_reference` on the card
+over the crops' cases, the 1080p luma plane at N=8 under both
 mode sets, the sequence's RD batches and a batch of mixed texture,
 three repeats each) and its price sweep (the device prices == the
 host's `_prices`, 0 bits differing).  With --times, 6h: the kernel per
