@@ -80,8 +80,9 @@ over a 16-frame file at batch 8.  It checks them end to end:
    540x960 planes;
 4. encodes the frame on the card under each config through the open
    loop (4: default, 4b: mode search) and the closed loop (4c, 4d):
-   the path's kernel must launch once per plane (3 times) and every
-   other kernel not at all, the result must equal the port's plain
+   the path's kernel must launch once per plane (3 times; the closed
+   loop once for Y and once for U and V as one batch) and every other
+   kernel not at all, the result must equal the port's plain
    path on the CPU, 256 sampled luma blocks must match the numpy
    oracle (for the closed loop, a per-block simulation on the
    reconstructed neighbours), and the bitstream written by the port's
@@ -105,7 +106,7 @@ over a 16-frame file at batch 8.  It checks them end to end:
    scans, the dequant rescale, chroma mode sets, DC/planar by SAD and
    SATD, the 35 modes by energy and SAD, RDOQ under the mode scan) on a
    256x256 and a 138x250 crop and the default config at 10 bits on the
-   1080p frame: 3 wavefront launches a frame, no other kernel, no
+   1080p frame: 2 wavefront launches a frame, no other kernel, no
    plain-loop entry, card == CPU in recon and bytes, each stream decoded
    on the card to its recon;
 5. runs the CLI under each config and compares its bitstream (5, 5b:
@@ -161,11 +162,12 @@ over a 16-frame file at batch 8.  It checks them end to end:
    (tiles of 32 and 64), deblock+sao and deblock+sao_ctb under the
    default config and the mode search, and deblock+sao_ctb at 10 bits,
    on a 256x256 and a 138x250 crop, and deblock+sao_ctb with RDOQ and
-   with decision="rd" (the RD kernel once a plane, no plain-loop entry)
-   on the 138x250 crop: card == CPU in recon and
+   with decision="rd" (the RD kernel once a plane batch, no plain-loop
+   entry) on the 138x250 crop: card == CPU in recon and
    bytes, each stream decoded on the card to its recon; 8b the 1080p frame with deblock+sao and deblock+sao_ctb
    under both configs: the wavefront kernel and each filter kernel
-   launch once a plane and nothing else launches, the stream decodes on
+   launch once a plane batch (Y, then U and V) and nothing else
+   launches, the stream decodes on
    the card to the recon, bytes and Y-PSNR beside the unfiltered encode,
    the frame call and its device part, and each filter stage's time a
    plane, kernels beside the plain ops; 8c 16-frame
@@ -563,6 +565,11 @@ class PlainLoopEntries:
         (kwf.wavefront_encode_planes_reference,
          krd.wavefront_rd_encode_planes_reference) = self.saved
         return False
+
+
+# Plane batches of one encode_frame_closed_loop call: Y, then U and V as
+# one batch; each launches its kernel once.
+FRAME_BATCHES = 2
 
 
 def read_launches() -> dict:
@@ -1568,7 +1575,8 @@ def rd_sync_note(planes, n: int, mode_set: str, k_ms: float) -> str:
 
 def phase_closed_loop(dev, frame: Frame, config: EncoderConfig, tag: str):
     """Closed-loop encode of the frame on the card: the wavefront kernel
-    must launch 3 times and every other kernel 0 times; the result must
+    must launch FRAME_BATCHES times (Y, then U and V as one batch) and
+    every other kernel 0 times; the result must
     equal the plain path on the CPU and the per-block simulation, parse
     back, and decode on the card to the recon pixel for pixel."""
     reset_launches()
@@ -1579,11 +1587,11 @@ def phase_closed_loop(dev, frame: Frame, config: EncoderConfig, tag: str):
     launches = read_launches()
     log(f"[{tag}] encode_frame_closed_loop on {dev}: {first_s:.3f} s (first "
         f"call), kernel launches {launches}")
-    want = {name: 3 if name == "wavefront_encode_planes" else 0
+    want = {name: FRAME_BATCHES if name == "wavefront_encode_planes" else 0
             for name in KERNELS}
     if launches != want:
         raise SystemExit(f"closed loop launched {launches}, expected {want} "
-                         "(Y, U, V through the wavefront kernel)")
+                         "(Y, then U and V, through the wavefront kernel)")
 
     t0 = time.perf_counter()
     cpu_recon, cpu_bits = encode_frame_closed_loop(frame, config, device="cpu")
@@ -1768,6 +1776,15 @@ def scan_times(dev, gpu: str) -> dict:
     return times
 
 
+def frame_batches(frame: Frame, dev) -> list:
+    """The closed-loop frame call's plane batches, int32 on `dev`, each
+    with whether it is luma: Y (1, H, W), then U and V (2, H/2, W/2)."""
+    y = frame.y.data[None]
+    uv = np.stack([frame.u.data, frame.v.data])
+    return [(torch.from_numpy(p.astype(np.int32)).to(dev), luma)
+            for p, luma in ((y, True), (uv, False))]
+
+
 def closed_loop_times(dev, frame: Frame, config: EncoderConfig, label: str,
                       gpu: str) -> None:
     """The closed-loop frame call, its breakdown, the device busy share,
@@ -1791,18 +1808,18 @@ def closed_loop_times(dev, frame: Frame, config: EncoderConfig, label: str,
     for _ in range(3):
         out = {}
         t0 = clock()
-        planes = [torch.from_numpy(p.data.astype(np.int32))[None].to(dev)
-                  for p in (frame.y, frame.u, frame.v)]
+        batches = frame_batches(frame, dev)
         torch.cuda.synchronize()
         out["h2d"] = clock() - t0
         t0 = clock()
         res = [encode_planes_closed_loop(p, config.qp,
-                                         **plane_args(config, i == 0))
-               for i, p in enumerate(planes)]
+                                         **plane_args(config, luma))
+               for p, luma in batches]
         torch.cuda.synchronize()
         out["device"] = clock() - t0
         t0 = clock()
-        host = [{k: v[0].cpu().numpy() for k, v in r.items()} for r in res]
+        host = [{k: v[i].cpu().numpy() for k, v in r.items()}
+                for r, i in ((res[0], 0), (res[1], 0), (res[1], 1))]
         out["d2h"] = clock() - t0
         orig_y = frame.y.data.astype(np.uint8)
         rec_y = host[0]["recon"].astype(np.uint8)
@@ -2529,7 +2546,8 @@ SCAN_CONFIGS = {
 
 def scan_config_case(dev, what: str, small: Frame, cfg: EncoderConfig):
     """One closed-loop frame on the card with every count at 0: the
-    wavefront kernel once a plane and nothing else, no plain-loop entry;
+    wavefront kernel once for Y and once for U and V and nothing else, no
+    plain-loop entry;
     == the CPU's recon and bytes; the stream decoded on the card (3
     decode launches) == the recon.  Returns (bytes, {row: launches})."""
     reset_launches()
@@ -2537,7 +2555,8 @@ def scan_config_case(dev, what: str, small: Frame, cfg: EncoderConfig):
         card = encode_frame_closed_loop(small, cfg, device=dev)
         torch.cuda.synchronize()
     launches = read_launches()
-    want = {k: 3 if k == "wavefront_encode_planes" else 0 for k in KERNELS}
+    want = {k: FRAME_BATCHES if k == "wavefront_encode_planes" else 0
+            for k in KERNELS}
     if launches != want or entries.count:
         raise SystemExit(f"{what}: launches {launches}, plain-loop entries "
                          f"{entries.count}; expected {want} and none")
@@ -2572,7 +2591,8 @@ def phase_scan_configs(dev, frame: Frame, gpu: str) -> None:
     log(f"[4i] {2 * len(SCAN_CONFIGS)} closed-loop crops ("
         f"{'; '.join(SCAN_CONFIGS)}; 256x256 and 138x250) and the 10-bit "
         f"1080p frame ({len(bits10)} "
-        f"bytes): card == CPU in recon and bytes, 3 wavefront launches a "
+        f"bytes): card == CPU in recon and bytes, {FRAME_BATCHES} wavefront "
+        f"launches a "
         f"frame and no plain-loop entry, each stream decoded on the card to "
         f"its recon; crop bytes {min(sizes)}-{max(sizes)}; launches by "
         f"kernels-line row {rows} ({time.perf_counter() - t0:.1f} s) [{gpu}]")
@@ -2829,12 +2849,12 @@ def wavefront_calls(what: str, calls: int, entries: PlainLoopEntries) -> None:
 
 def rd_planes(cfg: EncoderConfig) -> tuple:
     """(RD kernel launches, wavefront launches) of one closed-loop frame
-    under decision="rd": a plane whose mode set is decided (dc_planar,
-    all) runs the RD kernel, a fixed mode set the wavefront kernel's
-    fixed body."""
+    under decision="rd": a plane batch (Y; U and V) whose mode set is
+    decided (dc_planar, all) runs the RD kernel, a fixed mode set the
+    wavefront kernel's fixed body."""
     rd = sum(plane_args(cfg, is_luma)["mode_set"] in RD_SETS
-             for is_luma in (True, False, False))
-    return rd, 3 - rd
+             for is_luma in (True, False))
+    return rd, FRAME_BATCHES - rd
 
 
 def rd_calls(what: str, rd: int, wavefront: int,
@@ -2914,10 +2934,11 @@ def phase_rd_open(dev, frame: Frame, gpu: str) -> dict:
 
 def phase_rd_crops(dev, frame: Frame, gpu: str) -> None:
     """7b: the 35-mode RD decision (open loop, no kernel launch) and the
-    closed loop with RDOQ (the wavefront kernel, one launch a plane) and
-    with decision="rd" (DC/planar; the 35 modes with smoothing and RDOQ;
-    a fixed chroma mode set: the RD kernel once a decided plane, the
-    wavefront kernel's fixed body once a fixed one) on a 256x256 crop and
+    closed loop with RDOQ (the wavefront kernel, one launch a plane
+    batch: Y, then U and V) and with decision="rd" (DC/planar; the 35
+    modes with smoothing and RDOQ; a fixed chroma mode set: the RD kernel
+    once a decided plane batch, the wavefront kernel's fixed body once a
+    fixed one) on a 256x256 crop and
     a 138x250 one (not block-aligned): card == CPU, bytes and recon; the
     closed loop's streams decode on the card to their recon."""
     for h, w in ((256, 256), (138, 250)):
@@ -2933,7 +2954,7 @@ def phase_rd_crops(dev, frame: Frame, gpu: str) -> None:
                         card = encode_frame_closed_loop(small, cfg,
                                                         device=dev)
                         torch.cuda.synchronize()
-                    wavefront_calls(label, 3, entries)
+                    wavefront_calls(label, FRAME_BATCHES, entries)
                 card_s = time.perf_counter() - t0
                 cpu = encode_frame_closed_loop(small, cfg, device="cpu")
                 decoded = counted_decode(
@@ -2960,7 +2981,8 @@ def phase_rd_crops(dev, frame: Frame, gpu: str) -> None:
 
 def phase_rd_closed_full(dev, frame: Frame, gpu: str) -> None:
     """7c: the closed loop with RDOQ (the wavefront kernel, one launch a
-    plane) and with decision="rd" (the RD kernel, one launch a plane) on
+    plane batch) and with decision="rd" (the RD kernel, one launch a plane
+    batch: Y, then U and V) on
     the 1080p frame on the card, no plain-loop entry; recon and bytes ==
     the port on the CPU; each stream decodes on the card to the recon
     pixel for pixel; the frame call, first and warm (median of 3)."""
@@ -2976,7 +2998,8 @@ def phase_rd_closed_full(dev, frame: Frame, gpu: str) -> None:
                 recon, bits = encode_frame_closed_loop(frame, cfg,
                                                        device=dev)
                 torch.cuda.synchronize()
-            wavefront_calls(f"closed loop ({label})", 3, entries)
+            wavefront_calls(f"closed loop ({label})", FRAME_BATCHES,
+                            entries)
         enc_s = time.perf_counter() - t0
         # the kernel's frame == the plain loop's on the CPU
         t0 = time.perf_counter()
@@ -3056,11 +3079,11 @@ def phase_rd_sequences(dev, tmp: str, src: str, frames: list,
                                      "differs from its single-frame encode")
         frames_s = time.perf_counter() - t1
         if rd:
-            rd_calls(f"single-frame encodes ({label})", 3 * len(frames), 0,
-                     entries)
+            rd_calls(f"single-frame encodes ({label})",
+                     FRAME_BATCHES * len(frames), 0, entries)
         elif closed:
             wavefront_calls(f"single-frame encodes ({label})",
-                            3 * len(frames), entries)
+                            FRAME_BATCHES * len(frames), entries)
         else:
             no_launches(f"single-frame encodes ({label})")
         plain = SEQ_RESULTS[base]
@@ -3466,7 +3489,7 @@ def phase_filters_crops(dev, frame: Frame, gpu: str) -> None:
         else:
             reset_launches()
             card = encode_frame_closed_loop(small, cfg, device=dev)
-        check_filters(f"[8a] {label}", filter_want(cfg, 3))
+        check_filters(f"[8a] {label}", filter_want(cfg, FRAME_BATCHES))
         cpu = encode_frame_closed_loop(small, cfg, device="cpu")
         if card[1] != cpu[1] or not same_frames(card[0], cpu[0]):
             raise SystemExit(f"8a: {label} on a {small.height}x{small.width} "
@@ -3480,7 +3503,8 @@ def phase_filters_crops(dev, frame: Frame, gpu: str) -> None:
     log(f"[8a] {len(cases)} filtered closed-loop encodes (6 filter configs x "
         f"default and mode search, 10-bit; 256x256 and 138x250 crops; RDOQ "
         f"and decision=\"rd\" on the 138x250 crop): card == CPU in recon "
-        f"and bytes, the filter kernels once a plane each (no plain filter "
+        f"and bytes, the filter kernels once a plane batch each (no plain "
+        f"filter "
         f"on the card), each stream decoded on the card to its recon; bytes "
         f"256x256 "
         f"{min(sizes[256])}-{max(sizes[256])}, 138x250 "
@@ -3523,18 +3547,18 @@ def filter_stage_times(dev, frame: Frame, gpu: str) -> None:
 
 def frame_call_ms(dev, frame: Frame, cfg: EncoderConfig) -> tuple:
     """The closed-loop frame call (median of 3 after the first) and its
-    device part: the three plane calls between CUDA events, host
-    dispatch gaps included (5 calls after 1 warm-up)."""
+    device part: its two plane-batch calls (Y, then U and V) between
+    CUDA events, host dispatch gaps included (5 calls after 1
+    warm-up)."""
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
         encode_frame_closed_loop(frame, cfg, device=dev)
         walls.append(time.perf_counter() - t0)
-    planes = [torch.from_numpy(p.data.astype(np.int32))[None].to(dev)
-              for p in (frame.y, frame.u, frame.v)]
+    batches = frame_batches(frame, dev)
     dev_ms = cuda_ms(lambda: [encode_planes_closed_loop(
-        p, cfg.qp, **plane_args(cfg, i == 0))
-        for i, p in enumerate(planes)], iters=5, warmup=1)
+        p, cfg.qp, **plane_args(cfg, luma)) for p, luma in batches],
+        iters=5, warmup=1)
     return 1e3 * sorted(walls)[1], dev_ms
 
 
@@ -3542,7 +3566,8 @@ def phase_filters_frame(dev, frame: Frame, base_bits: dict,
                         gpu: str) -> dict:
     """8b: the 1080p frame under the default config and the mode search,
     with deblock+sao and deblock+sao_ctb: the wavefront kernel and each
-    filter kernel launch once a plane and no other kernel launches (the
+    filter kernel launch once a plane batch (Y, then U and V) and no other
+    kernel launches (the
     filters three launches a plane batch); the stream decodes on the
     card to the recon; bytes and Y-PSNR beside the unfiltered encode;
     the frame call and its device part, the unfiltered encode's timed in
@@ -3567,12 +3592,13 @@ def phase_filters_frame(dev, frame: Frame, base_bits: dict,
             recon, bits = encode_frame_closed_loop(frame, cfg, device=dev)
             torch.cuda.synchronize()
             got = read_launches()
-            want = {k: 3 if k == "wavefront_encode_planes" else 0
-                    for k in KERNELS}
+            want = {k: FRAME_BATCHES if k == "wavefront_encode_planes"
+                    else 0 for k in KERNELS}
             if got != want:
                 raise SystemExit(f"8b: {label}, {base_label} launched {got}, "
                                  f"expected {want}")
-            check_filters(f"[8b] {label}, {base_label}", filter_want(cfg, 3))
+            check_filters(f"[8b] {label}, {base_label}",
+                          filter_want(cfg, FRAME_BATCHES))
             launches[body] += got["wavefront_encode_planes"]
             t0 = time.perf_counter()
             decoded = counted_decode(f"[8b] {label}, {base_label} "
@@ -3587,8 +3613,8 @@ def phase_filters_frame(dev, frame: Frame, base_bits: dict,
             psnr = oracle.psnr(frame.y.data.astype(np.uint8),
                                recon.y.data.astype(np.uint8))
             log(f"[8b] {label}, {base_label}, 1080p 4:2:0 closed loop on the "
-                f"card: wavefront kernel 3 launches, filter kernels "
-                f"{filter_want(cfg, 3)}, no other kernel; "
+                f"card: wavefront kernel {FRAME_BATCHES} launches, filter "
+                f"kernels {filter_want(cfg, FRAME_BATCHES)}, no other kernel; "
                 f"{len(bits)} bytes, Y-PSNR {psnr:.2f} dB (unfiltered "
                 f"{len(plain_bits)} bytes, {plain_psnr:.2f} dB); decode_frame "
                 f"on the card == recon ({dec_s:.2f} s); frame call "

@@ -69,7 +69,7 @@ import numpy as np
 import torch
 
 from nanohevc_tpu_torch import ops, resolve_device
-from nanohevc_tpu_torch.frame import Frame
+from nanohevc_tpu_torch.frame import Frame, Plane
 from nanohevc_tpu_torch.kernels.decode import decode_blocks
 from nanohevc_tpu_torch.kernels.loop_filter import (
     deblock_planes,
@@ -185,6 +185,12 @@ def encode_planes_closed_loop(
     return res
 
 
+def _entry(out: dict, i: int) -> dict:
+    """Batch entry i of a batched output dict."""
+    return {k: tuple(x[i] for x in v) if isinstance(v, tuple) else v[i]
+            for k, v in out.items()}
+
+
 def encode_plane_closed_loop(plane: torch.Tensor, qp: int, **kwargs) -> dict:
     """Single-plane wavefront encode; see encode_planes_closed_loop.
 
@@ -192,9 +198,7 @@ def encode_plane_closed_loop(plane: torch.Tensor, qp: int, **kwargs) -> dict:
     the plane's "sao" or "sao_ctb" parameters where asked: the (modes,
     levels) pair and those are all `decode_plane` needs to reconstruct.
     """
-    out = encode_planes_closed_loop(plane[None], qp, **kwargs)
-    return {k: tuple(x[0] for x in v) if isinstance(v, tuple) else v[0]
-            for k, v in out.items()}
+    return _entry(encode_planes_closed_loop(plane[None], qp, **kwargs), 0)
 
 
 def _planes_of(frame: Frame):
@@ -226,13 +230,69 @@ def plane_args(config, is_luma: bool) -> dict:
     )
 
 
-def _fetch(t):
-    """A tensor (or tuple of them) as host numpy, counting the bytes."""
+def _upload_frame(frame: Frame, dev: torch.device) -> tuple:
+    """The frame's planes on `dev` as int32: (Y (H, W), U and V stacked
+    (2, H/2, W/2)).  The three planes are staged in one host tensor in
+    their own dtype (pinned where `dev` is a card), copied to the device
+    once without blocking, and widened there."""
+    y, u, v = frame.y.data, frame.u.data, frame.v.data
+    dtype = torch.from_numpy(np.empty(0, np.result_type(y, u, v))).dtype
+    host = torch.empty(y.size + u.size + v.size, dtype=dtype,
+                       pin_memory=dev.type == "cuda")
+    flat = host.numpy()
+    for part, plane in zip(np.split(flat, [y.size, y.size + u.size]),
+                           (y, u, v)):
+        part.reshape(plane.shape)[...] = plane
+    count("frame.bytes_up", host.nbytes)
+    sent = host.to(dev, non_blocking=True)
+    return (sent[:y.size].view(y.shape).to(torch.int32),
+            sent[y.size:].view((2,) + u.shape).to(torch.int32))
+
+
+def _stage_down(t):
+    """A device tensor (or tuple of them) copied, without blocking, into
+    a new host tensor: pinned on a card, so that the copy is
+    asynchronous, from torch's caching host allocator, so that a call
+    after the first allocates none."""
     if isinstance(t, tuple):
-        return tuple(_fetch(a) for a in t)
-    a = t.cpu()
-    count("frame.bytes_down", a.nbytes)
-    return a.numpy()
+        return tuple(_stage_down(a) for a in t)
+    host = torch.empty(t.shape, dtype=t.dtype,
+                       pin_memory=t.device.type == "cuda")
+    count("frame.bytes_down", host.nbytes)
+    return host.copy_(t, non_blocking=True)
+
+
+def _send_down(out: dict, dev: torch.device) -> tuple:
+    """One plane batch's outputs copied into host staging, enqueued
+    after its launches without blocking, the recon narrowed to int16 on
+    the device first (it is clipped to the bit depth): (the staging, the
+    event after the copies on a card, else None)."""
+    narrowed = dict(out, recon=out["recon"].to(torch.int16))
+    staged = {k: _stage_down(v) for k, v in narrowed.items()}
+    done = None
+    if dev.type == "cuda":
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(dev))
+    return staged, done
+
+
+def _take(staged: dict, done) -> dict:
+    """Wait for one plane batch's copies, then its outputs as arrays of
+    their own: the staging goes back to the allocator's pool when the
+    call returns."""
+    with span("frame.fetch"):
+        if done is not None:
+            done.synchronize()
+        count("frame.waits", 1)
+    with span("frame.convert"):
+        return {k: _owned(v) for k, v in staged.items()}
+
+
+def _owned(h):
+    """Host tensor(s) as numpy arrays that own their memory."""
+    if isinstance(h, tuple):
+        return tuple(_owned(a) for a in h)
+    return h.numpy().copy()
 
 
 def encode_frame_closed_loop(frame: Frame, config, *,
@@ -243,34 +303,46 @@ def encode_frame_closed_loop(frame: Frame, config, *,
     pixel for pixel through `decode_frame`; it carries each plane's SAO
     or CTB-SAO parameters in a SAO NAL.
 
-    While a torch profiler records, each plane's upload, fetch (with
-    the wait for the card) and conversions are the spans
-    "frame.upload", "frame.fetch" and "frame.convert" of
-    `utils.tracing`, and the bytes sent and brought back are counted as
-    "frame.bytes_up" and "frame.bytes_down".
+    One round trip to the device a call: the planes go up in one copy
+    in their own dtype; luma is one `encode_plane_closed_loop` call and
+    the two chroma planes, which share a shape and every argument, one
+    `encode_planes_closed_loop` batch; each batch's outputs come back
+    into host staging right after its launches, and every launch and
+    copy is enqueued before the host first waits.  The host takes
+    luma's outputs while the chroma batch runs, then the chroma pair's.
+    What the call returns or hands the bitstream writer is its own,
+    never a view of staging.
+
+    While a torch profiler records, the upload is the span
+    "frame.upload" of `utils.tracing`, once a call; each plane batch's
+    wait for the card is a "frame.fetch" span and its copy out of
+    staging a "frame.convert" span, twice a call.  The bytes sent and
+    brought back are counted as "frame.bytes_up" and "frame.bytes_down",
+    and the host's waits for the card as "frame.waits".
     """
     from nanohevc_tpu_torch.runtime.bitstream import assemble_bitstream
 
     dev = resolve_device(device)
-    recon = Frame.zeros(frame.height, frame.width, dtype=np.int16)
+    luma, chroma = plane_args(config, True), plane_args(config, False)
+    with span("frame.upload"):
+        y, uv = _upload_frame(frame, dev)
+    luma_down = _send_down(encode_plane_closed_loop(y, config.qp, **luma), dev)
+    chroma_down = _send_down(
+        encode_planes_closed_loop(uv, config.qp, **chroma), dev)
+    got_y = _take(*luma_down)
+    got_c = _take(*chroma_down)
+    got = {"Y": got_y, "U": _entry(got_c, 0), "V": _entry(got_c, 1)}
+    recon = Frame(*(Plane(got[p]["recon"]) for p in "YUV"))
     plane_levels, plane_modes, sao, sao_ctb = {}, {}, {}, {}
-    for (name, src), (_, dst) in zip(_planes_of(frame), _planes_of(recon)):
-        args = plane_args(config, name == "Y")
-        with span("frame.upload"):
-            x = torch.from_numpy(src.data.astype(np.int32)).to(dev)
-        count("frame.bytes_up", x.nbytes)
-        out = encode_plane_closed_loop(x, config.qp, **args)
-        with span("frame.fetch"):      # waits for the card's work
-            got = {k: _fetch(v) for k, v in out.items()}
-        with span("frame.convert"):
-            dst.data[...] = got["recon"].astype(np.int16)
-            plane_levels[name] = (got["levels"], args["n"])
-            plane_modes[name] = got["modes"]
-            if config.sao:
-                t, pos, offs = got["sao"]
-                sao[name] = (int(t), int(pos), offs)
-            if config.sao_ctb:
-                sao_ctb[name] = (config.sao_tile,) + got["sao_ctb"]
+    for name, g in got.items():
+        n = (luma if name == "Y" else chroma)["n"]
+        plane_levels[name] = (g["levels"], n)
+        plane_modes[name] = g["modes"]
+        if config.sao:
+            t, pos, offs = g["sao"]
+            sao[name] = (int(t), int(pos), offs)
+        if config.sao_ctb:
+            sao_ctb[name] = (config.sao_tile,) + g["sao_ctb"]
     bitstream = assemble_bitstream(
         frame.width, frame.height, config.qp, plane_levels, plane_modes,
         bit_depth=config.bit_depth, scan=config.scan,

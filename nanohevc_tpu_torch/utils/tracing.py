@@ -14,7 +14,8 @@
   and a stage that waits for the card would then read as device time;
 - count(name, n): adds n to `COUNTS[name]` while a profiler records
   (the bytes a frame call moves: "frame.bytes_up", "frame.bytes_down";
-  the blocks the CABAC coder reads in their scan order:
+  the times its host waits for the card's outputs: "frame.waits"; the
+  blocks the CABAC coder reads in their scan order:
   "entropy.scan_order_blocks"; the blocks the wavefront kernel codes,
   over each batch's padded geometry: "wavefront.blocks");
 - reset(): empties `SPANS` and `COUNTS`;

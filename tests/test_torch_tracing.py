@@ -2,12 +2,13 @@
 
 With no profiler recording, `span` and `count` read one flag: `span`
 returns the shared null context, nothing is recorded.  Under
-`torch.profiler`, a closed-loop frame call opens the spans "frame.upload",
-"frame.fetch", "frame.convert" (once a plane) and "entropy.modes",
-"entropy.scan", "entropy.residual" (once a plane), "entropy.sao" (once a
-frame), each as an "nhevc.<name>" range in the profiler's events, and
-counts the bytes each way and the blocks the CABAC coder reads in
-scan order.  On the card's path the wavefront kernel's wrapper opens
+`torch.profiler`, a closed-loop frame call opens the spans "frame.upload"
+(once a frame call: the planes go up in one copy), "frame.fetch" and
+"frame.convert" (once a plane batch: luma, then U and V together) and
+"entropy.modes", "entropy.scan", "entropy.residual" (once a plane),
+"entropy.sao" (once a frame), each as an "nhevc.<name>" range in the
+profiler's events, and counts the bytes each way, the host's waits for
+the device and the blocks the CABAC coder reads in scan order.  On the card's path the wavefront kernel's wrapper opens
 "wavefront.launch" and counts the blocks it codes as "wavefront.blocks"
 (driven here with the launch replaced by the plain loop).  The outputs
 are the same either way.
@@ -21,6 +22,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from nanohevc_tpu_torch.config import EncoderConfig
+from nanohevc_tpu_torch.frame import Frame, Plane
 from nanohevc_tpu_torch.kernels import wavefront as kwf
 from nanohevc_tpu_torch.models import wavefront as wf
 from nanohevc_tpu_torch.models.all_intra import create_test_frame
@@ -28,8 +30,8 @@ from nanohevc_tpu_torch.utils import tracing
 
 CONFIG = EncoderConfig(qp=30, deblock=True, sao_ctb=True, sao_tile=16,
                        entropy_coder="cabac", scan="mode")
-PER_PLANE = ("frame.upload", "frame.fetch", "frame.convert",
-             "entropy.modes", "entropy.scan", "entropy.residual")
+PER_BATCH = ("frame.fetch", "frame.convert")
+PER_PLANE = ("entropy.modes", "entropy.scan", "entropy.residual")
 
 
 def encode(frame):
@@ -86,9 +88,12 @@ def test_profiled_frame_calls_open_each_span(tmp_path):
         encode(frame)
         encode(frame)
     counts = tracing.SPANS.counts
+    assert counts["frame.upload"] == 2
+    assert {k: counts[k] for k in PER_BATCH} == {k: 4 for k in PER_BATCH}
     assert {k: counts[k] for k in PER_PLANE} == {k: 6 for k in PER_PLANE}
     assert counts["entropy.sao"] == 2
-    assert set(counts) == set(PER_PLANE) | {"entropy.sao"}
+    assert set(counts) == ({"frame.upload", "entropy.sao"} | set(PER_BATCH)
+                           | set(PER_PLANE))
     assert all(t > 0 for t in tracing.SPANS.totals.values())
     names = {ev.name for ev in prof.events()}
     assert {tracing.PREFIX + k for k in counts} <= names
@@ -104,29 +109,27 @@ def test_profiled_frame_calls_open_each_span(tmp_path):
     assert cats and "user_annotation" not in cats
 
 
-def test_profiled_counters_are_the_bytes_moved(monkeypatch):
-    sent, fetched, blocks = [], [], []
-    plane_call = wf.encode_plane_closed_loop
-
-    def capture(plane, qp, **kw):
-        out = plane_call(plane, qp, **kw)
-        sent.append(plane.nbytes)
-        blocks.append(out["levels"].shape[0])
-        for v in out.values():
-            fetched.extend(a.nbytes for a in (v if isinstance(v, tuple)
-                                               else (v,)))
-        return out
-
-    monkeypatch.setattr(wf, "encode_plane_closed_loop", capture)
+def test_profiled_counters_are_the_bytes_moved():
+    frame = create_test_frame(24, 40)
+    frame = Frame(*(Plane(p.data.astype(np.uint8))
+                    for p in (frame.y, frame.u, frame.v)))
     with profile(activities=[ProfilerActivity.CPU]):
-        encode(create_test_frame(24, 40))
-    # int32 planes up: 24x40 luma, two 12x20 chroma planes.
-    assert sum(sent) == 4 * (24 * 40 + 2 * 12 * 20)
-    # The CABAC coder reads every block of the three slices in the
-    # scan order it was fetched in.
-    assert tracing.COUNTS == {"frame.bytes_up": sum(sent),
-                              "frame.bytes_down": sum(fetched),
-                              "entropy.scan_order_blocks": sum(blocks)}
+        encode(frame)
+    # Up: the planes in their own dtype, uint8, 24x40 luma and two 12x20
+    # chroma planes.  Down: the int16 recon; int32 levels, modes and CTB
+    # SAO maps (type, band, four offsets a tile) of luma's 3x5 blocks at
+    # N=8 and 2x3 tiles of 16, and of each chroma plane's 3x5 blocks at
+    # N=4 and 1x2 tiles.
+    samples = 24 * 40 + 2 * 12 * 20
+    blocks = 3 * 5 + 2 * 3 * 5
+    values = 15 * 64 + 2 * 15 * 16 + blocks + 6 * 6 + 2 * 2 * 6
+    # The CABAC coder reads every block of the three slices in the scan
+    # order it was fetched in; the host waits for the device once a plane
+    # batch, for luma while the chroma pair runs, then for the pair.
+    assert tracing.COUNTS == {"frame.bytes_up": samples,
+                              "frame.bytes_down": 2 * samples + 4 * values,
+                              "frame.waits": 2,
+                              "entropy.scan_order_blocks": blocks}
     tracing.reset()
     assert tracing.COUNTS == {} and tracing.SPANS.totals == {}
 
@@ -200,4 +203,5 @@ def test_wavefront_blocks_are_each_planes_padded_blocks(card_path,
     want = (-(-h // 8) * -(-w // 8)
             + 2 * -(-(h // 2) // 4) * -(-(w // 2) // 4))
     assert tracing.COUNTS["wavefront.blocks"] == want
-    assert tracing.SPANS.counts["wavefront.launch"] == 3
+    # One launch for luma, one for the chroma pair.
+    assert tracing.SPANS.counts["wavefront.launch"] == 2

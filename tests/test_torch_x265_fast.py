@@ -84,7 +84,7 @@ def test_every_plane_takes_the_wavefront_route(monkeypatch):
     orig = torch_wf.wavefront_encode_planes
 
     def search(planes, qp, n, **kw):
-        calls.append((n, kw["mode_set"], kw["decision"],
+        calls.append((planes.shape[0], n, kw["mode_set"], kw["decision"],
                       kw["intra_smoothing"], kw["rdoq"]))
         return orig(planes, qp, n, **kw)
 
@@ -97,6 +97,6 @@ def test_every_plane_takes_the_wavefront_route(monkeypatch):
         Frame(*(Plane(p) for p in make_planes(*SHAPE, 37))),
         EncoderConfig(**SETTINGS, qp=37), device="cpu")
     assert bits == tb and same_frames(recon, tr)
-    assert calls == [(8, "all", "satd", True, False),
-                     (4, "all", "satd", False, False),
-                     (4, "all", "satd", False, False)]
+    # Luma, then U and V as one batch of two.
+    assert calls == [(1, 8, "all", "satd", True, False),
+                     (2, 4, "all", "satd", False, False)]
