@@ -1,0 +1,12 @@
+"""h2d_bytes_per_frame.seq (bytes, program counter): the program's
+"frame.bytes_up" counter in a sequence cell: the bytes of the batches'
+planes sent to the card, per frame pushed in the traced window; none
+where the program has no such count.  The frame cells' reader of the
+same counter, `h2d_bytes_per_frame`, moves their frame latency; this
+one moves `encode_fps`."""
+
+from benchlib.program import count_per_frame
+
+
+def read(ctx):
+    return count_per_frame(ctx, "frame.bytes_up")

@@ -5,12 +5,38 @@ A YUV420p sequence is encoded in device batches of frames, levels
 stream to the host entropy stage, and the bitstream grows one access
 unit per frame:
 
-  [VPS][SPS][PPS]  then per frame:  [AUD(frame_idx)][slice Y][U][V]
+  [VPS][SPS][PPS]  then per frame:  [AUD(frame_idx)][SAO][slice Y][U][V]
 
-The bytes, the resume sidecar (`<bitstream>.progress`, JSON with
+(the SAO NAL where the configuration signals SAO or CTB SAO).  The
+bytes, the resume sidecar (`<bitstream>.progress`, JSON with
 frames_done, bytes_written and the rate-control qp) and the decoded
 pixels equal the JAX package's, so a sequence begun by one package can
 be resumed by the other.
+
+`SequenceEncoder` is the runner: frames are pushed into it one at a
+time, as into x265's `x265_encoder_encode`, and it hands back each
+frame's access unit once the frame is coded:
+
+    enc = SequenceEncoder(config, width, height, batch=8,
+                          closed_loop=True)
+    out.write(enc.header)                  # VPS, SPS, PPS
+    for planes in frames + [None]:         # None: the end, flush()
+        for drained in (enc.push(*planes) if planes else enc.flush()):
+            for index, unit in drained.units:
+                out.write(unit)            # AUD + SAO NAL + slices
+
+A push only stages its frame until a batch is full; the push that fills
+batch i dispatches it to the device and then drains batch i - 1, so
+push returns the access units of earlier frames: a frame's unit comes
+back one to two batches after the frame went in (under rate control the
+first batch drains as soon as it is dispatched).  Each batch drained
+comes back as a `Drained`: its units, the frames done after it and the
+QP of the next batch, which the resume sidecar records.  `flush()`
+dispatches the staged part-batch and drains everything; a push after
+it raises RuntimeError, and a second flush returns nothing.  The planes pushed
+are read when their batch dispatches; they must not change before.
+`encode_sequence` is the file reader, the stream writer and the resume
+sidecar around it, and the CLI's `encode-seq` goes through it.
 
 What carries over from the JAX runner, and how it looks on a card:
 
@@ -49,11 +75,23 @@ A closed-loop batch must be a multiple of the mesh's "frame" axis
 (ValueError otherwise, with JAX's text).  Uploads and the pinned fetch
 stay on the runner's `device`, which must be the mesh's first device,
 where the encoders gather their outputs.
+
+While a torch profiler records (`utils.tracing`), a batch's stacking,
+pinning and upload up to its first launch is the span "seq.upload", a
+drain's wait for its batch and its fetch the span "seq.fetch", and each
+frame's parameter-set strip the span "seq.strip"; the bytes sent and
+brought back count as "frame.bytes_up" and "frame.bytes_down" (the
+level prefixes as copied, in `ops.sparse.fetch_levels`) and each
+drain's wait for the card as "frame.waits", as the frame encoder counts
+them.  The runner looks up `runtime.bitstream.assemble_bitstream` and
+the batch encoders' closed loop at each call, so a wrapper put in their
+place after construction sees every call.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import struct
@@ -67,7 +105,12 @@ import torch
 from nanohevc_tpu_torch import resolve_device
 from nanohevc_tpu_torch.config import EncoderConfig
 from nanohevc_tpu_torch.ops.sparse import compact_levels, fetch_levels
-from nanohevc_tpu_torch.utils.tracing import Stopwatch, throughput_stats
+from nanohevc_tpu_torch.utils.tracing import (
+    Stopwatch,
+    count,
+    span,
+    throughput_stats,
+)
 
 NAL_AUD = 35
 
@@ -121,9 +164,20 @@ class SequenceResult:
     stats: dict
 
 
+@dataclass
+class Drained:
+    """One batch drained by `SequenceEncoder`: its access units,
+    [(frame index, AUD + SAO NAL + slices)] in frame order, the frames
+    done after it, and the QP of the next batch."""
+    units: list
+    frames_done: int
+    qp: int
+
+
 def _upload(frames: np.ndarray, dev: torch.device) -> torch.Tensor:
     """(F, H, W) uint8 host stack -> int32 on `dev`, widened there."""
     t = torch.from_numpy(frames)
+    count("frame.bytes_up", t.nbytes)
     if dev.type == "cuda":
         t = t.pin_memory().to(dev, non_blocking=True)
     return t.to(torch.int32)
@@ -147,9 +201,9 @@ class _BatchFetch:
         self.filters = [(tag, kind, len(o[kind]))
                         for tag, o in (("y", y_out), ("c", c_out))
                         for kind in ("sao", "sao_ctb") if kind in o]
-        for tag, kind, count in self.filters:
+        for tag, kind, n in self.filters:
             out = y_out if tag == "y" else c_out
-            small.update({(tag, kind, i): out[kind][i] for i in range(count)})
+            small.update({(tag, kind, i): out[kind][i] for i in range(n)})
         self.event = None
         if dev.type == "cuda":
             small = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
@@ -163,24 +217,255 @@ class _BatchFetch:
         ndarrays (filters: {("y" or "c", "sao" or "sao_ctb"): tuple of
         arrays}), waiting for this batch's event and nothing enqueued
         after it."""
-        ctx = contextlib.nullcontext()
-        if self.event is not None:
-            self.event.synchronize()
-            copy_stream.wait_event(self.event)
-            ctx = torch.cuda.stream(copy_stream)
-        with ctx:
-            # The prefix slice and its copy run on the copy stream and
-            # end before fetch_levels returns, so the dense tensors are
-            # free for reuse once this batch is dropped.
-            y_levels, c_levels = (
-                fetch_levels({"header": self.small[k]}, tuple(d.shape), dense=d)
-                for k, d in zip(("y_header", "c_header"), self.dense))
-        filters = {(tag, kind): tuple(self.small[tag, kind, i].numpy()
-                                      for i in range(count))
-                   for tag, kind, count in self.filters}
-        return (y_levels, self.small["y_modes"].numpy().astype(np.int32),
-                c_levels, self.small["c_modes"].numpy().astype(np.int32),
-                self.small["psnr"].numpy(), filters)
+        with span("seq.fetch"):
+            ctx = contextlib.nullcontext()
+            if self.event is not None:
+                self.event.synchronize()
+                copy_stream.wait_event(self.event)
+                ctx = torch.cuda.stream(copy_stream)
+            count("frame.waits", 1)
+            count("frame.bytes_down",
+                  sum(v.nbytes for v in self.small.values()))
+            with ctx:
+                # The prefix slice and its copy run on the copy stream
+                # and end before fetch_levels returns, so the dense
+                # tensors are free for reuse once this batch is dropped.
+                y_levels, c_levels = (
+                    fetch_levels({"header": self.small[k]}, tuple(d.shape),
+                                 dense=d)
+                    for k, d in zip(("y_header", "c_header"), self.dense))
+            filters = {(tag, kind): tuple(self.small[tag, kind, i].numpy()
+                                          for i in range(n))
+                       for tag, kind, n in self.filters}
+            return (y_levels, self.small["y_modes"].numpy().astype(np.int32),
+                    c_levels, self.small["c_modes"].numpy().astype(np.int32),
+                    self.small["psnr"].numpy(), filters)
+
+
+class SequenceEncoder:
+    """A sequence's encoder that frames are pushed into (see the module
+    docstring for the pipeline and its delay).
+
+    closed_loop=True uses the reconstruction-fed wavefront encoder, so
+    the stream is pixel-exactly decodable (decode_sequence); open loop
+    (default) matches reference semantics and is faster.  target_bpp
+    enables one-pass rate control: a RateController
+    (models/rate_control.py) adjusts QP between batches to average
+    `target_bpp` bits per luma pixel, seeded with config.qp (or `qp`);
+    per-slice qp fields carry the schedule to the decoder.  batch i's
+    coded size sets batch i+2's QP (i+1 is already in flight when i
+    drains), after a primed first batch; the kernels take each batch's
+    QP at launch.  `start` and `qp` resume a sequence: the index of its
+    next frame and the controller's QP at the checkpoint.  Runs on
+    `device` ("cuda" by default; "cpu" runs the kernels' plain
+    versions), under `mesh` where given.
+
+    `header` is the sequence's VPS, SPS and PPS; `push` and `flush`
+    return a `Drained` for each batch they drained, in frame order, its
+    units without parameter sets.  `qp` is the QP of the next batch and
+    `frames_done` the frames whose units were returned.  `stopwatch`
+    times the "dispatch", "fetch" and "entropy" stages and `psnrs`
+    holds each coded frame's luma PSNR.
+    """
+
+    def __init__(self, config: EncoderConfig, width: int, height: int, *,
+                 batch: int = 8, closed_loop: bool = False, mesh=None,
+                 target_bpp: float | None = None, entropy_tiles: int = 1,
+                 device: str | torch.device = "cuda", start: int = 0,
+                 qp: int | None = None):
+        from nanohevc_tpu_torch.parallel.mesh import canonical_device
+        from nanohevc_tpu_torch.parallel.sharding import (
+            make_batch_encoder,
+            make_closed_loop_encoder,
+        )
+        from nanohevc_tpu_torch.runtime import entropy
+        from nanohevc_tpu_torch.runtime.bitstream import (
+            _ENTROPY_IDX,
+            _SCAN_IDX,
+        )
+
+        dev = resolve_device(device)
+        if mesh is not None and canonical_device(dev) != mesh.devices.flat[0]:
+            raise ValueError(
+                f"device {str(dev)!r} is not the mesh's first device "
+                f"{str(mesh.devices.flat[0])!r}, where the mesh encoders "
+                "gather their outputs")
+        if (config.deblock or config.sao or config.sao_ctb) and not closed_loop:
+            # the signalled filters would make the decoder transform a
+            # reconstruction the open-loop encoder never produced -- refuse
+            raise ValueError("config.deblock/config.sao/config.sao_ctb "
+                             "require closed_loop=True (in-loop filters on "
+                             "the decodable recon)")
+        if closed_loop:
+            if mesh is not None:
+                # the luma batch and the 2*batch chroma stack must divide
+                # the mesh's 'frame' axis
+                f_axis = mesh.shape["frame"]
+                if batch % f_axis:
+                    raise ValueError(
+                        f"closed-loop sequence batch {batch} must be a "
+                        f"multiple of the mesh 'frame' axis ({f_axis})"
+                    )
+            self._luma = make_closed_loop_encoder(config, mesh, is_luma=True)
+            self._chroma = make_closed_loop_encoder(config, mesh,
+                                                    is_luma=False)
+        else:
+            rc = target_bpp is not None
+            self._luma = make_batch_encoder(config, mesh, is_luma=True,
+                                            honor_runtime_qp=rc)
+            self._chroma = make_batch_encoder(config, mesh, is_luma=False,
+                                              honor_runtime_qp=rc)
+        self.config, self.width, self.height = config, width, height
+        self.batch, self.entropy_tiles, self.dev = batch, entropy_tiles, dev
+        self.qp = config.qp if qp is None else qp
+        self.controller = None
+        if target_bpp is not None:
+            from nanohevc_tpu_torch.models.rate_control import RateController
+
+            self.controller = RateController(
+                target_bits=target_bpp * width * height * batch, qp=self.qp)
+
+        def params(which: int) -> bytes:
+            return entropy.write_params(
+                width, height, config.block_size, config.qp, which,
+                bit_depth=config.bit_depth,
+                scan_idx=_SCAN_IDX[config.scan],
+                rescale_flag=int(config.dequant_rescale),
+                smoothing_flag=int(config.intra_smoothing),
+                entropy_idx=_ENTROPY_IDX[config.entropy_coder],
+                deblock_flag=int(config.deblock),
+                mode_mpm_flag=1,  # per-frame slices code modes with MPM
+                # every frame must then carry its SAO NAL or fail decode
+                sao_flag=int(config.sao or config.sao_ctb),
+            )
+
+        self.header = b"".join(entropy.wrap_nal(t, params(which))
+                               for which, t in enumerate((
+                                   entropy.NAL_VPS, entropy.NAL_SPS,
+                                   entropy.NAL_PPS)))
+        self.frames_done = start
+        self.stopwatch = Stopwatch()
+        self.psnrs: List[float] = []
+        self._next = start              # index of the next frame pushed
+        self._staged: list = []
+        self._pending = None            # the dispatched, undrained batch
+        self._primed = self.controller is None
+        self._flushed = False
+        self._copy_stream = (torch.cuda.Stream(dev) if dev.type == "cuda"
+                             else None)
+
+    def push(self, y, u, v) -> List[Drained]:
+        """Stage one frame's planes (uint8, or int16 holding 8-bit
+        samples); returns the batches drained meanwhile."""
+        if self._flushed:
+            raise RuntimeError("push after flush(): the sequence has ended")
+        self._staged.append((y, u, v))
+        if len(self._staged) < self.batch:
+            return []
+        return self._cycle()
+
+    def flush(self) -> List[Drained]:
+        """Dispatch the staged part-batch, padded with copies of its last
+        frame, and drain everything; returns the batches drained.  The
+        sequence ends here."""
+        drained = self._cycle() if self._staged else []
+        if self._pending is not None:
+            drained.append(self._drain(self._pending))
+            self._pending = None
+        self._flushed = True
+        return drained
+
+    def _cycle(self) -> List[Drained]:
+        """Dispatch the staged batch, then drain the one before it; the
+        first batch under rate control drains at once (the primed
+        feedback loop corrects a badly seeded QP after one batch)."""
+        batch = self._dispatch()
+        drained = ([self._drain(self._pending)]
+                   if self._pending is not None else [])
+        self._pending = batch
+        if not self._primed:
+            self._primed = True
+            drained.append(self._drain(batch))
+            self._pending = None
+        return drained
+
+    def _dispatch(self) -> tuple:
+        """Upload and enqueue the staged frames as one device batch."""
+        planes, self._staged = self._staged, []
+        first, take = self._next, len(planes)
+        self._next += take
+        padded = planes + [planes[-1]] * (self.batch - take)
+        with self.stopwatch.time("dispatch"):
+            with span("seq.upload"):
+                ys = _upload(np.stack([p[0] for p in padded]), self.dev)
+                uvs = _upload(np.stack([p[1] for p in padded]
+                                       + [p[2] for p in padded]), self.dev)
+            y_out = self._luma(ys, self.qp)
+            c_out = self._chroma(uvs, self.qp)
+            fetch = _BatchFetch(y_out, c_out, self.dev)
+        return first, take, self.qp, fetch
+
+    def _drain(self, pending: tuple) -> Drained:
+        """Fetch a finished batch and entropy-code its frames."""
+        from nanohevc_tpu_torch.runtime import bitstream, entropy
+
+        first, take, batch_qp, fetch = pending
+        config, batch = self.config, self.batch
+        with self.stopwatch.time("fetch"):
+            y_levels, y_modes, c_levels, c_modes, psnr, filters = (
+                fetch.fetch(self._copy_stream))
+            self.psnrs.extend(float(v) for v in psnr[:take])
+        units = []
+        with self.stopwatch.time("entropy"):
+            cb = config.chroma_block_size()
+            for i in range(take):
+                sao_i = sao_ctb_i = None
+                if config.sao:
+                    y_sao, c_sao = filters["y", "sao"], filters["c", "sao"]
+                    sao_i = {
+                        "Y": tuple(a[i] for a in y_sao),
+                        "U": tuple(a[i] for a in c_sao),
+                        "V": tuple(a[batch + i] for a in c_sao),
+                    }
+                if config.sao_ctb:
+                    t_ = config.sao_tile
+                    y_ctb = filters["y", "sao_ctb"]
+                    c_ctb = filters["c", "sao_ctb"]
+                    sao_ctb_i = {
+                        "Y": (t_,) + tuple(a[i] for a in y_ctb),
+                        "U": (t_,) + tuple(a[i] for a in c_ctb),
+                        "V": (t_,) + tuple(a[batch + i] for a in c_ctb),
+                    }
+                frame_bs = bitstream.assemble_bitstream(
+                    self.width,
+                    self.height,
+                    batch_qp,
+                    {
+                        "Y": (y_levels[i], config.block_size),
+                        "U": (c_levels[i], cb),
+                        "V": (c_levels[batch + i], cb),
+                    },
+                    {
+                        "Y": y_modes[i],
+                        "U": c_modes[i],
+                        "V": c_modes[batch + i],
+                    },
+                    scan=config.scan,
+                    entropy_tiles=self.entropy_tiles,
+                    entropy_coder=config.entropy_coder,
+                    sao=sao_i,
+                    sao_ctb=sao_ctb_i,
+                )
+                # assemble_bitstream repeats parameter sets per call;
+                # strip them here (sequence carries one global set)
+                aud = entropy.wrap_nal(
+                    NAL_AUD, struct.pack("<I", first + i))
+                units.append((first + i, aud + _strip_param_sets(frame_bs)))
+        if self.controller is not None and take == batch:
+            self.qp = self.controller.update(
+                8 * sum(len(unit) for _, unit in units))
+        self.frames_done = first + take
+        return Drained(units, self.frames_done, self.qp)
 
 
 def encode_sequence(
@@ -202,64 +487,13 @@ def encode_sequence(
 ) -> SequenceResult:
     """Encode `num_frames` frames of a YUV420p file to a bitstream.
 
-    closed_loop=True uses the reconstruction-fed wavefront encoder, so
-    the resulting stream is pixel-exactly decodable (decode_sequence);
-    open loop (default) matches reference semantics and is faster.
-
-    target_bpp enables one-pass rate control: a RateController
-    (models/rate_control.py) adjusts QP between batches to average
-    `target_bpp` bits per luma pixel; per-slice qp fields carry the
-    schedule to the decoder.  config.qp seeds the controller.  Rate
-    control keeps the dispatch/drain software pipeline with one batch
-    of lag (batch i's coded size sets batch i+2's QP -- i+1 is already
-    in flight when i drains); the kernels take each batch's QP at
-    launch.  Runs on `device` ("cuda" by default; "cpu" runs the
-    kernels' plain versions).
+    The frames go through a `SequenceEncoder` (closed loop, rate
+    control, mesh and device as it takes them); this reads the file a
+    batch at a time, writes the header and each access unit, and the
+    sidecar after each drained batch.  With `resume`, a valid sidecar
+    continues the sequence from its frame count, its byte count and its
+    QP.
     """
-    from nanohevc_tpu_torch.parallel.mesh import canonical_device
-    from nanohevc_tpu_torch.parallel.sharding import (
-        make_batch_encoder,
-        make_closed_loop_encoder,
-    )
-    from nanohevc_tpu_torch.runtime import entropy
-    from nanohevc_tpu_torch.runtime.bitstream import (
-        _ENTROPY_IDX,
-        _SCAN_IDX,
-        assemble_bitstream,
-    )
-
-    dev = resolve_device(device)
-    if mesh is not None and canonical_device(dev) != mesh.devices.flat[0]:
-        raise ValueError(
-            f"device {str(dev)!r} is not the mesh's first device "
-            f"{str(mesh.devices.flat[0])!r}, where the mesh encoders "
-            "gather their outputs")
-    if (config.deblock or config.sao or config.sao_ctb) and not closed_loop:
-        # the signalled filters would make the decoder transform a
-        # reconstruction the open-loop encoder never produced -- refuse
-        raise ValueError("config.deblock/config.sao/config.sao_ctb "
-                         "require closed_loop=True (in-loop filters on "
-                         "the decodable recon)")
-    if closed_loop:
-        if mesh is not None:
-            # the luma batch and the 2*batch chroma stack must divide
-            # the mesh's 'frame' axis
-            f_axis = mesh.shape["frame"]
-            if batch % f_axis:
-                raise ValueError(
-                    f"closed-loop sequence batch {batch} must be a "
-                    f"multiple of the mesh 'frame' axis ({f_axis})"
-                )
-        luma_fn = make_closed_loop_encoder(config, mesh, is_luma=True)
-        chroma_fn = make_closed_loop_encoder(config, mesh, is_luma=False)
-    else:
-        luma_fn = make_batch_encoder(
-            config, mesh, is_luma=True, honor_runtime_qp=target_bpp is not None
-        )
-        chroma_fn = make_batch_encoder(
-            config, mesh, is_luma=False, honor_runtime_qp=target_bpp is not None
-        )
-
     progress_path = bitstream_path + ".progress"
     start, valid_bytes, saved_qp = (0, 0, None)
     if resume:
@@ -267,35 +501,13 @@ def encode_sequence(
             progress_path, bitstream_path
         )
     start = min(start, num_frames)
+    resumed_qp = saved_qp if start > 0 else None
+    enc = SequenceEncoder(
+        config, width, height, batch=batch, closed_loop=closed_loop,
+        mesh=mesh, target_bpp=target_bpp, entropy_tiles=entropy_tiles,
+        device=device, start=start,
+        qp=resumed_qp if target_bpp is not None else None)
 
-    controller = None
-    cur_qp = config.qp
-    if target_bpp is not None:
-        from nanohevc_tpu_torch.models.rate_control import RateController
-
-        if start > 0 and saved_qp is not None:
-            cur_qp = saved_qp           # resume the controller state
-        controller = RateController(
-            target_bits=target_bpp * width * height * batch,
-            qp=cur_qp,
-        )
-
-    def _params(which: int) -> bytes:
-        return entropy.write_params(
-            width, height, config.block_size, config.qp, which,
-            bit_depth=config.bit_depth, scan_idx=_SCAN_IDX[config.scan],
-            rescale_flag=int(config.dequant_rescale),
-            smoothing_flag=int(config.intra_smoothing),
-            entropy_idx=_ENTROPY_IDX[config.entropy_coder],
-            deblock_flag=int(config.deblock),
-            mode_mpm_flag=1,  # per-frame slices code modes with MPM
-            # every frame must then carry its SAO NAL or fail decode
-            sao_flag=int(config.sao or config.sao_ctb),
-        )
-
-    sw = Stopwatch()
-    psnrs: List[float] = []
-    copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
     mode_flags = "r+b" if (start > 0 and os.path.exists(bitstream_path)) else "wb"
     t_run = time.perf_counter()
     with open(bitstream_path, mode_flags) as out:
@@ -303,140 +515,51 @@ def encode_sequence(
             out.truncate(valid_bytes)
             out.seek(valid_bytes)
         else:
-            header = (
-                entropy.wrap_nal(entropy.NAL_VPS, _params(0))
-                + entropy.wrap_nal(entropy.NAL_SPS, _params(1))
-                + entropy.wrap_nal(entropy.NAL_PPS, _params(2))
-            )
-            out.write(header)
+            out.write(enc.header)
 
-        def dispatch(first: int):
-            """Load + enqueue one device batch; returns pending handle."""
-            take = min(batch, num_frames - first)
-            with sw.time("load"):
-                planes = list(_read_frames(input_path, width, height, first, take))
-            if not planes:
-                return None
-            take = len(planes)
-            # pad ragged tail batches to the full batch size
-            padded = planes + [planes[-1]] * (batch - take)
-            ys = np.stack([p[0] for p in padded])          # uint8
-            uvs = np.stack(
-                [p[1] for p in padded] + [p[2] for p in padded]
-            )
-            with sw.time("dispatch"):
-                y_out = luma_fn(_upload(ys, dev), cur_qp)
-                c_out = chroma_fn(_upload(uvs, dev), cur_qp)
-                fetch = _BatchFetch(y_out, c_out, dev)
-            return first, take, cur_qp, fetch
+        def emit(drained: List[Drained]) -> None:
+            """Write each batch's units, then its sidecar."""
+            for d in drained:
+                out.write(b"".join(unit for _, unit in d.units))
+                out.flush()
+                with open(progress_path, "w") as pf:
+                    json.dump({"frames_done": d.frames_done,
+                               "bytes_written": out.tell(), "qp": d.qp}, pf)
+                if report_every and (d.frames_done - start) % report_every == 0:
+                    print(f"  frame {d.frames_done}/{num_frames}", flush=True)
 
-        def drain(pending) -> int:
-            """Fetch a finished batch, entropy-code it, append, checkpoint."""
-            nonlocal cur_qp
-            first, take, batch_qp, fetch = pending
-            with sw.time("fetch"):
-                y_levels, y_modes, c_levels, c_modes, psnr, filters = (
-                    fetch.fetch(copy_stream))
-                y_levels, y_modes = y_levels[:take], y_modes[:take]
-                psnrs.extend(float(v) for v in psnr[:take])
-            batch_bytes = 0
-            with sw.time("entropy"):
-                cb = config.chroma_block_size()
-                for i in range(take):
-                    aud = entropy.wrap_nal(NAL_AUD, struct.pack("<I", first + i))
-                    sao_i = sao_ctb_i = None
-                    if config.sao:
-                        y_sao, c_sao = filters["y", "sao"], filters["c", "sao"]
-                        sao_i = {
-                            "Y": tuple(a[i] for a in y_sao),
-                            "U": tuple(a[i] for a in c_sao),
-                            "V": tuple(a[batch + i] for a in c_sao),
-                        }
-                    if config.sao_ctb:
-                        t_ = config.sao_tile
-                        y_ctb = filters["y", "sao_ctb"]
-                        c_ctb = filters["c", "sao_ctb"]
-                        sao_ctb_i = {
-                            "Y": (t_,) + tuple(a[i] for a in y_ctb),
-                            "U": (t_,) + tuple(a[i] for a in c_ctb),
-                            "V": (t_,) + tuple(a[batch + i] for a in c_ctb),
-                        }
-                    frame_bs = assemble_bitstream(
-                        width,
-                        height,
-                        batch_qp,
-                        {
-                            "Y": (y_levels[i], config.block_size),
-                            "U": (c_levels[i], cb),
-                            "V": (c_levels[batch + i], cb),
-                        },
-                        {
-                            "Y": y_modes[i],
-                            "U": c_modes[i],
-                            "V": c_modes[batch + i],
-                        },
-                        scan=config.scan,
-                        entropy_tiles=entropy_tiles,
-                        entropy_coder=config.entropy_coder,
-                        sao=sao_i,
-                        sao_ctb=sao_ctb_i,
-                    )
-                    # assemble_bitstream repeats parameter sets per call;
-                    # strip them here (sequence carries one global set)
-                    frame_bs = _strip_param_sets(frame_bs)
-                    out.write(aud + frame_bs)
-                    batch_bytes += len(aud) + len(frame_bs)
-            if controller is not None and take == batch:
-                cur_qp = controller.update(batch_bytes * 8)
-            out.flush()
-            with open(progress_path, "w") as pf:
-                json.dump(
-                    {"frames_done": first + take, "bytes_written": out.tell(),
-                     "qp": cur_qp}, pf
-                )
-            if report_every and (first + take - start) % report_every == 0:
-                print(f"  frame {first + take}/{num_frames}", flush=True)
-            return first + take
-
-        done = start
-        # Software pipeline: batch i+1 is enqueued on the device before
-        # batch i's results are fetched and entropy-coded on the host.
-        # Rate control rides the same pipeline with one batch of lag:
-        # batch i's coded size (known at drain time) sets the QP of
-        # batch i+2.
-        pending = dispatch(done) if done < num_frames else None
-        if controller is not None and pending is not None:
-            # Prime the feedback loop: drain the first batch before
-            # enqueueing the second, so a badly-seeded QP is corrected
-            # after ONE batch; only the steady state carries the lag.
-            done = drain(pending)
-            pending = dispatch(done) if done < num_frames else None
-        while pending is not None:
-            nxt_first = pending[0] + pending[1]
-            nxt = dispatch(nxt_first) if nxt_first < num_frames else None
-            done = drain(pending)
-            pending = nxt
-
+        if start < num_frames:
+            frames = _read_frames(input_path, width, height, start,
+                                  num_frames - start)
+            while True:
+                with enc.stopwatch.time("load"):
+                    chunk = list(itertools.islice(frames, batch))
+                for planes in chunk:
+                    emit(enc.push(*planes))
+                if len(chunk) < batch:
+                    break
+            emit(enc.flush())
         bytes_written = out.tell()
 
+    done = enc.frames_done
     wall = time.perf_counter() - t_run
-    stats = sw.report()
+    stats = enc.stopwatch.report()
     stats["throughput"] = throughput_stats(
         (done - start) * width * height * 3 // 2, wall
     )
-    if controller is not None and done > start:
+    if enc.controller is not None and done > start:
         stats["rate_control"] = {
             "target_bpp": target_bpp,
             "achieved_bpp": (bytes_written - valid_bytes) * 8
             / ((done - start) * width * height),
-            "qp_start": config.qp if start == 0 or saved_qp is None else saved_qp,
-            "qp_final": cur_qp,
+            "qp_start": config.qp if resumed_qp is None else resumed_qp,
+            "qp_final": enc.qp,
         }
     return SequenceResult(
         frames=done,
         resumed_from=start,
         bytes_written=bytes_written,
-        mean_psnr_y=float(np.mean(psnrs)) if psnrs else float("nan"),
+        mean_psnr_y=float(np.mean(enc.psnrs)) if enc.psnrs else float("nan"),
         stats=stats,
     )
 
@@ -446,13 +569,15 @@ def _strip_param_sets(frame_bs: bytes) -> bytes:
     from nanohevc_tpu_torch.runtime import entropy
     from nanohevc_tpu_torch.runtime.bitstream import _split_nals
 
-    out = []
-    # re-wrap surviving NALs (payloads round-trip through unescape/escape)
-    for nal_type, payload in _split_nals(frame_bs):
-        if nal_type in (32, 33, 34):
-            continue
-        out.append(entropy.wrap_nal(nal_type, payload))
-    return b"".join(out)
+    with span("seq.strip"):
+        out = []
+        # re-wrap surviving NALs (payloads round-trip through
+        # unescape/escape)
+        for nal_type, payload in _split_nals(frame_bs):
+            if nal_type in (32, 33, 34):
+                continue
+            out.append(entropy.wrap_nal(nal_type, payload))
+        return b"".join(out)
 
 
 def decode_sequence(bitstream_path: str, output_path: str, *,

@@ -19,13 +19,18 @@ the definition of prefix_len.  The JAX package compiles one slice
 program per bucket; here the slice is a plain tensor slice.  The
 fetch runs on the current stream: the sequence runner issues it on a
 copy stream of its own, ordered after the batch's event only (see
-`models.sequence`).
+`models.sequence`).  While a torch profiler records, the bytes each
+fetch brings to the host (the header where it is still on the device,
+then the prefix or the dense fallback) count as "frame.bytes_down"
+(`utils.tracing.count`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from nanohevc_tpu_torch.utils.tracing import count
 
 __all__ = ["compact_levels", "fetch_levels"]
 
@@ -72,15 +77,21 @@ def fetch_levels(sparse: dict, shape, dense=None) -> np.ndarray:
             "fetch_levels requires the dense device tensor to slice "
             "the occupied prefix from"
         )
-    header = sparse["header"].cpu().numpy()
+    header = sparse["header"]
+    if header.device.type != "cpu":
+        count("frame.bytes_down", header.nbytes)
+    header = header.cpu().numpy()
     need, max_abs = int(header[0]), int(header[1])
     if max_abs > np.iinfo(np.int16).max:
-        return dense.to(torch.int32).cpu().numpy().reshape(shape)
+        full = dense.to(torch.int32).cpu().numpy()
+        count("frame.bytes_down", full.nbytes)
+        return full.reshape(shape)
     if need <= 0:
         return np.zeros(shape, np.int32)
     ncoef = int(shape[-1])
     p = _bucket(need, ncoef)
     pre = dense[..., :p].to(torch.int16).cpu().numpy()
+    count("frame.bytes_down", pre.nbytes)
     if p >= ncoef:
         return pre.astype(np.int32).reshape(shape)
     out = np.zeros(shape, np.int32)

@@ -3,7 +3,8 @@
 - span(name): one stage of a frame call ("frame.upload", "frame.fetch",
   "frame.convert", "entropy.sao", "entropy.modes", "entropy.scan",
   "entropy.residual"; "wavefront.launch", the wavefront kernel
-  wrapper's host work on the card's path).  While a torch profiler
+  wrapper's host work on the card's path) or of the sequence runner
+  ("seq.upload", "seq.fetch", "seq.strip").  While a torch profiler
   records, it opens the host range "nhevc.<name>" in the profiler's
   trace, on the clock of every kernel and copy on the card, and adds
   its host time to `SPANS`;
@@ -13,9 +14,9 @@
   annotation onto the card's timeline over the work launched inside it,
   and a stage that waits for the card would then read as device time;
 - count(name, n): adds n to `COUNTS[name]` while a profiler records
-  (the bytes a frame call moves: "frame.bytes_up", "frame.bytes_down";
-  the times its host waits for the card's outputs: "frame.waits"; the
-  blocks the CABAC coder reads in their scan order:
+  (the bytes a frame call, or a sequence batch, moves: "frame.bytes_up",
+  "frame.bytes_down"; the times its host waits for the card's outputs:
+  "frame.waits"; the blocks the CABAC coder reads in their scan order:
   "entropy.scan_order_blocks"; the blocks the wavefront kernel codes,
   over each batch's padded geometry: "wavefront.blocks");
 - reset(): empties `SPANS` and `COUNTS`;
